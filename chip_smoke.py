@@ -7,18 +7,30 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
 (no JAX).  Phases, each of which fails the run with a traceback:
 
 1. report the card (name and power limit, as nvidia-smi gives them);
-2. build the CUDA kernels from the sources in the checkout (nvcc, sm_90a);
-3. hold each kernel against its plain PyTorch version on the card, at the
-   paper config's shape [40, 13890] and at ragged shapes, and require
+2. build the four CUDA libraries from the sources in the checkout (one
+   nvcc per source, all at once, sm_90a);
+3. hold the DP kernels against their plain PyTorch versions on the card, at
+   the paper config's shape [40, 13890] and at ragged shapes, and require
    ``sumsq_rows`` to repeat bitwise;
-4. drive the main path: ``run_fl_legacy`` on the paper's config (40
-   clients, hidden 128, unsw) for 10 rounds, counting kernel launches;
+4. drive the FL path: ``run_fl_legacy`` on the paper's config (40 clients,
+   hidden 128, unsw) for 10 rounds, counting kernel launches;
 5. run 3 rounds on the card and on the CPU from the same state with the
    same draws, and compare;
-6. time each kernel, its plain version and the library yardstick with CUDA
-   events and print the ``kernels`` JSON line;
-7. profile 3 warm rounds with ``torch.profiler`` (device busy share, spans,
-   heaviest kernels).
+6. time the DP kernels, their plain versions and the library yardsticks
+   with CUDA events;
+7. profile 3 warm FL rounds with ``torch.profiler`` (device busy share,
+   spans, heaviest kernels);
+8. hold ``flash_attention``, ``flash_decode`` (with its shard partials and
+   their merge) and ``rglru_scan`` (bitwise, and bitwise across runs)
+   against their plain versions on the card;
+9. drive the serving path for ``attn`` and ``ssm``: train a checkpoint with
+   ``run_fl_legacy`` on ``road_raw`` at hidden 64, load it into a
+   ``ServeEngine`` with buckets (16, 128) and stream 9,000 windows in
+   bursts of 37, counting kernel launches; check the scores against the
+   scorer on the same bucket batches (bitwise), one unpadded call (1e-6)
+   and the CPU engine (1e-5); time the batch-1 loop; profile one pass;
+10. time the sequence kernels at the serving path's shapes (B = 128) and
+   print the ``kernels`` JSON line for all five kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -42,6 +54,10 @@ FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet, fp32 outside tensor cores
 SLICE_ROWS, SLICE_P = 40, 13_890
 PAPER_EPS_10_ROUNDS = 11.345620277107383  # reference accounted_epsilon(fl, 10)
 ROUNDS = 10
+SERVE_ROUNDS = 30          # the serve CLI's default training rounds
+SERVE_REPEAT = 6           # replays of the 1,500 test windows: 9,000 windows
+SERVE_BUCKETS = (16, 128)
+SERVE_CHUNK = 37
 SPANS = ("fl.batches", "fl.round_step", "fl.sim_time", "fl.eval",
          "selection", "local_train", "dp_privatize", "aggregate")
 
@@ -110,6 +126,25 @@ def device_ms(fn, iters: int = 100, reps: int = 7) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def bound(bytes_moved, flops):
+    """The least time (ms) the card could take: bytes over HBM bandwidth or
+    fp32 operations over the fp32 peak, whichever is larger."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed(kernel, plain, library):
+    """Device times (CUDA-graph replay) of the kernel, its plain version and
+    the library yardstick, and the same calls issued one by one."""
+    out = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+           "library_ms": None if library is None else device_ms(library),
+           "eager_ms": eager_ms(kernel), "eager_plain_ms": eager_ms(plain)}
+    if library is not None:
+        out["eager_library_ms"] = eager_ms(library)
+    return out
 
 
 def phase_kernels_vs_plain(torch, dpk, ref, ops):
@@ -247,7 +282,7 @@ def phase_card_vs_cpu(torch, fed, fl, dpk):
 
 
 def phase_timing(torch, dpk, ref, errs, launches):
-    """Phase 6: times at [40, 13890] and the kernels JSON line.
+    """Phase 6: times at [40, 13890] (rows of the kernels JSON line).
 
     ``ms``/``plain_ms``/``library_ms`` are device times (CUDA-graph replay);
     the ``eager_*`` keys are the same calls issued one by one from Python.
@@ -261,19 +296,6 @@ def phase_timing(torch, dpk, ref, errs, launches):
     scale = ref.clip_scale(torch.sqrt(ref.sumsq_rows_ref(x)), 1.0)
     sn = sigma * nz
     scale_col = scale[:, None]
-
-    def bound(bytes_moved, flops):
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-    def timed(kernel, plain, library):
-        out = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
-               "library_ms": None if library is None else device_ms(library),
-               "eager_ms": eager_ms(kernel), "eager_plain_ms": eager_ms(plain)}
-        if library is not None:
-            out["eager_library_ms"] = eager_ms(library)
-        return out
 
     rows = []
     b_sq, by_sq = bound(4 * r * p + 4 * r, 2 * r * p)
@@ -305,11 +327,30 @@ def phase_timing(torch, dpk, ref, errs, launches):
     return rows
 
 
+def profile_summary(events, span_names):
+    """From ``torch.profiler`` events: the device-side events (kernels and
+    copies; the ``record_function`` spans also show up on the device
+    timeline, as annotations, and are left out), their busy ms, the host
+    ms of each span, and (calls, device ms) per kernel name."""
+    from torch.autograd import DeviceType
+    device = [e for e in events
+              if e.device_type == DeviceType.CUDA and e.name not in span_names]
+    busy_ms = sum(e.device_time_total for e in device) / 1e3
+    spans = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in span_names:
+            spans[e.name] = spans.get(e.name, 0.0) + e.cpu_time_total / 1e3
+    by_kernel = {}
+    for e in device:
+        n, t = by_kernel.get(e.name, (0, 0.0))
+        by_kernel[e.name] = (n + 1, t + e.device_time_total / 1e3)
+    return device, busy_ms, spans, by_kernel
+
+
 def phase_profile(torch, fed, fl, run_fl_legacy, rounds: int = 3):
     """Phase 7: where a round's time goes.  ``torch.profiler`` over a warm
     3-round run: the card's busy share of the wall, run_fl_legacy's and round
     step's spans (host time per round), and the heaviest kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -320,20 +361,7 @@ def phase_profile(torch, fed, fl, run_fl_legacy, rounds: int = 3):
                       eval_every=1, hidden=128, device="cuda")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    # device-side activity: kernels and copies (the record_function spans
-    # also show up on the device timeline, as annotations; leave them out)
-    device = [e for e in events
-              if e.device_type == DeviceType.CUDA and e.name not in SPANS]
-    busy_ms = sum(e.device_time_total for e in device) / 1e3
-    spans = {}
-    for e in events:
-        if e.device_type == DeviceType.CPU and e.name in SPANS:
-            spans[e.name] = spans.get(e.name, 0.0) + e.cpu_time_total / 1e3
-    by_kernel = {}
-    for e in device:
-        n, t = by_kernel.get(e.name, (0, 0.0))
-        by_kernel[e.name] = (n + 1, t + e.device_time_total / 1e3)
+    device, busy_ms, spans, by_kernel = profile_summary(prof.events(), SPANS)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
     out = {
         "rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
@@ -361,6 +389,312 @@ def phase_profile(torch, fed, fl, run_fl_legacy, rounds: int = 3):
     return out
 
 
+# (b, s, t, hq, hkv, d, causal, window): the grid of tests/test_kernels.py,
+# the attn detector's path shape, a ragged S = T = 100 and a causal offset
+FA_PATH = (128, 64, 64, 2, 2, 8, True, None)
+FA_CASES = [(1, 128, 128, 4, 4, 64, True, None),
+            (2, 256, 256, 8, 2, 64, True, None),
+            (1, 256, 256, 4, 1, 128, True, 64),
+            (1, 128, 128, 4, 2, 32, False, None),
+            (2, 192, 192, 6, 3, 64, True, None),
+            FA_PATH,
+            (3, 100, 100, 4, 2, 16, True, None),
+            (2, 64, 128, 2, 2, 8, True, 24)]
+# (b, hq, hkv, d, t, length)
+FD_PATH = (128, 2, 2, 8, 64, 64)
+FD_CASES = [(1, 4, 4, 64, 256, 256), (2, 8, 2, 64, 512, 300),
+            (3, 4, 1, 128, 256, 17), FD_PATH]
+# (b, l, w, h0)
+RG_PATH = (128, 4, 512, True)
+RG_CASES = [(1, 128, 128, False), (2, 64, 96, True), (3, 64, 512, True),
+            (1, 4, 512, False), RG_PATH]
+
+
+def phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops):
+    """Phase 8.  Returns the max abs error per kernel at the path shapes
+    (f32)."""
+    gen = torch.Generator().manual_seed(7)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    errs = {}
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for case in FA_CASES:
+            b, s, t, hq, hkv, d, causal, window = case
+            q, k, v = (randn(b, s, hq, d, dtype=dtype),
+                       randn(b, t, hkv, d, dtype=dtype),
+                       randn(b, t, hkv, d, dtype=dtype))
+            o = fak.flash_attention(q, k, v, causal=causal, window=window)
+            o_ref = ref.flash_attention_ref(q, k, v, causal=causal,
+                                            window=window)
+            check(o.dtype == dtype, "flash_attention output dtype")
+            torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol,
+                                       atol=tol)
+            if case == FA_PATH and dtype == torch.float32:
+                errs["flash_attention"] = max_abs(o, o_ref)
+            print(f"  flash_attention {str(dtype)[6:]:>8} {case}: max|err| "
+                  f"{max_abs(o, o_ref):.2e}")
+        for case in FD_CASES:
+            b, hq, hkv, d, t, length = case
+            q, k, v = (randn(b, hq, d, dtype=dtype),
+                       randn(b, t, hkv, d, dtype=dtype),
+                       randn(b, t, hkv, d, dtype=dtype))
+            ln = torch.full((b,), length, dtype=torch.int32, device="cuda")
+            o, m, l = fdk.flash_decode(q, k, v, ln, return_partials=True)
+            o_ref, m_ref, l_ref = ref.flash_decode_ref(q, k, v, ln,
+                                                       return_partials=True)
+            torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol,
+                                       atol=tol)
+            torch.testing.assert_close(m, m_ref, rtol=2e-5, atol=2e-5)
+            torch.testing.assert_close(l, l_ref, rtol=2e-5, atol=2e-5)
+            if case == FD_PATH and dtype == torch.float32:
+                errs["flash_decode"] = max_abs(o, o_ref)
+            print(f"  flash_decode    {str(dtype)[6:]:>8} {case}: max|err| "
+                  f"{max_abs(o, o_ref):.2e}")
+    # the cache split into 4 shards, the last one empty for the first row:
+    # each shard's partials against the plain version, and their merge
+    # against the unsharded plain decode
+    b, hq, hkv, d, t, shards = 2, 8, 2, 64, 512, 4
+    q, k, v = randn(b, hq, d), randn(b, t, hkv, d), randn(b, t, hkv, d)
+    length = torch.tensor([300, 512], dtype=torch.int32, device="cuda")
+    per = t // shards
+    parts = []
+    for sh in range(shards):
+        ln = torch.clamp(length - sh * per, 0, per).to(torch.int32)
+        sl = slice(sh * per, (sh + 1) * per)
+        got = fdk.flash_decode(q, k[:, sl], v[:, sl], ln, return_partials=True)
+        want = ref.flash_decode_ref(q, k[:, sl], v[:, sl], ln,
+                                    return_partials=True)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, rtol=2e-5, atol=2e-5)
+        parts.append(got)
+    check(float(parts[-1][1][0, 0]) == float(torch.tensor(-1e30))
+          and float(parts[-1][2][0, 0]) == per,
+          "an empty shard must give m = -1e30 and l = T")
+    merged = ops.combine_decode_partials(
+        *(torch.stack([pt[i] for pt in parts]) for i in range(3)))
+    full = ref.flash_decode_ref(q, k, v, length)
+    check(bool(torch.isfinite(merged).all()), "merged partials not finite")
+    torch.testing.assert_close(merged, full, rtol=2e-5, atol=2e-5)
+    print(f"  flash_decode 4-shard partials + combine (empty shard): max|err| "
+          f"{max_abs(merged, full):.2e}")
+    for case in RG_CASES:
+        b, l, w, with_h0 = case
+        a = torch.sigmoid(randn(b, l, w))
+        x = randn(b, l, w)
+        h0 = randn(b, w) if with_h0 else None
+        h, h_last = rgk.rglru_scan(a, x, h0)
+        h_ref, hl_ref = ref.rglru_scan_ref(a, x, h0)
+        check(torch.equal(h, h_ref) and torch.equal(h_last, hl_ref),
+              f"rglru_scan not bitwise equal to the plain version at {case}")
+        h2, hl2 = rgk.rglru_scan(a, x, h0)
+        check(torch.equal(h, h2) and torch.equal(h_last, hl2),
+              f"rglru_scan not bitwise repeatable at {case}")
+        if case == RG_PATH:
+            errs["rglru_scan"] = max_abs(h, h_ref)
+        print(f"  rglru_scan {case}: bitwise equal to plain, bitwise repeat")
+    torch.cuda.synchronize()
+    return errs
+
+
+def phase_serve(torch, name, fed, seq_kernels):
+    """Phase 9, one model: train a checkpoint, serve the test windows
+    through the engine on the card, count launches, check the scores."""
+    import numpy as np
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.models.spec import meta_for
+    from repro_torch.serve import (ServeEngine, batches_of,
+                                   save_serving_checkpoint)
+    from repro_torch.serve.engine import _get_scorer
+    from repro_torch.train.fl_driver import run_fl_legacy
+
+    # the serve CLI's training config (python -m repro_torch.serve)
+    fl = FLConfig(n_clients=fed.n_clients,
+                  clients_per_round=max(4, fed.n_clients // 5),
+                  rounds=SERVE_ROUNDS, local_epochs=2, local_batch=32,
+                  local_lr=0.08, dp_enabled=False, fault_tolerance=False,
+                  model=name)
+    t0 = time.perf_counter()
+    res = run_fl_legacy(fed, fl, "random", seed=0, rounds=SERVE_ROUNDS,
+                        eval_every=max(SERVE_ROUNDS // 4, 1),
+                        dataset="road_raw", hidden=64, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    print(f"  trained {name} for {SERVE_ROUNDS} rounds in {train_s:.1f} s: "
+          f"acc={res.accuracy:.4f} auc={res.auc:.4f}")
+    path = save_serving_checkpoint(
+        str(ROOT / "chiprun_out" / "serve_ckpt" / f"serve_{name}_road_raw"),
+        res.params, name, meta_for(fed, hidden=64))
+    eng = ServeEngine.from_checkpoint(path, buckets=SERVE_BUCKETS)
+    eng.warmup()
+    windows = np.asarray(fed.test_x, np.float32)
+
+    def stream(repeat=SERVE_REPEAT):
+        for _ in range(repeat):
+            for i in range(0, windows.shape[0], SERVE_CHUNK):
+                yield windows[i:i + SERVE_CHUNK]
+
+    for mod in seq_kernels:
+        mod.reset_launches()
+    rep = eng.score_stream(stream())
+    torch.cuda.synchronize()
+    launches = {k: n for mod in seq_kernels for k, n in mod.LAUNCHES.items()}
+
+    n = windows.shape[0]
+    check(rep.n_windows == SERVE_REPEAT * n, f"{name}: n_windows "
+          f"{rep.n_windows} != {SERVE_REPEAT * n}")
+    check(bool(np.all(np.isfinite(rep.scores))), f"{name}: non-finite scores")
+    check(bool(np.all((rep.scores >= 0) & (rep.scores <= 1))),
+          f"{name}: scores outside [0, 1]")
+    want = ({"flash_attention": rep.n_batches, "flash_decode": rep.n_batches,
+             "rglru_scan": 0} if name == "attn" else
+            {"flash_attention": 0, "flash_decode": 0,
+             "rglru_scan": 2 * rep.n_batches})
+    check(launches == want, f"{name}: launches {launches} != {want} for "
+          f"{rep.n_batches} batches")
+    check(all(v > 0 for v in want.values() if v) and rep.n_batches > 0,
+          f"{name}: a kernel of the path was never launched")
+    # batching and the feed change no bits: the same scorer on the same
+    # padded bucket batches
+    again = []
+    for xb, n_valid in batches_of(stream(), eng.buckets):
+        scorer = _get_scorer(eng.spec, eng.meta, xb.shape[0], eng.route)
+        again.append(scorer(eng.params, torch.as_tensor(xb, device="cuda")
+                            )[:n_valid].cpu().numpy())
+    check(np.array_equal(np.concatenate(again), rep.scores),
+          f"{name}: served scores differ from the scorer on the same batches")
+    with torch.no_grad():
+        single = eng.spec.predict_proba_routed(
+            eng.params, torch.as_tensor(windows, device="cuda"),
+            "kernel")[:, 1].cpu().numpy()
+    err_single = float(np.abs(single - rep.scores[:n]).max())
+    check(err_single <= 1e-6, f"{name}: served vs one unpadded call "
+          f"{err_single:.3e} > 1e-6")
+    cpu_scores = ServeEngine.from_checkpoint(
+        path, buckets=SERVE_BUCKETS, device="cpu").score(windows)
+    err_cpu = float(np.abs(cpu_scores - rep.scores[:n]).max())
+    check(err_cpu <= 1e-5, f"{name}: card vs CPU scores {err_cpu:.3e} > 1e-5")
+    naive = eng.score_naive(windows[:384])
+    err_naive = float(np.abs(naive.scores - rep.scores[:384]).max())
+    check(err_naive <= 1e-6, f"{name}: batch-1 vs served {err_naive:.3e}")
+    prof = serve_profile(torch, eng, lambda: stream(1))
+    out = {
+        "model": name, "train_rounds": SERVE_ROUNDS, "train_s": train_s,
+        "train_acc": res.accuracy, "train_auc": res.auc,
+        "n_windows": rep.n_windows, "n_batches": rep.n_batches,
+        "windows_per_s": rep.windows_per_sec, "p50_ms": rep.p50_s * 1e3,
+        "p99_ms": rep.p99_s * 1e3, "wall_s": rep.wall_s,
+        "launches": launches, "max_abs_vs_unpadded": err_single,
+        "max_abs_card_vs_cpu": err_cpu,
+        "naive_windows_per_s": naive.windows_per_sec,
+        "naive_p50_ms": naive.p50_s * 1e3, "profile": prof,
+    }
+    print(f"  {name}: {rep.n_windows} windows in {rep.n_batches} batches: "
+          f"{rep.windows_per_sec:,.0f} windows/s, "
+          f"p50 {rep.p50_s * 1e3:.3f} ms, p99 {rep.p99_s * 1e3:.3f} ms; "
+          f"batch-1 loop {naive.windows_per_sec:,.0f} windows/s")
+    print(f"  {name}: launches {launches}; served = scorer on the same "
+          f"batches (bitwise); vs one unpadded call {err_single:.2e}; card vs "
+          f"CPU {err_cpu:.2e}; batch-1 vs served {err_naive:.2e}")
+    return out
+
+
+def serve_profile(torch, eng, stream):
+    """``torch.profiler`` over one pass of the stream: the card's busy share
+    of the wall and the heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spans = ("serve.score_stream", "serve.dispatch")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = eng.score_stream(stream())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device, busy_ms, span_ms, by_kernel = profile_summary(prof.events(), spans)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+    out = {"windows": rep.n_windows, "batches": rep.n_batches,
+           "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / wall_ms,
+           "device_ops_per_batch": len(device) / rep.n_batches,
+           "span_host_ms": span_ms,
+           "top_kernels": [{"name": k[:80], "calls": c, "device_ms": t}
+                           for k, (c, t) in top]}
+    print(f"  {eng.spec.name} profile: {rep.n_windows} windows, wall "
+          f"{wall_ms:.1f} ms, device busy {busy_ms:.2f} ms (share "
+          f"{busy_ms / wall_ms:.3f}), "
+          f"{out['device_ops_per_batch']:.0f} device ops per batch")
+    for k in out["top_kernels"]:
+        print(f"    kernel {k['name']}: {k['calls']} calls, "
+              f"{k['device_ms']:.3f} ms")
+    return out
+
+
+def phase_seq_timing(torch, fak, fdk, rgk, ref, errs, launches):
+    """Phase 10: the sequence kernels at the serving path's shapes (the
+    128-window bucket), rows of the kernels JSON line."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator().manual_seed(9)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+
+    rows = []
+    b, s, t, hq, hkv, d, _, _ = FA_PATH
+    q, k, v = randn(b, s, hq, d), randn(b, t, hkv, d), randn(b, t, hkv, d)
+    qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+    pairs = s * (s + 1) // 2          # causal (query, key) pairs, S = T
+    b_fa, by_fa = bound(4 * 4 * b * s * hq * d, 4 * d * pairs * b * hq)
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:103",
+        "launches": launches["flash_attention"],
+        "max_abs_err": errs["flash_attention"],
+        "bound_ms": b_fa, "bound_by": by_fa,
+        **timed(lambda: fak.flash_attention(q, k, v, causal=True),
+                lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                lambda: sdpa(qt, kt, vt, is_causal=True)),
+    })
+    b, hq, hkv, d, t, length = FD_PATH
+    q, k, v = randn(b, hq, d), randn(b, t, hkv, d), randn(b, t, hkv, d)
+    ln = torch.full((b,), length, dtype=torch.int32, device="cuda")
+    q4 = q[:, :, None, :].contiguous()
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(t, device="cuda")[None] < ln[:, None])[:, None, None]
+    b_fd, by_fd = bound(4 * (2 * b * hq * d + 2 * b * t * hkv * d + 2 * b * hq)
+                        + 4 * b, 4 * d * length * b * hq)
+    rows.append({
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:102",
+        "launches": launches["flash_decode"],
+        "max_abs_err": errs["flash_decode"],
+        "bound_ms": b_fd, "bound_by": by_fd,
+        **timed(lambda: fdk.flash_decode(q, k, v, ln),
+                lambda: ref.flash_decode_ref(q, k, v, ln),
+                lambda: sdpa(q4, kt, vt, attn_mask=mask)),
+    })
+    b, l, w, _ = RG_PATH
+    a, x, h0 = torch.sigmoid(randn(b, l, w)), randn(b, l, w), randn(b, w)
+    b_rg, by_rg = bound(4 * (3 * b * l * w + 2 * b * w), 2 * b * l * w)
+    rows.append({
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:60",
+        "launches": launches["rglru_scan"],
+        "max_abs_err": errs["rglru_scan"],
+        "bound_ms": b_rg, "bound_by": by_rg,
+        # no single PyTorch call computes a sequential linear recurrence
+        **timed(lambda: rgk.rglru_scan(a, x, h0),
+                lambda: ref.rglru_scan_ref(a, x, h0), None),
+    })
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -368,8 +702,12 @@ def main() -> int:
         return 1
     from repro_torch.configs.paper_mlp import paper_fl_config
     from repro_torch.data.synthetic import make_federated
+    from repro_torch.kernels import _nvcc
     from repro_torch.kernels import dp_clip_noise as dpk
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.kernels import flash_decode as fdk
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as rgk
     from repro_torch.privacy.accountant import accounted_epsilon
     from repro_torch.train.fl_driver import fl_for_method, run_fl_legacy
 
@@ -378,16 +716,21 @@ def main() -> int:
     print(f"== 1. card: {card}  (torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)})")
 
-    info = dpk.build()
-    print(f"== 2. built {info['path'].name} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"  {line.strip()}")
+    t0 = time.perf_counter()
+    builds = _nvcc.build("dp_clip_noise", "flash_attention", "flash_decode",
+                         "rglru_scan")
+    print(f"== 2. built {len(builds)} libraries in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for lib, info in builds.items():
+        print(f"  {info['path'].name}: {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"    {line.strip()}")
 
-    print("== 3. kernels vs plain versions on the card")
+    print("== 3. DP kernels vs plain versions on the card")
     errs = phase_kernels_vs_plain(torch, dpk, ref, ops)
 
-    print(f"== 4. main path: run_fl_legacy, paper config, {ROUNDS} rounds")
+    print(f"== 4. FL path: run_fl_legacy, paper config, {ROUNDS} rounds")
     fed = make_federated(0, "unsw")
     fl = fl_for_method(paper_fl_config(), "proposed")
     res, launches, walls = phase_main_path(torch, fed, fl, run_fl_legacy, dpk,
@@ -396,30 +739,52 @@ def main() -> int:
     print("== 5. card vs CPU on the same draws, 3 rounds")
     phase_card_vs_cpu(torch, fed, fl, dpk)
 
-    print("== 6. kernel times at [40, 13890] (CUDA events)")
+    print("== 6. DP kernel times at [40, 13890] (CUDA events)")
     kernels = phase_timing(torch, dpk, ref, errs, launches)
-    for k in kernels:
-        print(f"  {k['name']}: device {k['ms'] * 1e3:.2f} us (eager "
-              f"{k['eager_ms'] * 1e3:.2f})  plain {k['plain_ms'] * 1e3:.2f} us "
-              f"(eager {k['eager_plain_ms'] * 1e3:.2f})  bound "
-              f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']})")
 
-    print("== 7. profile of 3 warm rounds (torch.profiler)")
+    print("== 7. profile of 3 warm FL rounds (torch.profiler)")
     profile = phase_profile(torch, fed, fl, run_fl_legacy)
+
+    print("== 8. sequence kernels vs plain versions on the card")
+    errs.update(phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops))
+
+    print(f"== 9. serving path: attn and ssm on road_raw, hidden 64, buckets "
+          f"{SERVE_BUCKETS}  ({card})")
+    road = make_federated(0, "road_raw", n_samples=6000, n_clients=20)
+    serve = {}
+    for name in ("attn", "ssm"):
+        serve[name] = phase_serve(torch, name, road, (fak, fdk, rgk))
+    serve_launches = {
+        "flash_attention": serve["attn"]["launches"]["flash_attention"],
+        "flash_decode": serve["attn"]["launches"]["flash_decode"],
+        "rglru_scan": serve["ssm"]["launches"]["rglru_scan"]}
+
+    print("== 10. sequence kernel times at the serving shapes (CUDA events)")
+    kernels += phase_seq_timing(torch, fak, fdk, rgk, ref, errs,
+                                serve_launches)
+    for k in kernels:
+        lib = ("none" if k["library_ms"] is None
+               else f"{k['library_ms'] * 1e3:.2f} us")
+        print(f"  {k['name']}: device {k['ms'] * 1e3:.2f} us (eager "
+              f"{k['eager_ms'] * 1e3:.2f})  plain "
+              f"{k['plain_ms'] * 1e3:.2f} us (eager "
+              f"{k['eager_plain_ms'] * 1e3:.2f})  library {lib}  bound "
+              f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']})  launches "
+              f"{k['launches']}")
 
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "build_s": info["seconds"], "kernels": kernels,
-        "round_wall_ms": walls, "profile": profile,
+        "build_s": {lib: info["seconds"] for lib, info in builds.items()},
+        "kernels": kernels, "round_wall_ms": walls, "profile": profile,
         "round_wall_ms_median_after_first": statistics.median(steady),
-        "history": res.history, "eps_spent": res.eps_spent,
+        "history": res.history, "eps_spent": res.eps_spent, "serve": serve,
         "total_s": time.perf_counter() - t_all,
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
-    print(f"  per-round wall (rounds 2-{ROUNDS}, median): "
+    print(f"  FL per-round wall (rounds 2-{ROUNDS}, median): "
           f"{record['round_wall_ms_median_after_first']:.2f} ms; "
           f"total {record['total_s']:.1f} s")
 

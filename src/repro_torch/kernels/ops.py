@@ -1,18 +1,35 @@
-"""Public wrappers over the DP clip+noise kernels (the counterpart of
-``repro/kernels/ops.py``'s ``dp_clip_noise`` / ``dp_clip_noise_tree``).
+"""Public wrappers over the port's kernels (the counterpart of
+``repro/kernels/ops.py``): the DP clip+noise, ``flash_attention``,
+``flash_decode`` with ``combine_decode_partials``, and ``rglru_scan``.
 
 The route is decided by the tensors' device alone: the CUDA kernels for
 CUDA tensors, the plain versions in ``kernels/ref.py`` for CPU tensors.
 σ is a Python float here (``core/rounds.py`` ``_dp_sigma``), so it goes to
 the kernel as an argument; there is no traced σ to fold into the noise.
+
+The sequence detectors' default score route is ``"kernel"`` on every
+device (:data:`DEFAULT_ROUTE`): on the CPU these wrappers already run the
+plain versions, so no by-backend switch is needed.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import dp_clip_noise as _dp
-from repro_torch.kernels.ref import clip_scale
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import rglru_scan as _rg
+from repro_torch.kernels.ref import clip_scale, combine_partials
 from repro_torch.tree import flatten_rows, unflatten_rows
+
+DEFAULT_ROUTE = "kernel"
+
+flash_attention = _fa.flash_attention
+flash_decode = _fd.flash_decode
+combine_decode_partials = combine_partials
+# bitwise equal to ref.rglru_scan_ref on every device, so the two score
+# routes of the ssm detector agree to the bit
+rglru_scan = _rg.rglru_scan
 
 
 def dp_clip_noise_rows(x: torch.Tensor, noise: torch.Tensor, clip: float,

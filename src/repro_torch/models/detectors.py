@@ -1,0 +1,214 @@
+"""Window-native sequence detectors on raw ROAD CAN windows: the port's copy
+of ``repro/models/detectors.py``'s ``ssm`` and ``attn`` (``cnn`` and
+``rglru`` are not ported yet).
+
+Both read ``make_federated(dataset="road_raw")`` windows, flat on the wire
+and unflattened through ``DataMeta.feature_shape`` to ``[window,
+signals]``, and both have two score routes (``ModelSpec.route_variants``):
+
+* ``ssm`` — a Mamba-2 detector (``models/ssm.py``): embed the signals, one
+  ``ssd_block`` mixer, residual, mean+last+max pooling; the score path
+  averages two circular time-rolls of the window.  Its inter-chunk
+  recurrence runs on ``kernels.ops.rglru_scan`` (``"kernel"``) or the
+  plain ``rglru_scan_ref`` (``"ref"``), bitwise equal.
+* ``attn`` — one causal self-attention block over the window, then a
+  learned-query read-out that is a one-token decode against the window's
+  KV: ``kernels.ops.flash_attention`` + ``flash_decode`` (``"kernel"``) or
+  the plain ``kernels/ref.py`` versions (``"ref"``).
+
+The kernels have no backward, so ``loss`` always differentiates the
+``"ref"`` math (single view for ``ssm``).  Params are plain f32 dicts in
+the reference's layout, drawn from a ``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.models import spec as spec_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.layers import fan_in_init, normal_init
+
+
+def _require_windowed(meta: spec_lib.DataMeta, name: str):
+    if not meta.windowed:
+        raise ValueError(
+            f"model {name!r} is window-native: it needs a structured "
+            f"feature_shape like (window, n_signals) — got "
+            f"{meta.feature_shape}; build the federation with "
+            "dataset='road_raw' (data/synthetic.make_federated)")
+
+
+def _unflatten(x: torch.Tensor, meta: spec_lib.DataMeta) -> torch.Tensor:
+    return x.reshape(tuple(x.shape[:-1]) + tuple(meta.feature_shape))
+
+
+def _dense(gen: torch.Generator, a: int, b: int) -> dict:
+    return {"w": fan_in_init(gen, (a, b)),
+            "b": torch.zeros(b, device=gen.device)}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD) detector
+# ---------------------------------------------------------------------------
+
+
+class _SsmCfg(NamedTuple):
+    """The config fields ``models/ssm.py`` reads."""
+
+    d_model: int
+    ssm_expand: int
+    ssm_heads: int
+    ssm_head_dim: int
+    ssm_state: int
+    ssm_chunk: int
+    conv_width: int
+    norm_eps: float
+
+
+def _ssd_scan_fn(route: str):
+    """The inter-chunk recurrence of one score route: the same sequential
+    f32 scan ``s = dec·s + st``, through the kernel or the plain version."""
+    if route == "kernel":
+        return ssm_lib.chunk_scan_via(kops.rglru_scan)
+    if route == "ref":
+        return ssm_lib.chunk_scan_via(kref.rglru_scan_ref)
+    raise KeyError(route)
+
+
+def _build_ssm(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
+    _require_windowed(meta, "ssm")
+    window, n_signals = meta.feature_shape[0], meta.feature_shape[-1]
+    d = max(16, meta.hidden // 4)
+    # several chunks, so the inter-chunk recurrence carries state
+    chunk = next(c for c in (16, 8, 4, 2, 1) if window % c == 0)
+    cfg = _SsmCfg(d_model=d, ssm_expand=2, ssm_heads=2, ssm_head_dim=d,
+                  ssm_state=16, ssm_chunk=chunk, conv_width=4, norm_eps=1e-6)
+    # the score path averages the logits of circular time-rolls of the
+    # window (stationary signals: a rolled window is a second view)
+    tta_rolls = (0, window // 2) if window >= 2 else (0,)
+
+    def init(gen: torch.Generator):
+        embed = _dense(gen, n_signals, d)
+        mix = ssm_lib.init_ssd(gen, cfg)
+        # small-dt init (dt ≈ 0.12): heads start with 8–60-step memory
+        mix["dt_bias"] = torch.full_like(mix["dt_bias"], -2.0)
+        return {"embed": embed, "mix": mix,
+                "head": _dense(gen, 3 * d, meta.n_classes)}
+
+    def make_one_view(route: str):
+        scan_fn = _ssd_scan_fn(route)
+
+        def one_view(params, hw):
+            h = hw @ params["embed"]["w"] + params["embed"]["b"]
+            y, _ = ssm_lib.ssd_block(params["mix"], h, cfg, scan_fn)
+            h = h + y
+            pooled = torch.cat([h.mean(dim=1), h[:, -1], h.amax(dim=1)],
+                               dim=-1)
+            return pooled @ params["head"]["w"] + params["head"]["b"]
+
+        return one_view
+
+    def make_logits(route: str):
+        one_view = make_one_view(route)
+
+        def logits(params, x):
+            hw = _unflatten(x, meta)
+            views = [one_view(params, torch.roll(hw, r, dims=1) if r else hw)
+                     for r in tta_rolls]
+            return sum(views) / len(views)
+
+        return logits
+
+    variants = {"kernel": make_logits("kernel"), "ref": make_logits("ref")}
+    ref_one_view = make_one_view("ref")
+
+    def loss(params, batch):
+        return spec_lib.cross_entropy(
+            ref_one_view(params, _unflatten(batch["x"], meta)), batch["y"])
+
+    return spec_lib.ModelSpec(name="ssm", init=init, loss=loss,
+                              logits=variants[kops.DEFAULT_ROUTE],
+                              route_variants=variants)
+
+
+# ---------------------------------------------------------------------------
+# Causal-attention detector (the serving engine's sequence hot path)
+# ---------------------------------------------------------------------------
+
+_ATTN_HEADS = 2
+
+
+def _attn_primitives(route: str):
+    """(attention, decode) of one score route."""
+    if route == "kernel":
+        return (lambda q, k, v: kops.flash_attention(q, k, v, causal=True),
+                kops.flash_decode)
+    if route == "ref":
+        return (lambda q, k, v: kref.flash_attention_ref(q, k, v,
+                                                         causal=True),
+                kref.flash_decode_ref)
+    raise KeyError(route)
+
+
+def _build_attn(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
+    _require_windowed(meta, "attn")
+    window, n_signals = meta.feature_shape[0], meta.feature_shape[-1]
+    h = _ATTN_HEADS
+    d = max(16, (meta.hidden // 4 // (2 * h)) * 2 * h)
+    dh = d // h
+
+    def init(gen: torch.Generator):
+        lin = lambda a, b: fan_in_init(gen, (a, b))  # noqa: E731
+        return {
+            "embed": _dense(gen, n_signals, d),
+            "pos": normal_init(gen, (window, d), 0.02),
+            "wq": lin(d, d), "wk": lin(d, d), "wv": lin(d, d),
+            "wo": lin(d, d),
+            # read-out: a learned query decoding against the window's KV
+            "rq": normal_init(gen, (h, dh), 0.5),
+            "rkv": {"wk": lin(d, d), "wv": lin(d, d)},
+            "head": _dense(gen, 2 * d, meta.n_classes),
+        }
+
+    def make_logits(route: str):
+        attention, decode = _attn_primitives(route)
+
+        def logits(params, x):
+            hseq = _unflatten(x, meta)
+            b = hseq.shape[0]
+            hseq = hseq @ params["embed"]["w"] + params["embed"]["b"]
+            hseq = hseq + params["pos"]
+            q = (hseq @ params["wq"]).reshape(b, window, h, dh)
+            k = (hseq @ params["wk"]).reshape(b, window, h, dh)
+            v = (hseq @ params["wv"]).reshape(b, window, h, dh)
+            o = attention(q, k, v).reshape(b, window, d)
+            hseq = hseq + o @ params["wo"]
+            k2 = (hseq @ params["rkv"]["wk"]).reshape(b, window, h, dh)
+            v2 = (hseq @ params["rkv"]["wv"]).reshape(b, window, h, dh)
+            qr = params["rq"].expand(b, h, dh)
+            length = torch.full((b,), window, dtype=torch.int32,
+                                device=hseq.device)
+            ro = decode(qr, k2, v2, length).reshape(b, d)
+            pooled = torch.cat([ro, hseq.mean(dim=1)], dim=-1)
+            return pooled @ params["head"]["w"] + params["head"]["b"]
+
+        return logits
+
+    variants = {"kernel": make_logits("kernel"), "ref": make_logits("ref")}
+    ref_logits = variants["ref"]
+
+    def loss(params, batch):
+        return spec_lib.cross_entropy(ref_logits(params, batch["x"]),
+                                      batch["y"])
+
+    return spec_lib.ModelSpec(name="attn", init=init, loss=loss,
+                              logits=variants[kops.DEFAULT_ROUTE],
+                              route_variants=variants)
+
+
+spec_lib.register_model("ssm", _build_ssm)
+spec_lib.register_model("attn", _build_attn)

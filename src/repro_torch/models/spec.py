@@ -4,17 +4,19 @@
 A :class:`ModelSpec` packages the surface the engine needs: ``init``,
 ``loss`` and ``logits``, plus the derived ``predict_proba``/``accuracy``.
 A builder ``(meta: DataMeta) -> ModelSpec`` is registered under the name
-that ``FLConfig.model`` takes.  The port registers ``mlp`` only so far; the
-window-native detectors and the reference's sharding hooks are not ported
-yet.
+that ``FLConfig.model`` takes.  The port registers ``mlp`` and, from
+``models/detectors.py``, the sequence detectors ``ssm`` and ``attn`` with
+their score routes; ``cnn``, ``rglru`` and the reference's sharding hooks
+are not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.ops import DEFAULT_ROUTE
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.mlp import cross_entropy  # noqa: F401  (re-export)
 
@@ -43,15 +45,39 @@ def meta_for(fed, hidden: int = 64) -> DataMeta:
 class ModelSpec:
     """``init(gen) -> params`` draws from a ``torch.Generator`` on its
     device; ``loss(params, batch)`` is what the round step differentiates
-    per client; ``logits(params, x)`` is what the metrics derive from."""
+    per client; ``logits(params, x)`` is what the metrics derive from.
+
+    ``route_variants`` maps a score route to its logits function for the
+    sequence detectors: ``"kernel"`` runs the CUDA kernels through
+    ``kernels/ops.py`` (their plain versions for CPU tensors), ``"ref"``
+    the plain versions of ``kernels/ref.py``.  ``logits`` is the
+    ``"kernel"`` route; ``loss`` always differentiates ``"ref"``."""
 
     name: str
     init: Callable
     loss: Callable
     logits: Callable
+    route_variants: Optional[Mapping[str, Callable]] = None
+
+    def logits_routed(self, route: Optional[str] = None) -> Callable:
+        """Logits function on an explicit score route (``None`` is
+        ``kernels.ops.DEFAULT_ROUTE``, the kernels); a spec without route
+        variants has one implementation, which serves every route."""
+        if self.route_variants is None:
+            return self.logits
+        route = route or DEFAULT_ROUTE
+        try:
+            return self.route_variants[route]
+        except KeyError:
+            raise KeyError(
+                f"model {self.name!r} has no score route {route!r}; "
+                f"available: {tuple(self.route_variants)}") from None
 
     def predict_proba(self, params, x):
         return torch.softmax(self.logits(params, x), dim=-1)
+
+    def predict_proba_routed(self, params, x, route: Optional[str] = None):
+        return torch.softmax(self.logits_routed(route)(params, x), dim=-1)
 
     def accuracy(self, params, x, y) -> torch.Tensor:
         pred = torch.argmax(self.logits(params, x), dim=-1)
@@ -90,3 +116,6 @@ def _build_mlp(meta: DataMeta) -> ModelSpec:
 
 
 register_model("mlp", _build_mlp)
+
+# The sequence detectors register themselves on import.
+from repro_torch.models import detectors as _detectors  # noqa: E402,F401

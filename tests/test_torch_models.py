@@ -109,7 +109,8 @@ def test_auc_roc_matches_reference_oracle(seed):
 
 @pytest.mark.parametrize("seed,dataset,n", [(0, "unsw", 20_000),
                                             (5, "unsw", 3_000),
-                                            (2, "road", 600)])
+                                            (2, "road", 600),
+                                            (1, "road_raw", 600)])
 def test_make_federated_and_round_batches_bitwise(seed, dataset, n):
     """Same seed, bitwise the same arrays as the reference's generators."""
     j = j_syn.make_federated(seed, dataset, n_samples=n)

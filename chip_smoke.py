@@ -8,7 +8,9 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
 
 1. report the card (name and power limit, as nvidia-smi gives them);
 2. build the four CUDA libraries from the sources in the checkout (one
-   nvcc per source, all at once, sm_90a);
+   nvcc per source, all at once, sm_90a), print ptxas' registers and
+   spills, and require no spill in ``flash_attention_kernel`` (the head
+   dims up to 32);
 3. hold the DP kernels against their plain PyTorch versions on the card, at
    the paper config's shape [40, 13890] and at ragged shapes, and require
    ``sumsq_rows`` to repeat bitwise;
@@ -20,17 +22,19 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    with CUDA events;
 7. profile 3 warm FL rounds with ``torch.profiler`` (device busy share,
    spans, heaviest kernels);
-8. hold ``flash_attention``, ``flash_decode`` (with its shard partials and
-   their merge) and ``rglru_scan`` (bitwise, and bitwise across runs)
-   against their plain versions on the card;
+8. hold ``flash_attention`` (and require two calls to agree bitwise),
+   ``flash_decode`` (with its shard partials and their merge) and
+   ``rglru_scan`` (bitwise, and bitwise across runs) against their plain
+   versions on the card;
 9. drive the serving path for ``attn`` and ``ssm``: train a checkpoint with
    ``run_fl_legacy`` on ``road_raw`` at hidden 64, load it into a
    ``ServeEngine`` with buckets (16, 128) and stream 9,000 windows in
    bursts of 37, counting kernel launches; check the scores against the
    scorer on the same bucket batches (bitwise), one unpadded call (1e-6)
    and the CPU engine (1e-5); time the batch-1 loop; profile one pass;
-10. time the sequence kernels at the serving path's shapes (B = 128) and
-   print the ``kernels`` JSON line for all five kernels.
+10. time the sequence kernels at the serving path's shapes (B = 128),
+   ``flash_attention`` beside SDPA (the ratio printed), and print the
+   ``kernels`` JSON line for all five kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -390,7 +395,9 @@ def phase_profile(torch, fed, fl, run_fl_legacy, rounds: int = 3):
 
 
 # (b, s, t, hq, hkv, d, causal, window): the grid of tests/test_kernels.py,
-# the attn detector's path shape, a ragged S = T = 100 and a causal offset
+# the attn detector's path shape, a ragged S = T = 100, a causal offset,
+# S > T (rows with no valid key), GQA at the detector's width and D = 32
+# with a window
 FA_PATH = (128, 64, 64, 2, 2, 8, True, None)
 FA_CASES = [(1, 128, 128, 4, 4, 64, True, None),
             (2, 256, 256, 8, 2, 64, True, None),
@@ -399,7 +406,13 @@ FA_CASES = [(1, 128, 128, 4, 4, 64, True, None),
             (2, 192, 192, 6, 3, 64, True, None),
             FA_PATH,
             (3, 100, 100, 4, 2, 16, True, None),
-            (2, 64, 128, 2, 2, 8, True, 24)]
+            (2, 64, 128, 2, 2, 8, True, 24),
+            (2, 96, 64, 2, 2, 8, True, None),
+            (4, 64, 64, 4, 1, 8, True, None),
+            (2, 64, 64, 2, 2, 32, True, 16)]
+# flash_attention_kernel<T, DMAX, G> in ptxas' mangled names
+FA_KERNEL_NAME = re.compile(
+    r"22flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
 # (b, hq, hkv, d, t, length)
 FD_PATH = (128, 2, 2, 8, 64, 64)
 FD_CASES = [(1, 4, 4, 64, 256, 256), (2, 8, 2, 64, 512, 300),
@@ -410,15 +423,45 @@ RG_CASES = [(1, 128, 128, False), (2, 64, 96, True), (3, 64, 512, True),
             (1, 4, 512, False), RG_PATH]
 
 
-def phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops):
-    """Phase 8.  Returns the max abs error per kernel at the path shapes
-    (f32)."""
-    gen = torch.Generator().manual_seed(7)
+def check_fa_ptxas(log: str) -> dict:
+    """Phase 2 for ``flash_attention``: ptxas' report (``-Xptxas -v``) of
+    each ``flash_attention_kernel`` instantiation, ``"<dtype>, <DMAX>,
+    <G>"`` -> registers and the bytes of spill stores and loads.  All six
+    (f32 and bf16 at DMAX 8, 16, 32) must be reported, without a spill."""
+    report, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry" in line or "Function properties" in line:
+            m = FA_KERNEL_NAME.search(line)
+            current = None if m is None else (
+                f"{'f32' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}, "
+                f"{m.group(3)}")
+            if current:
+                report.setdefault(current, {})
+        elif current and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill", line)
+            report[current].update(spill_stores=int(stores),
+                                   spill_loads=int(loads))
+        elif current and "registers" in line:
+            report[current]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    for name, info in sorted(report.items()):
+        print(f"  flash_attention_kernel<{name}>: {info}")
+    check(len(report) == 6 and all(
+        {"registers", "spill_stores", "spill_loads"} <= set(info)
+        for info in report.values()),
+        f"ptxas did not report the 6 flash_attention_kernel instances: "
+        f"{report}")
+    check(all(info["spill_stores"] == info["spill_loads"] == 0
+              for info in report.values()),
+          f"flash_attention_kernel spills: {report}")
+    return report
 
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=gen).to("cuda", dtype)
 
-    errs = {}
+def check_flash_attention(torch, fak, ref, randn) -> float:
+    """Phase 8 for ``flash_attention``: every case of :data:`FA_CASES` in
+    f32 (2e-5) and bf16 (2e-2) against the plain version, and two calls
+    bitwise equal.  Returns the f32 max abs error at :data:`FA_PATH`."""
+    err = None
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for case in FA_CASES:
             b, s, t, hq, hkv, d, causal, window = case
@@ -431,10 +474,26 @@ def phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops):
             check(o.dtype == dtype, "flash_attention output dtype")
             torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol,
                                        atol=tol)
+            check(torch.equal(o, fak.flash_attention(q, k, v, causal=causal,
+                                                     window=window)),
+                  f"flash_attention not bitwise repeatable at {case}")
             if case == FA_PATH and dtype == torch.float32:
-                errs["flash_attention"] = max_abs(o, o_ref)
+                err = max_abs(o, o_ref)
             print(f"  flash_attention {str(dtype)[6:]:>8} {case}: max|err| "
-                  f"{max_abs(o, o_ref):.2e}")
+                  f"{max_abs(o, o_ref):.2e}, bitwise repeat")
+    return err
+
+
+def phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops):
+    """Phase 8.  Returns the max abs error per kernel at the path shapes
+    (f32)."""
+    gen = torch.Generator().manual_seed(7)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    errs = {"flash_attention": check_flash_attention(torch, fak, ref, randn)}
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for case in FD_CASES:
             b, hq, hkv, d, t, length = case
             q, k, v = (randn(b, hq, d, dtype=dtype),
@@ -717,6 +776,8 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)})")
 
     t0 = time.perf_counter()
+    for lib in _nvcc.BUILD_DIR.glob("lib*.so"):  # build from the sources
+        lib.unlink()
     builds = _nvcc.build("dp_clip_noise", "flash_attention", "flash_decode",
                          "rglru_scan")
     print(f"== 2. built {len(builds)} libraries in parallel in "
@@ -724,8 +785,10 @@ def main() -> int:
     for lib, info in builds.items():
         print(f"  {info['path'].name}: {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "Compiling entry" in line or \
+                    "spill" in line:
                 print(f"    {line.strip()}")
+    fa_regs = check_fa_ptxas(builds["flash_attention"]["log"])
 
     print("== 3. DP kernels vs plain versions on the card")
     errs = phase_kernels_vs_plain(torch, dpk, ref, ops)
@@ -762,6 +825,10 @@ def main() -> int:
     print("== 10. sequence kernel times at the serving shapes (CUDA events)")
     kernels += phase_seq_timing(torch, fak, fdk, rgk, ref, errs,
                                 serve_launches)
+    fa = next(k for k in kernels if k["name"] == "flash_attention")
+    print(f"  flash_attention / SDPA device time at {FA_PATH}: "
+          f"{fa['ms'] / fa['library_ms']:.3f} ({fa['ms'] * 1e3:.2f} us / "
+          f"{fa['library_ms'] * 1e3:.2f} us)  ({card})")
     for k in kernels:
         lib = ("none" if k["library_ms"] is None
                else f"{k['library_ms'] * 1e3:.2f} us")
@@ -776,6 +843,7 @@ def main() -> int:
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": {lib: info["seconds"] for lib, info in builds.items()},
+        "flash_attention_ptxas": fa_regs,
         "kernels": kernels, "round_wall_ms": walls, "profile": profile,
         "round_wall_ms_median_after_first": statistics.median(steady),
         "history": res.history, "eps_spent": res.eps_spent, "serve": serve,

@@ -6,8 +6,16 @@ on the card.  On the CPU the port's wrappers (``kernels/ops.py``) take the
 plain route because the tensors lie on the CPU, so these tests cover the
 arithmetic every route shares.  Inputs come from a NumPy seed and go to
 both packages; the JAX kernels run in interpret mode, as
-``tests/test_kernels.py`` runs them.
+``tests/test_kernels.py`` runs them.  The ``flash_attention`` kernel's own
+algorithm (lanes splitting the keys, a softmax per tile, the lane merge)
+is mirrored here in torch, and its launch plan is held to the card's
+limits for every shape ``chip_smoke.py`` launches.
 """
+import functools
+import importlib.util
+import math
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +27,9 @@ from repro.kernels.flash_attention import flash_attention as j_flash_attention
 from repro.kernels.flash_decode import combine_partials as j_combine
 from repro.kernels.flash_decode import flash_decode as j_flash_decode
 
+from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ref as t_ref
 
 torch.set_num_threads(1)
 
@@ -71,6 +81,175 @@ def test_flash_attention_plain_matches_jax(b, s, t, hq, hkv, d, causal,
         kern = j_flash_attention(jq, jk, jv, causal=causal, window=window,
                                  bq=64, bk=64, interpret=True)
         np.testing.assert_allclose(_np(out), _np(kern), atol=2e-5, rtol=2e-5)
+
+
+LOG2E = 1.4426950408889634
+NEG_INF = -1e30
+
+
+def _lane_split_attention(q, k, v, causal, window, lanes, key_tile=64):
+    """The arithmetic of ``csrc/flash_attention.cu`` at D ≤ 32, in torch
+    f32: scale·log2(e) folded into q; ``lanes`` lanes per (row, head),
+    lane g taking keys t0 + g, t0 + g + G, ... of each tile of
+    ``key_tile`` keys; a masked key scores −1e30 after scaling; per tile
+    one max, one rescale of (l, acc), then p·v with ``exp2``; the lane
+    states merged in the xor butterfly with products and sums rounded
+    apart, so that every lane ends with the same bits (checked)."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qscale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) * LOG2E
+    kf = k.float().repeat_interleave(group, dim=2)
+    vf = v.float().repeat_interleave(group, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.float() * qscale, kf)
+    pos = torch.arange(s)[:, None] + (t - s)
+    key = torch.arange(t)[None, :]
+    valid = torch.ones(s, t, dtype=torch.bool)
+    if causal:
+        valid &= key <= pos
+    if window is not None:
+        valid &= key > pos - window
+    scores = torch.where(valid, scores, torch.tensor(NEG_INF))
+    m = torch.full((b, hq, s, lanes), NEG_INF)
+    l = torch.zeros(b, hq, s, lanes)
+    acc = torch.zeros(b, hq, s, lanes, d)
+    for t0 in range(0, t, key_tile):
+        for g in range(lanes):
+            idx = torch.arange(t0 + g, min(t0 + key_tile, t), lanes)
+            if idx.numel() == 0:
+                continue
+            sc = scores[..., idx]
+            m_new = torch.maximum(m[..., g], sc.amax(-1))
+            alpha = torch.exp2(m[..., g] - m_new)
+            p = torch.exp2(sc - m_new[..., None])
+            l[..., g] = l[..., g] * alpha + p.sum(-1)
+            acc[..., g, :] = (acc[..., g, :] * alpha[..., None]
+                              + torch.einsum("bhsn,bnhd->bhsd", p,
+                                             vf[:, idx]))
+            m[..., g] = m_new
+    off = 1
+    while off < lanes:
+        partner = torch.arange(lanes) ^ off
+        m_o, l_o, acc_o = m[..., partner], l[..., partner], acc[..., partner, :]
+        m_new = torch.maximum(m, m_o)
+        a, c = torch.exp2(m - m_new), torch.exp2(m_o - m_new)
+        l = l * a + l_o * c
+        acc = acc * a[..., None] + acc_o * c[..., None]
+        m = m_new
+        off *= 2
+    assert torch.equal(l[..., :1].expand_as(l), l)
+    assert torch.equal(acc[..., :1, :].expand_as(acc), acc)
+    out = acc[..., 0, :] / torch.clamp(l[..., 0], min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3)
+
+
+# (b, s, t, hq, hkv, d, causal, window)
+MIRROR_CASES = [
+    (128, 64, 64, 2, 2, 8, True, None),    # the attn detector's path shape
+    (2, 64, 64, 4, 2, 16, True, None),     # GQA
+    (2, 128, 128, 2, 1, 8, True, 24),      # MQA + window, two key tiles
+    (3, 100, 100, 4, 2, 16, True, None),   # S = 100 ragged
+    (2, 64, 128, 2, 2, 8, True, None),     # causal offset T − S = 64
+    (2, 96, 64, 2, 2, 8, True, None),      # S > T: rows with no valid key
+    (1, 64, 64, 2, 1, 32, False, None),    # bidirectional, D = 32
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _mirror_inputs(case):
+    """Inputs from a NumPy seed, the port's plain version and the
+    interpret-mode Pallas kernel on them (each computed once)."""
+    b, s, t, hq, hkv, d, causal, window = case
+    rng = np.random.default_rng(b * 1000 + s + t + d)
+    q, k, v = (_normal(rng, (b, s, hq, d)), _normal(rng, (b, t, hkv, d)),
+               _normal(rng, (b, t, hkv, d)))
+    tq, tk, tv = (torch.as_tensor(x) for x in (q, k, v))
+    plain = t_ref.flash_attention_ref(tq, tk, tv, causal=causal,
+                                      window=window)
+    kern = j_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, window=window, interpret=True)
+    return (tq, tk, tv), plain, _np(kern)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", MIRROR_CASES, ids=str)
+def test_flash_attention_lane_split_mirror(case, lanes):
+    """The CUDA kernel's algorithm, mirrored in torch, against the port's
+    plain version and the interpret-mode Pallas kernel at f32 2e-5, for
+    G = 1, 2, 4, 8 lanes.  Rows with no valid key (S > T) average all T
+    keys, as the TPU kernel's −1e30 masking gives."""
+    _, _, _, _, _, _, causal, window = case
+    (tq, tk, tv), plain, kern = _mirror_inputs(case)
+    out = _lane_split_attention(tq, tk, tv, causal, window, lanes)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(out.numpy(), kern, atol=2e-5, rtol=2e-5)
+    if case[1] > case[2]:  # rows before the first key: the mean of v
+        n_empty = case[1] - case[2]
+        mean_v = tv.float().mean(1).repeat_interleave(
+            case[3] // case[4], dim=1)
+        np.testing.assert_allclose(
+            out[:, :n_empty].numpy(),
+            mean_v[:, None].expand(-1, n_empty, -1, -1).numpy(),
+            atol=2e-5, rtol=2e-5)
+
+
+def _chip_smoke_fa_cases():
+    """``FA_CASES`` of ``chip_smoke.py``: the shapes the card launches."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.FA_CASES, mod.FA_PATH
+
+
+FA_CASES, FA_PATH = _chip_smoke_fa_cases()
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FA_CASES + [
+    (1, 1, 1, 1, 1, 1, True, None),        # one row, one key, D = 1
+    (2, 7, 300, 48, 4, 20, False, None),   # many heads, odd D, long T
+    (1, 9, 9, 64, 64, 32, True, 4),        # 64 kv heads at D = 32
+    (65535, 3, 3, 2, 1, 12, True, None),   # the largest batch
+], ids=str)
+def test_flash_attention_launch_plan_fits_the_card(case, dtype, aligned):
+    """Every launch ``chip_smoke.py`` makes (and a few edge shapes) stays
+    within 1,024 threads and 48 KB of static shared memory a block and
+    65,535 blocks in grid y and z; the lanes split a warp evenly, each
+    lane's chain is at most 16 keys a tile, and the grid covers every
+    (row, head)."""
+    b, s, t, hq, hkv, d, _, _ = case
+    plan = t_fa.launch_plan(b, s, t, hq, hkv, d, dtype, aligned)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    assert plan.threads <= 1024 and plan.threads % 32 == 0
+    assert plan.smem_bytes <= 48 * 1024
+    assert max(plan.grid[1:]) <= 65535 and plan.grid[2] == b
+    assert 32 % plan.lanes == 0
+    assert plan.grid[0] * plan.rows >= s > (plan.grid[0] - 1) * plan.rows
+    assert plan.grid[1] * plan.heads == hq
+    if d > 32:  # the row kernel: 64 rows of one head, a thread per row
+        assert (plan.dmax, plan.rows, plan.heads, plan.lanes,
+                plan.threads) == (64 if d <= 64 else 128, 64, 1, 1, 64)
+        return
+    assert plan.dmax >= d and \
+        plan.threads == plan.rows * plan.heads * plan.lanes
+    assert plan.key_tile % plan.lanes == 0 and \
+        plan.key_tile // plan.lanes <= 16
+    group = hq // hkv
+    assert plan.heads % group == 0 or group % plan.heads == 0
+    assert plan.kv_heads == max(plan.heads // group, 1)
+    n_buf = 2 if t > plan.key_tile else 1
+    assert plan.smem_bytes == (plan.rows * plan.heads + n_buf * 2 *
+                               plan.key_tile * plan.kv_heads) * \
+        plan.dmax * esize
+    assert plan.copy_width == (16 if aligned and d * esize % 16 == 0
+                               else esize)
+    if case == FA_PATH:  # 32 rows x both heads x 4 lanes, 256 blocks
+        assert (plan.rows, plan.heads, plan.lanes, plan.threads,
+                plan.key_tile) == (32, 2, 4, 256, 64)
+        assert math.prod(plan.grid) >= 256
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

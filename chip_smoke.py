@@ -9,8 +9,8 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
 1. report the card (name and power limit, as nvidia-smi gives them);
 2. build the four CUDA libraries from the sources in the checkout (one
    nvcc per source, all at once, sm_90a), print ptxas' registers and
-   spills, and require no spill in ``flash_attention_kernel`` (the head
-   dims up to 32);
+   spills, and require no spill in ``flash_attention_kernel`` and
+   ``flash_decode_lanes_kernel`` (the head dims up to 32);
 3. hold the DP kernels against their plain PyTorch versions on the card, at
    the paper config's shape [40, 13890] and at ragged shapes, and require
    ``sumsq_rows`` to repeat bitwise;
@@ -23,7 +23,8 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
 7. profile 3 warm FL rounds with ``torch.profiler`` (device busy share,
    spans, heaviest kernels);
 8. hold ``flash_attention`` (and require two calls to agree bitwise),
-   ``flash_decode`` (with its shard partials and their merge) and
+   ``flash_decode`` (every lane count G of its plan, two calls bitwise
+   equal, rows of length 0, its shard partials and their merge) and
    ``rglru_scan`` (bitwise, and bitwise across runs) against their plain
    versions on the card;
 9. drive the serving path for ``attn`` and ``ssm``: train a checkpoint with
@@ -31,9 +32,13 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    ``ServeEngine`` with buckets (16, 128) and stream 9,000 windows in
    bursts of 37, counting kernel launches; check the scores against the
    scorer on the same bucket batches (bitwise), one unpadded call (1e-6)
-   and the CPU engine (1e-5); time the batch-1 loop; profile one pass;
+   and the CPU engine (1e-5); time the batch-1 loop; profile one pass
+   (and require ``attn``'s decode to run ``flash_decode_lanes_kernel``);
 10. time the sequence kernels at the serving path's shapes (B = 128),
-   ``flash_attention`` beside SDPA (the ratio printed), and print the
+   ``flash_attention`` and ``flash_decode`` beside SDPA (the ratios
+   printed), ``flash_decode`` at each lane count G and with the
+   thread-per-key kernel, and its eager time as the detector calls it with
+   and without the first port's per-call conversions; print the
    ``kernels`` JSON line for all five kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
@@ -413,25 +418,34 @@ FA_CASES = [(1, 128, 128, 4, 4, 64, True, None),
 # flash_attention_kernel<T, DMAX, G> in ptxas' mangled names
 FA_KERNEL_NAME = re.compile(
     r"22flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
-# (b, hq, hkv, d, t, length)
+# (b, hq, hkv, d, t, length): length is one for every row or one per row.
+# The grid of PR 12 (head dims 64 and 128), the attn read-out's path shape,
+# T = 100 (a ragged last key tile), GQA at the detector's width (4 q heads
+# over 1 kv head), D = 32, and a batch with a row of length 0
 FD_PATH = (128, 2, 2, 8, 64, 64)
 FD_CASES = [(1, 4, 4, 64, 256, 256), (2, 8, 2, 64, 512, 300),
-            (3, 4, 1, 128, 256, 17), FD_PATH]
+            (3, 4, 1, 128, 256, 17), FD_PATH,
+            (2, 4, 2, 16, 100, 100), (4, 4, 1, 8, 64, 64),
+            (2, 4, 2, 32, 128, 90), (3, 2, 2, 8, 64, (0, 64, 17))]
+# flash_decode_lanes_kernel<T, DMAX, G> in ptxas' mangled names
+SEQ_KERNEL_NAMES = r"flash_attention|flash_decode|rglru_scan"
+FD_KERNEL_NAME = re.compile(
+    r"25flash_decode_lanes_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
 # (b, l, w, h0)
 RG_PATH = (128, 4, 512, True)
 RG_CASES = [(1, 128, 128, False), (2, 64, 96, True), (3, 64, 512, True),
             (1, 4, 512, False), RG_PATH]
 
 
-def check_fa_ptxas(log: str) -> dict:
-    """Phase 2 for ``flash_attention``: ptxas' report (``-Xptxas -v``) of
-    each ``flash_attention_kernel`` instantiation, ``"<dtype>, <DMAX>,
-    <G>"`` -> registers and the bytes of spill stores and loads.  All six
-    (f32 and bf16 at DMAX 8, 16, 32) must be reported, without a spill."""
+def check_ptxas(log: str, name_re, kernel: str, n_instances: int) -> dict:
+    """Phase 2: ptxas' report (``-Xptxas -v``) of each instantiation of a
+    lanes kernel, ``"<dtype>, <DMAX>, <G>"`` -> registers and the bytes of
+    spill stores and loads.  All ``n_instances`` must be reported, without
+    a spill."""
     report, current = {}, None
     for line in log.splitlines():
         if "Compiling entry" in line or "Function properties" in line:
-            m = FA_KERNEL_NAME.search(line)
+            m = name_re.search(line)
             current = None if m is None else (
                 f"{'f32' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}, "
                 f"{m.group(3)}")
@@ -445,16 +459,27 @@ def check_fa_ptxas(log: str) -> dict:
             report[current]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
     for name, info in sorted(report.items()):
-        print(f"  flash_attention_kernel<{name}>: {info}")
-    check(len(report) == 6 and all(
+        print(f"  {kernel}<{name}>: {info}")
+    check(len(report) == n_instances and all(
         {"registers", "spill_stores", "spill_loads"} <= set(info)
         for info in report.values()),
-        f"ptxas did not report the 6 flash_attention_kernel instances: "
+        f"ptxas did not report the {n_instances} {kernel} instances: "
         f"{report}")
     check(all(info["spill_stores"] == info["spill_loads"] == 0
               for info in report.values()),
-          f"flash_attention_kernel spills: {report}")
+          f"{kernel} spills: {report}")
     return report
+
+
+def check_fa_ptxas(log: str) -> dict:
+    """``flash_attention_kernel``: f32 and bf16 at DMAX 8, 16, 32 (G = 4)."""
+    return check_ptxas(log, FA_KERNEL_NAME, "flash_attention_kernel", 6)
+
+
+def check_fd_ptxas(log: str) -> dict:
+    """``flash_decode_lanes_kernel``: f32 and bf16 at DMAX 8, 16, 32, each
+    for G = 4, 8, 16, 32."""
+    return check_ptxas(log, FD_KERNEL_NAME, "flash_decode_lanes_kernel", 24)
 
 
 def check_flash_attention(torch, fak, ref, randn) -> float:
@@ -484,39 +509,67 @@ def check_flash_attention(torch, fak, ref, randn) -> float:
     return err
 
 
-def phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops):
-    """Phase 8.  Returns the max abs error per kernel at the path shapes
-    (f32)."""
-    gen = torch.Generator().manual_seed(7)
+def decode_lengths(torch, case):
+    """The int32 [b] lengths of an ``FD_CASES`` case, on the card."""
+    b, length = case[0], case[5]
+    lengths = length if isinstance(length, tuple) else (length,) * b
+    return torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=gen).to("cuda", dtype)
 
-    errs = {"flash_attention": check_flash_attention(torch, fak, ref, randn)}
+def check_flash_decode(torch, fdk, ref, randn) -> float:
+    """Phase 8 for ``flash_decode``: every case of :data:`FD_CASES` in f32
+    (2e-5) and bf16 (2e-2 in o; m and l at 2e-5) against the plain version
+    with the plan's lanes, two calls bitwise equal in o, m and l, the call
+    without partials bitwise equal in o, and (head dims up to 32) every
+    other lane count G of the plan within the same tolerances.  A row of
+    length 0 must give m = -1e30 and l = T exactly.  Returns the f32 max
+    abs error at :data:`FD_PATH`."""
+    err = None
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for case in FD_CASES:
-            b, hq, hkv, d, t, length = case
+            b, hq, hkv, d, t, _ = case
             q, k, v = (randn(b, hq, d, dtype=dtype),
                        randn(b, t, hkv, d, dtype=dtype),
                        randn(b, t, hkv, d, dtype=dtype))
-            ln = torch.full((b,), length, dtype=torch.int32, device="cuda")
-            o, m, l = fdk.flash_decode(q, k, v, ln, return_partials=True)
-            o_ref, m_ref, l_ref = ref.flash_decode_ref(q, k, v, ln,
-                                                       return_partials=True)
-            torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol,
-                                       atol=tol)
-            torch.testing.assert_close(m, m_ref, rtol=2e-5, atol=2e-5)
-            torch.testing.assert_close(l, l_ref, rtol=2e-5, atol=2e-5)
+            ln = decode_lengths(torch, case)
+            want = ref.flash_decode_ref(q, k, v, ln, return_partials=True)
+            got = fdk.flash_decode(q, k, v, ln, return_partials=True)
+            check(got[0].dtype == dtype, "flash_decode output dtype")
+            again = fdk.flash_decode(q, k, v, ln, return_partials=True)
+            check(all(torch.equal(a, z) for a, z in zip(got, again)),
+                  f"flash_decode not bitwise repeatable at {case}")
+            check(torch.equal(got[0], fdk.flash_decode(q, k, v, ln)),
+                  f"flash_decode without partials differs at {case}")
+            for lanes in (None,) + (fdk.LANE_CHOICES if d <= 32 else ()):
+                o, m, l = (got if lanes is None else fdk.flash_decode(
+                    q, k, v, ln, return_partials=True, lanes=lanes))
+                torch.testing.assert_close(o.float(), want[0].float(),
+                                           rtol=tol, atol=tol)
+                torch.testing.assert_close(m, want[1], rtol=2e-5, atol=2e-5)
+                torch.testing.assert_close(l, want[2], rtol=2e-5, atol=2e-5)
+                empty = ln == 0
+                check(bool((m[empty] == -1e30).all())
+                      and bool((l[empty] == t).all()),
+                      f"a row of length 0 must give m = -1e30 and l = T "
+                      f"({case}, lanes {lanes})")
             if case == FD_PATH and dtype == torch.float32:
-                errs["flash_decode"] = max_abs(o, o_ref)
+                err = max_abs(got[0], want[0])
             print(f"  flash_decode    {str(dtype)[6:]:>8} {case}: max|err| "
-                  f"{max_abs(o, o_ref):.2e}")
-    # the cache split into 4 shards, the last one empty for the first row:
-    # each shard's partials against the plain version, and their merge
-    # against the unsharded plain decode
-    b, hq, hkv, d, t, shards = 2, 8, 2, 64, 512, 4
+                  f"{max_abs(got[0], want[0]):.2e}, bitwise repeat"
+                  + (f", G in {fdk.LANE_CHOICES} ok" if d <= 32 else ""))
+    return err
+
+
+def check_decode_shards(torch, fdk, ref, ops, randn, shape, lengths):
+    """Phase 8: a cache of ``shape`` (b, hq, hkv, d, t) split into 4
+    shards, the last one empty for the first row (``lengths``): each
+    shard's partials against the plain version, m = -1e30 and l = T
+    exactly for the empty one, and their merge against the unsharded plain
+    decode."""
+    b, hq, hkv, d, t = shape
+    shards = 4
     q, k, v = randn(b, hq, d), randn(b, t, hkv, d), randn(b, t, hkv, d)
-    length = torch.tensor([300, 512], dtype=torch.int32, device="cuda")
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     per = t // shards
     parts = []
     for sh in range(shards):
@@ -536,8 +589,23 @@ def phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops):
     full = ref.flash_decode_ref(q, k, v, length)
     check(bool(torch.isfinite(merged).all()), "merged partials not finite")
     torch.testing.assert_close(merged, full, rtol=2e-5, atol=2e-5)
-    print(f"  flash_decode 4-shard partials + combine (empty shard): max|err| "
-          f"{max_abs(merged, full):.2e}")
+    print(f"  flash_decode 4-shard partials + combine (empty shard) at "
+          f"{shape}: max|err| {max_abs(merged, full):.2e}")
+
+
+def phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops):
+    """Phase 8.  Returns the max abs error per kernel at the path shapes
+    (f32)."""
+    gen = torch.Generator().manual_seed(7)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to("cuda", dtype)
+
+    errs = {"flash_attention": check_flash_attention(torch, fak, ref, randn)}
+    errs["flash_decode"] = check_flash_decode(torch, fdk, ref, randn)
+    for shape, lengths in (((2, 8, 2, 64, 512), (300, 512)),
+                           ((2, 2, 2, 8, 256), (150, 256))):
+        check_decode_shards(torch, fdk, ref, ops, randn, shape, lengths)
     for case in RG_CASES:
         b, l, w, with_h0 = case
         a = torch.sigmoid(randn(b, l, w))
@@ -639,6 +707,13 @@ def phase_serve(torch, name, fed, seq_kernels):
     err_naive = float(np.abs(naive.scores - rep.scores[:384]).max())
     check(err_naive <= 1e-6, f"{name}: batch-1 vs served {err_naive:.3e}")
     prof = serve_profile(torch, eng, lambda: stream(1))
+    if name == "attn":  # the read-out runs the lanes kernel, once a batch
+        decode = {k: v for k, v in prof["seq_kernels"].items()
+                  if "flash_decode" in k}
+        check(len(decode) == 1 and "flash_decode_lanes_kernel" in
+              next(iter(decode)) and next(iter(decode.values()))["calls"]
+              == prof["batches"],
+              f"attn: the profiled decode kernels are {decode}")
     out = {
         "model": name, "train_rounds": SERVE_ROUNDS, "train_s": train_s,
         "train_acc": res.accuracy, "train_auc": res.auc,
@@ -681,7 +756,11 @@ def serve_profile(torch, eng, stream):
            "device_ops_per_batch": len(device) / rep.n_batches,
            "span_host_ms": span_ms,
            "top_kernels": [{"name": k[:80], "calls": c, "device_ms": t}
-                           for k, (c, t) in top]}
+                           for k, (c, t) in top],
+           # the port's sequence kernels by their full names
+           "seq_kernels": {k: {"calls": c, "device_us": 1e3 * t / c}
+                           for k, (c, t) in by_kernel.items()
+                           if re.search(SEQ_KERNEL_NAMES, k)}}
     print(f"  {eng.spec.name} profile: {rep.n_windows} windows, wall "
           f"{wall_ms:.1f} ms, device busy {busy_ms:.2f} ms (share "
           f"{busy_ms / wall_ms:.3f}), "
@@ -689,7 +768,38 @@ def serve_profile(torch, eng, stream):
     for k in out["top_kernels"]:
         print(f"    kernel {k['name']}: {k['calls']} calls, "
               f"{k['device_ms']:.3f} ms")
+    for k, info in out["seq_kernels"].items():
+        print(f"    sequence kernel {k}: {info['calls']} calls, "
+              f"{info['device_us']:.2f} us each")
     return out
+
+
+def decode_sweep(torch, fdk, q, k, v, ln) -> dict:
+    """Phase 10 for ``flash_decode`` at :data:`FD_PATH`: device us with
+    each lane count G of the lanes kernel and with the thread-per-key
+    kernel (lanes = 1, the first port's design), and eager us as the attn
+    detector calls it (one learned query broadcast over the batch, an int32
+    length on the card), with and without the first port's per-call
+    conversions (length through ``as_tensor``/``to``/``expand``/
+    ``contiguous``, q, k and v copied, m and l allocated) in front."""
+    b, hq, d = q.shape
+    qb = q[:1].expand(b, hq, d)
+
+    def with_conversions():
+        length = torch.as_tensor(ln, device=qb.device).to(torch.int32)
+        return fdk.flash_decode(qb.contiguous(), k.contiguous(),
+                                v.contiguous(), length.expand(b).contiguous(),
+                                return_partials=True)
+
+    sweep = {str(g): device_ms(lambda g=g: fdk.flash_decode(q, k, v, ln,
+                                                             lanes=g)) * 1e3
+             for g in fdk.LANE_CHOICES + (1,)}
+    after = eager_ms(lambda: fdk.flash_decode(qb, k, v, ln))
+    before = eager_ms(with_conversions)
+    after_again = eager_ms(lambda: fdk.flash_decode(qb, k, v, ln))
+    return {"lanes_sweep_us": sweep,
+            "eager_detector_us": [after * 1e3, after_again * 1e3],
+            "eager_detector_with_conversions_us": before * 1e3}
 
 
 def phase_seq_timing(torch, fak, fdk, rgk, ref, errs, launches):
@@ -736,6 +846,8 @@ def phase_seq_timing(torch, fak, fdk, rgk, ref, errs, launches):
         **timed(lambda: fdk.flash_decode(q, k, v, ln),
                 lambda: ref.flash_decode_ref(q, k, v, ln),
                 lambda: sdpa(q4, kt, vt, attn_mask=mask)),
+        "lanes": fdk.launch_plan(b, t, hq, hkv, d, q.dtype, True).lanes,
+        **decode_sweep(torch, fdk, q, k, v, ln),
     })
     b, l, w, _ = RG_PATH
     a, x, h0 = torch.sigmoid(randn(b, l, w)), randn(b, l, w), randn(b, w)
@@ -789,6 +901,7 @@ def main() -> int:
                     "spill" in line:
                 print(f"    {line.strip()}")
     fa_regs = check_fa_ptxas(builds["flash_attention"]["log"])
+    fd_regs = check_fd_ptxas(builds["flash_decode"]["log"])
 
     print("== 3. DP kernels vs plain versions on the card")
     errs = phase_kernels_vs_plain(torch, dpk, ref, ops)
@@ -829,6 +942,18 @@ def main() -> int:
     print(f"  flash_attention / SDPA device time at {FA_PATH}: "
           f"{fa['ms'] / fa['library_ms']:.3f} ({fa['ms'] * 1e3:.2f} us / "
           f"{fa['library_ms'] * 1e3:.2f} us)  ({card})")
+    fd = next(k for k in kernels if k["name"] == "flash_decode")
+    print(f"  flash_decode / SDPA device time at {FD_PATH}: "
+          f"{fd['ms'] / fd['library_ms']:.3f} ({fd['ms'] * 1e3:.2f} us / "
+          f"{fd['library_ms'] * 1e3:.2f} us, G = {fd['lanes']})  ({card})")
+    print("  flash_decode device us by lanes (1: thread-per-key kernel): "
+          + ", ".join(f"G={g} {us:.2f}"
+                      for g, us in fd["lanes_sweep_us"].items()))
+    eager = fd["eager_detector_us"]
+    print(f"  flash_decode eager us as the detector calls it: "
+          f"{eager[0]:.2f} and {eager[1]:.2f}; with the first port's "
+          f"per-call conversions "
+          f"{fd['eager_detector_with_conversions_us']:.2f}")
     for k in kernels:
         lib = ("none" if k["library_ms"] is None
                else f"{k['library_ms'] * 1e3:.2f} us")
@@ -843,7 +968,7 @@ def main() -> int:
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": {lib: info["seconds"] for lib, info in builds.items()},
-        "flash_attention_ptxas": fa_regs,
+        "flash_attention_ptxas": fa_regs, "flash_decode_ptxas": fd_regs,
         "kernels": kernels, "round_wall_ms": walls, "profile": profile,
         "round_wall_ms_median_after_first": statistics.median(steady),
         "history": res.history, "eps_spent": res.eps_spent, "serve": serve,

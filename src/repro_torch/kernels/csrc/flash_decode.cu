@@ -4,41 +4,71 @@
 //
 //   fd_flash_decode replaces flash_decode._kernel (pallas_call at :102)
 //
-// Layout: the public one.  q and o are [B, HQ, D], k and v [B, T, HKV, D],
-// row-major, f32 or bf16 (o in q's type); length is i32 [B], the valid
-// cache prefix of each row; m and l are f32 [B, HQ], the row max and the
-// softmax normaliser, so a caller that shards the cache can merge shards
-// by log-sum-exp (ref.combine_partials).  All arithmetic is f32.
+// Layout: the public one.  q and o are [B, HQ, D] (q may broadcast one
+// query over the batch: its batch stride is an argument, 0 for that), k and
+// v [B, T, HKV, D], row-major, f32 or bf16 (o in q's type); length is i32
+// [B], the valid cache prefix of each row; m and l are f32 [B, HQ], the row
+// max of the scaled scores and the softmax normaliser sum(exp(s - m)), so a
+// caller that shards the cache can merge shards by log-sum-exp
+// (ref.combine_partials).  All arithmetic is f32.
 //
-// The grid is (HQ, B): one block of 128 threads per query head of one row
-// (q head h reads kv head h / (HQ / HKV): GQA).  The block walks the cache
-// in tiles of 128 keys with an online softmax, as the TPU kernel walked its
-// sequential grid axis:
-//   1. each thread scores one key of the tile (a dot over D against the
-//      query, staged in shared memory);
-//   2. a warp-shuffle and shared-memory max over the tile, the new running
-//      max m, and p = exp(s - m) for each key;
-//   3. a block sum of p updates l = alpha * l + sum(p);
-//   4. the output accumulator is split over the threads as (part, column):
-//      thread (part, d) sums p_t * v[t, d] over the keys t = part (mod parts)
-//      of the tile and rescales its partial by alpha.  After the last tile
-//      a shared-memory pass adds the parts, and column d is divided by l.
+// Masking follows the TPU kernel exactly: a position t < T with
+// t >= length scores -1e30 (not -inf) and takes part in the max, so a row
+// with no valid position (an empty shard of a split cache) ends with
+// m = -1e30, l = T and o = the mean of v, all finite, and its shard weight
+// l * exp(m - m*) is 0 in the merge.  Positions past T (a ragged last tile,
+// a lane's padding) are not keys at all: they weigh 0.
 //
-// Masking follows the TPU kernel exactly: a position past length scores
-// -1e30 (not -inf) and takes part in the max, so a row with no valid
-// position (an empty shard of a split cache) ends with m = -1e30, l = T
-// and o = the mean of v, all finite, and its shard weight
-// l * exp(m - m*) is 0 in the merge.  Positions past T (the ragged last
-// tile) are not keys at all: they score -inf and weigh 0.
+// What bounds it: on the attn detector's read-out (B = 128, HQ = HKV = 2,
+// D = 8, T = 64, f32) a call moves 1.05 MB and does 0.5 MFLOP: bytes bound
+// it, at 0.32 us on an H100.  What sets the time instead is one launch, one
+// global -> shared -> global round trip and the instructions around them:
+// the whole call is 256 (row, head) pairs of 64 keys, one or two warps an
+// SM, so every instruction's latency is exposed.  The design keeps the
+// chain of dependent instructions short.
 //
-// What bounds it: on the attn detector's read-out (B = 128, HQ = 2, D = 8,
-// T = 64) a call reads 0.5 MB of K/V and does ~0.5 MFLOP: it is bound by
-// bytes, and by far less than one launch costs.  For a long LM cache the
-// same design is bound by reading K and V once per q head (GQA groups
-// re-read their kv head), which a later PR can share across the group.
+// Head dims up to 32 (DMAX 8, 16, 32): flash_decode_lanes_kernel.
+//   * One block per (tile of batch rows, group of kv heads): the block is
+//     (heads * G, kv_heads, rows) threads, so thread (x, y, z) is lane
+//     x % G of q head x / G of kv head y of row z, found without a
+//     division.  A block takes every q head that shares its kv heads: on
+//     the path one row with both heads (G = 32: two warps, 128 blocks).
+//     Each kv head is read from global memory once per row, whatever the
+//     GQA group.
+//   * Staging: each row's K and V key tile [t0, t1) x (its kv heads) x D
+//     is one contiguous range when the block takes all kv heads; both go to
+//     shared memory together with 16-byte cp.async (4-byte cp.async or
+//     plain 2-byte copies where pointers or D * esize are not 16-byte
+//     aligned), then one wait and one barrier: K and V cost one round trip.
+//     The query's and the row's length's loads go out first and nothing
+//     waits on them until the copies are issued.  Key tiles are
+//     double-buffered when T spans more than one.
+//   * G lanes per (row, q head) split the keys: lane g takes keys
+//     t0 + g, t0 + g + G, ... of each tile, keeps its own (m, l, acc[DMAX])
+//     in registers and does a softmax per tile, with scale * log2(e) folded
+//     into q and ex2.approx; the loops have no branch (a lane past the
+//     tile's keys reads the last one and weighs it 0), so the keys' loads
+//     and FMAs interleave.  The lanes merge in a fixed xor butterfly of
+//     shuffles (the log-sum-exp merge of ref.combine_partials) with the
+//     products and sums rounded apart, so every lane ends with the same
+//     bits and a call repeats bitwise (no atomics).  Lane g divides the
+//     columns it stores, once each; m goes back to natural-log units at the
+//     end, and -1e30 stays exactly -1e30.
+//   The launch plan (rows, heads, G, key tile, shared memory, copy width)
+//   is chosen by launch_plan() in kernels/flash_decode.py; this file checks
+//   it and refuses a plan it was not built for.  G is one of 4, 8, 16, 32;
+//   32 measured fastest on the path (chip_smoke.py times all four): the
+//   shortest chain of keys per lane wins over the longer merge.
+//
+// Head dims 64 and 128 (and a plan with lanes = 1): flash_decode_kernel,
+// the first port's design, unchanged: one block of 128 threads per
+// (row, q head), a thread per key of a 128-key tile, a block max and sum per
+// tile and the output accumulator split over (part, column).  No port path
+// launches these head dims yet; their redesign belongs with LM decode.
 //
 // Plain C interface, loaded with ctypes: the entry point launches on the
-// caller's stream, allocates nothing, and returns cudaGetLastError().
+// caller's stream, allocates nothing, and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan it does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,9 +78,11 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
-constexpr int kThreads = 128;      // keys per tile, one per thread
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxD = kThreads;    // head dims up to 128
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kMaxKeyTile = 64;    // lanes kernel: keys per tile, at most
+constexpr int kMaxSmem = 48 * 1024;
+constexpr int kMaxGridYZ = 65535;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -60,6 +92,461 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+
+// ---------------------------------------------------------------------------
+// Head dims up to 32: G lanes per (row, q head)
+
+// the most threads a block of the lanes kernel may have
+template <int DMAX>
+__host__ __device__ constexpr int max_threads() {
+  return DMAX >= 32 ? 256 : 512;
+}
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async_16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One unit of `width` bytes from global to shared memory: 16 or 4 by
+// cp.async, 2 by a plain copy (bf16 rows that are not 4-byte aligned).
+__device__ __forceinline__ void copy_unit(char* s, const char* g, int width) {
+  if (width == 16)
+    cp_async_16(shared_addr(s), g);
+  else if (width == 4)
+    cp_async_4(s, g);
+  else
+    *reinterpret_cast<uint16_t*>(s) = *reinterpret_cast<const uint16_t*>(g);
+}
+
+// 2^x by the special-function unit (ex2.approx: relative error ~2^-22,
+// subnormal results flushed to 0; exp2(-1e30) and exp2(-inf) are 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// q . k over DMAX columns of a staged row (16-byte aligned in shared memory):
+// one partial sum per 4 columns, added at the end, so the FMA chain is 4
+// deep rather than DMAX
+template <int DMAX>
+__device__ __forceinline__ float dot_row(const float (&qr)[DMAX],
+                                         const float* kr) {
+  float part[DMAX / 4];
+#pragma unroll
+  for (int c = 0; c < DMAX / 4; ++c) {
+    const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * c);
+    float s = qr[4 * c] * kv.x;
+    s = fmaf(qr[4 * c + 1], kv.y, s);
+    s = fmaf(qr[4 * c + 2], kv.z, s);
+    part[c] = fmaf(qr[4 * c + 3], kv.w, s);
+  }
+#pragma unroll
+  for (int w = 1; w < DMAX / 4; w <<= 1)
+#pragma unroll
+    for (int c = 0; c + w < DMAX / 4; c += 2 * w) part[c] += part[c + w];
+  return part[0];
+}
+template <int DMAX>
+__device__ __forceinline__ float dot_row(const float (&qr)[DMAX],
+                                         const __nv_bfloat16* kr) {
+  float part[DMAX / 4];
+#pragma unroll
+  for (int c = 0; c < DMAX / 8; ++c) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(kr + 8 * c);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float2 k0 = __bfloat1622float2(h[2 * e]);
+      const float2 k1 = __bfloat1622float2(h[2 * e + 1]);
+      const int d = 8 * c + 4 * e;
+      float s = qr[d] * k0.x;
+      s = fmaf(qr[d + 1], k0.y, s);
+      s = fmaf(qr[d + 2], k1.x, s);
+      part[2 * c + e] = fmaf(qr[d + 3], k1.y, s);
+    }
+  }
+#pragma unroll
+  for (int w = 1; w < DMAX / 4; w <<= 1)
+#pragma unroll
+    for (int c = 0; c + w < DMAX / 4; c += 2 * w) part[c] += part[c + w];
+  return part[0];
+}
+
+// acc += p * v over DMAX columns of a staged row
+template <int DMAX>
+__device__ __forceinline__ void axpy_row(float (&acc)[DMAX], float p,
+                                         const float* vr) {
+#pragma unroll
+  for (int d = 0; d < DMAX; d += 4) {
+    const float4 vv = *reinterpret_cast<const float4*>(vr + d);
+    acc[d] = fmaf(p, vv.x, acc[d]);
+    acc[d + 1] = fmaf(p, vv.y, acc[d + 1]);
+    acc[d + 2] = fmaf(p, vv.z, acc[d + 2]);
+    acc[d + 3] = fmaf(p, vv.w, acc[d + 3]);
+  }
+}
+template <int DMAX>
+__device__ __forceinline__ void axpy_row(float (&acc)[DMAX], float p,
+                                         const __nv_bfloat16* vr) {
+#pragma unroll
+  for (int d = 0; d < DMAX; d += 8) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(vr + d);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 vv = __bfloat1622float2(h[e]);
+      acc[d + 2 * e] = fmaf(p, vv.x, acc[d + 2 * e]);
+      acc[d + 2 * e + 1] = fmaf(p, vv.y, acc[d + 2 * e + 1]);
+    }
+  }
+}
+
+// The query row [D] as raw 32-bit words (D..DMAX-1 zero): the loads go out
+// and nothing waits on them until q_from_raw, after the K/V copies are
+// issued.  16-byte loads when the plan's copy width is 16 (then D is a
+// whole number of 16-byte units and the row is 16-byte aligned).
+template <typename T, int DMAX>
+struct QWords {
+  static constexpr int kWords = DMAX * static_cast<int>(sizeof(T)) / 4;
+  uint32_t w[kWords];
+};
+template <typename T, int DMAX>
+__device__ __forceinline__ void load_q(QWords<T, DMAX>& q, const T* qp, int D,
+                                       int width) {
+  constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));  // elements
+  if (width == 16) {
+#pragma unroll
+    for (int c = 0; c < DMAX / kPer16; ++c) {
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (c * kPer16 < D) x = *reinterpret_cast<const uint4*>(qp + c * kPer16);
+      q.w[4 * c] = x.x;
+      q.w[4 * c + 1] = x.y;
+      q.w[4 * c + 2] = x.z;
+      q.w[4 * c + 3] = x.w;
+    }
+    return;
+  }
+  const uint16_t* h = reinterpret_cast<const uint16_t*>(qp);
+#pragma unroll
+  for (int i = 0; i < QWords<T, DMAX>::kWords; ++i) {
+    if (sizeof(T) == 4) {
+      q.w[i] = i < D ? __float_as_uint(reinterpret_cast<const float*>(qp)[i])
+                     : 0u;
+    } else {  // two bf16 a word, low half first
+      const uint32_t lo = 2 * i < D ? h[2 * i] : 0u;
+      const uint32_t hi = 2 * i + 1 < D ? h[2 * i + 1] : 0u;
+      q.w[i] = lo | (hi << 16);
+    }
+  }
+}
+// ... then f32 times qscale
+template <int DMAX>
+__device__ __forceinline__ void q_from_raw(float (&qr)[DMAX],
+                                           const QWords<float, DMAX>& q,
+                                           float qscale) {
+#pragma unroll
+  for (int d = 0; d < DMAX; ++d) qr[d] = __uint_as_float(q.w[d]) * qscale;
+}
+template <int DMAX>
+__device__ __forceinline__ void q_from_raw(
+    float (&qr)[DMAX], const QWords<__nv_bfloat16, DMAX>& q, float qscale) {
+#pragma unroll
+  for (int i = 0; i < DMAX / 2; ++i) {
+    qr[2 * i] = __uint_as_float(q.w[i] << 16) * qscale;
+    qr[2 * i + 1] = __uint_as_float(q.w[i] & 0xffff0000u) * qscale;
+  }
+}
+
+// Shared memory: n_buf buffers, each [rows][K, V][key_tile][kv_heads][DMAX]
+// (columns D..DMAX-1 zero).
+__host__ __device__ inline int smem_bytes_of(int rows, int kv_heads,
+                                             int key_tile, int Tk, int dmax,
+                                             int esize) {
+  const int n_buf = Tk > key_tile ? 2 : 1;
+  return n_buf * rows * 2 * key_tile * kv_heads * dmax * esize;
+}
+
+// K and V of the key tile [t0, t0 + jn) of every row of the block into
+// buffer `buf`, in one go: flat when a row's tile is one contiguous range
+// (all kv heads, D = DMAX), else thread (x, y, z) copies whole key rows of
+// kv head y.
+template <typename T, int DMAX>
+__device__ __forceinline__ void stage_tile(T* smem, const T* k, const T* v,
+                                           int t0, int buf, int rows,
+                                           int n_rows, int b0, int Tk,
+                                           int HKV, int kh0, int D,
+                                           int kv_heads, int key_tile,
+                                           int width, bool flat, int tid,
+                                           int nthreads) {
+  constexpr int esize = static_cast<int>(sizeof(T));
+  const int tile_elems = key_tile * kv_heads * DMAX;
+  const int jn = min(key_tile, Tk - t0);
+  for (int r = 0; r < n_rows; ++r) {
+    T* ks = smem + (buf * rows + r) * 2 * tile_elems;
+    char* kd = reinterpret_cast<char*>(ks);
+    char* vd = reinterpret_cast<char*>(ks + tile_elems);
+    const int64_t first =
+        ((static_cast<int64_t>(b0 + r) * Tk + t0) * HKV + kh0) * D;
+    const char* kg = reinterpret_cast<const char*>(k + first);
+    const char* vg = reinterpret_cast<const char*>(v + first);
+    if (flat && width == 16) {  // the path: unrolled, 16 bytes a copy
+      const unsigned ks_s = shared_addr(kd), vs_s = shared_addr(vd);
+      const int units = jn * HKV * D * esize / 16;
+#pragma unroll 4
+      for (int u = tid; u < units; u += nthreads) {
+        cp_async_16(ks_s + u * 16, kg + u * 16);
+        cp_async_16(vs_s + u * 16, vg + u * 16);
+      }
+    } else if (flat) {
+      const int bytes = jn * HKV * D * esize;
+      for (int off = tid * width; off < bytes; off += nthreads * width) {
+        copy_unit(kd + off, kg + off, width);
+        copy_unit(vd + off, vg + off, width);
+      }
+    } else {
+      const int row_bytes = D * esize;
+      for (int j = threadIdx.z * blockDim.x + threadIdx.x; j < jn;
+           j += blockDim.x * blockDim.z) {
+        const int64_t src =
+            (static_cast<int64_t>(j) * HKV + threadIdx.y) * row_bytes;
+        const int dst = (j * kv_heads + threadIdx.y) * DMAX * esize;
+        for (int c = 0; c < row_bytes; c += width) {
+          copy_unit(kd + dst + c, kg + src + c, width);
+          copy_unit(vd + dst + c, vg + src + c, width);
+        }
+      }
+    }
+  }
+}
+
+// (minBlocks 1: ptxas otherwise caps registers to fit two or three of the
+// largest blocks an SM and spills; the path runs one or two warps an SM)
+template <typename T, int DMAX, int G>
+__global__ void __launch_bounds__(max_threads<DMAX>(), 1)
+flash_decode_lanes_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v,
+                          const int* __restrict__ length, T* __restrict__ o,
+                          float* __restrict__ m_out,
+                          float* __restrict__ l_out, int B, int Tk, int HQ,
+                          int HKV, int D, int group, int64_t q_bstride,
+                          float qscale, int rows, int key_tile, int width) {
+  constexpr int NS = kMaxKeyTile / G;  // keys a lane takes from one tile
+  constexpr int esize = static_cast<int>(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+
+  // block (heads_per_kv * G, kv_heads, rows); grid (row tiles, kv-head
+  // tiles, parts of a GQA group)
+  const int kv_heads = blockDim.y;
+  const int tile_elems = key_tile * kv_heads * DMAX;  // one K or V tile
+  const int tid = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x +
+                  threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y * blockDim.z;
+  const int b0 = blockIdx.x * rows;
+  const int n_rows = min(rows, B - b0);
+  const int kh0 = blockIdx.y * kv_heads;
+  const int n_buf = Tk > key_tile ? 2 : 1;
+  // all kv heads and D = DMAX: a row's tile is one contiguous range
+  const bool flat = kv_heads == HKV && D == DMAX;
+
+  // this thread's row, head, length and query: the loads go out first, and
+  // nothing waits on them until the K/V copies are issued
+  const int g = threadIdx.x % G;
+  const int r = threadIdx.z;
+  const int b = b0 + r;
+  const bool active = r < n_rows;
+  const int h = (kh0 + threadIdx.y) * group +
+                blockIdx.z * (blockDim.x / G) + threadIdx.x / G;
+  const int len = active ? length[b] : 0;
+  QWords<T, DMAX> qw;
+#pragma unroll
+  for (int i = 0; i < QWords<T, DMAX>::kWords; ++i) qw.w[i] = 0u;
+  if (active)
+    load_q<T, DMAX>(qw, q + b * q_bstride + static_cast<int64_t>(h) * D, D,
+                    width);
+
+  if (D < DMAX) {  // zero the pad columns, which no copy writes
+    const int n = n_buf * rows * 2 * tile_elems / DMAX;
+    for (int e = tid; e < n; e += nthreads)
+      for (int d = D; d < DMAX; ++d) store(smem + e * DMAX + d, 0.0f);
+  }
+  stage_tile<T, DMAX>(smem, k, v, 0, 0, rows, n_rows, b0, Tk, HKV, kh0, D,
+                      kv_heads, key_tile, width, flat, tid, nthreads);
+  cp_async_commit();
+  float qr[DMAX], acc[DMAX];
+  q_from_raw<DMAX>(qr, qw, qscale);
+#pragma unroll
+  for (int d = 0; d < DMAX; ++d) acc[d] = 0.0f;
+  float m = kNegInf, l = 0.0f;
+
+  int buf = 0;
+  for (int t0 = 0; t0 < Tk; t0 += key_tile, buf ^= 1) {
+    if (t0 + key_tile < Tk) {
+      stage_tile<T, DMAX>(smem, k, v, t0 + key_tile, buf ^ 1, rows, n_rows,
+                          b0, Tk, HKV, kh0, D, kv_heads, key_tile, width,
+                          flat, tid, nthreads);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t0 of every row has landed
+    if (active) {
+      const int jn = min(key_tile, Tk - t0);
+      const T* ks = smem + (buf * rows + r) * 2 * tile_elems +
+                    threadIdx.y * DMAX;
+      const T* vs = ks + tile_elems;
+      // lane g takes keys j = g + i * G; past the tile's jn keys it reads
+      // the last staged key instead and gives it no weight, so the loops
+      // have no branch and the keys' loads and FMAs interleave
+      float sc[NS];
+      float mt = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int j = g + i * G;
+        const float s =
+            dot_row<DMAX>(qr, ks + min(j, jn - 1) * kv_heads * DMAX);
+        sc[i] = j >= jn ? -INFINITY : t0 + j < len ? s : kNegInf;
+        mt = fmaxf(mt, sc[i]);
+      }
+      const float m_new = fmaxf(m, mt);
+      const float alpha = fast_exp2(m - m_new);
+      l *= alpha;
+#pragma unroll
+      for (int d = 0; d < DMAX; ++d) acc[d] *= alpha;
+      // a masked key weighs 1 while the lane has no valid key, else 0; a key
+      // past the tile weighs 0 (exp2(-inf) = 0)
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const float p = fast_exp2(sc[i] - m_new);
+        l += p;
+        axpy_row<DMAX>(acc, p,
+                       vs + min(g + i * G, jn - 1) * kv_heads * DMAX);
+      }
+      m = m_new;
+    }
+    if (t0 + 2 * key_tile < Tk) __syncthreads();  // buf is refilled next
+  }
+
+  // log-sum-exp merge of the G lanes, the same bits in every lane
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) {
+    const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
+    const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
+    const float m_new = fmaxf(m, m_o);
+    const float a = fast_exp2(m - m_new);
+    const float c = fast_exp2(m_o - m_new);
+    l = __fadd_rn(__fmul_rn(l, a), __fmul_rn(l_o, c));
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) {
+      const float acc_o = __shfl_xor_sync(0xffffffffu, acc[d], off);
+      acc[d] = __fadd_rn(__fmul_rn(acc[d], a), __fmul_rn(acc_o, c));
+    }
+    m = m_new;
+  }
+
+  if (!active) return;
+  // lane g stores columns g, g + G, ... of its (row, head)
+  const int64_t pair = static_cast<int64_t>(b) * HQ + h;
+  T* op = o + pair * D;
+  const float denom = fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int c0 = 0; c0 < DMAX; c0 += G) {
+    float val = acc[c0];
+#pragma unroll
+    for (int e = 1; e < G && c0 + e < DMAX; ++e)
+      if (g == e) val = acc[c0 + e];
+    if (c0 + g < D) store(op + c0 + g, val / denom);
+  }
+  if (g == 0 && m_out != nullptr) {
+    // back to natural-log units; the mask value stays exactly -1e30
+    m_out[pair] = m == kNegInf ? kNegInf : m * kLn2;
+    l_out[pair] = l;
+  }
+}
+
+template <typename T, int DMAX, int G>
+int launch_lanes(const void* q, const void* k, const void* v,
+                 const int* length, void* o, float* m, float* l, int B,
+                 int Tk, int HQ, int HKV, int D, int64_t q_bstride,
+                 float scale, int rows, int heads, int key_tile,
+                 int smem_bytes, int width, cudaStream_t stream) {
+  const int esize = static_cast<int>(sizeof(T));
+  const int group = HQ / HKV;
+  const bool whole_groups = heads >= group;
+  const int kv_heads = whole_groups ? heads / group : 1;
+  const int per_kv = whole_groups ? group : heads;  // q heads per kv head
+  const int threads = rows * heads * G;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
+       15u) == 0;
+  const bool width_ok =
+      width == esize || (width == 16 && aligned && D * esize % 16 == 0 &&
+                         q_bstride * esize % 16 == 0);
+  if (rows < 1 || rows > 64 || heads < 1 || HQ % heads ||
+      (whole_groups ? heads % group : group % heads) ||
+      threads % 32 || threads > max_threads<DMAX>() || key_tile < G ||
+      key_tile > kMaxKeyTile || key_tile % G || !width_ok ||
+      smem_bytes > kMaxSmem || (m == nullptr) != (l == nullptr) ||
+      smem_bytes != smem_bytes_of(rows, kv_heads, key_tile, Tk, DMAX, esize))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((B + rows - 1) / rows, HKV / kv_heads, group / per_kv);
+  if (grid.y > kMaxGridYZ || grid.z > kMaxGridYZ)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(per_kv * G, kv_heads, rows);
+  flash_decode_lanes_kernel<T, DMAX, G><<<grid, block, smem_bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), length, static_cast<T*>(o), m, l, B, Tk, HQ,
+      HKV, D, group, q_bstride, scale * kLog2e, rows, key_tile, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DMAX>
+int launch_lanes_g(const void* q, const void* k, const void* v,
+                   const int* length, void* o, float* m, float* l, int B,
+                   int Tk, int HQ, int HKV, int D, int64_t q_bstride,
+                   float scale, int lanes, int rows, int heads, int key_tile,
+                   int smem_bytes, int width, cudaStream_t stream) {
+#define FD_LANES(G_)                                                          \
+  case G_:                                                                    \
+    return launch_lanes<T, DMAX, G_>(q, k, v, length, o, m, l, B, Tk, HQ,   \
+                                     HKV, D, q_bstride, scale, rows, heads,  \
+                                     key_tile, smem_bytes, width, stream);
+  switch (lanes) {
+    FD_LANES(4)
+    FD_LANES(8)
+    FD_LANES(16)
+    FD_LANES(32)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FD_LANES
+}
+
+// ---------------------------------------------------------------------------
+// Head dims 64 and 128, and lanes = 1: one block per (row, q head), a thread
+// per key (the first port's design)
+
+constexpr int kThreads = 128;      // keys per tile, one per thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxD = kThreads;    // head dims up to 128
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -152,25 +639,67 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T>
+int launch_rows(const void* q, const void* k, const void* v,
+                const int* length, void* o, float* m, float* l, int B, int Tk,
+                int HQ, int HKV, int D, int64_t q_bstride, float scale,
+                int rows, int heads, cudaStream_t stream) {
+  // the first port's layout: a contiguous q, and m and l always written
+  if (rows != 1 || heads != 1 || q_bstride != static_cast<int64_t>(HQ) * D ||
+      m == nullptr || l == nullptr || B > kMaxGridYZ)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(HQ, B);
+  flash_decode_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), length, static_cast<T*>(o), m, l, Tk, HQ, HKV,
+      D, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const int* length,
+             void* o, float* m, float* l, int B, int Tk, int HQ, int HKV,
+             int D, int64_t q_bstride, float scale, int lanes, int rows,
+             int heads, int key_tile, int smem_bytes, int width,
+             cudaStream_t stream) {
+  if (lanes == 1)
+    return launch_rows<T>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
+                          q_bstride, scale, rows, heads, stream);
+  if (D <= 8)
+    return launch_lanes_g<T, 8>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
+                                q_bstride, scale, lanes, rows, heads,
+                                key_tile, smem_bytes, width, stream);
+  if (D <= 16)
+    return launch_lanes_g<T, 16>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
+                                 q_bstride, scale, lanes, rows, heads,
+                                 key_tile, smem_bytes, width, stream);
+  if (D <= 32)
+    return launch_lanes_g<T, 32>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
+                                 q_bstride, scale, lanes, rows, heads,
+                                 key_tile, smem_bytes, width, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// is_bf16: q, k, v, o are bf16, else f32.  D <= 128.
+// is_bf16: q, k, v, o are bf16, else f32.  D <= 128.  q_bstride: elements
+// between q's batch rows (0 broadcasts one query).  m and l may both be null
+// (lanes kernel only): the partials are then not written.  lanes, rows,
+// heads, key_tile, smem_bytes, width: the launch plan of
+// kernels/flash_decode.py launch_plan (lanes = 1 takes the thread-per-key
+// kernel with rows 1, heads 1 and ignores the rest).
 extern "C" int fd_flash_decode(const void* q, const void* k, const void* v,
                                const int* length, void* o, float* m, float* l,
                                int B, int Tk, int HQ, int HKV, int D,
-                               float scale, int is_bf16,
+                               long long q_bstride, float scale, int is_bf16,
+                               int lanes, int rows, int heads, int key_tile,
+                               int smem_bytes, int width,
                                cudaStream_t stream) {
-  const dim3 grid(HQ, B);
   if (is_bf16)
-    flash_decode_kernel<__nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), length,
-        static_cast<__nv_bfloat16*>(o), m, l, Tk, HQ, HKV, D, scale);
-  else
-    flash_decode_kernel<float><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), length, static_cast<float*>(o), m, l,
-        Tk, HQ, HKV, D, scale);
-  return static_cast<int>(cudaGetLastError());
+    return dispatch<__nv_bfloat16>(q, k, v, length, o, m, l, B, Tk, HQ, HKV,
+                                   D, q_bstride, scale, lanes, rows, heads,
+                                   key_tile, smem_bytes, width, stream);
+  return dispatch<float>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
+                         q_bstride, scale, lanes, rows, heads, key_tile,
+                         smem_bytes, width, stream);
 }

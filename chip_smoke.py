@@ -23,8 +23,10 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
 7. profile 3 warm FL rounds with ``torch.profiler`` (device busy share,
    spans, heaviest kernels);
 8. hold ``flash_attention`` (and require two calls to agree bitwise),
-   ``flash_decode`` (every lane count G of its plan, two calls bitwise
-   equal, rows of length 0, its shard partials and their merge) and
+   ``flash_decode`` (q, k and v dense, q broadcast or strided, or all
+   three off 16-byte alignment, so that every staging branch runs; two
+   calls bitwise equal, rows of length 0, its shard partials and their
+   merge) and
    ``rglru_scan`` (bitwise, and bitwise across runs) against their plain
    versions on the card;
 9. drive the serving path for ``attn`` and ``ssm``: train a checkpoint with
@@ -36,9 +38,8 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    (and require ``attn``'s decode to run ``flash_decode_lanes_kernel``);
 10. time the sequence kernels at the serving path's shapes (B = 128),
    ``flash_attention`` and ``flash_decode`` beside SDPA (the ratios
-   printed), ``flash_decode`` at each lane count G and with the
-   thread-per-key kernel, and its eager time as the detector calls it with
-   and without the first port's per-call conversions; print the
+   printed), and ``flash_decode``'s eager time as the detector calls it
+   with and without the first port's per-call conversions; print the
    ``kernels`` JSON line for all five kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
@@ -421,16 +422,19 @@ FA_KERNEL_NAME = re.compile(
 # (b, hq, hkv, d, t, length): length is one for every row or one per row.
 # The grid of PR 12 (head dims 64 and 128), the attn read-out's path shape,
 # T = 100 (a ragged last key tile), GQA at the detector's width (4 q heads
-# over 1 kv head), D = 32, and a batch with a row of length 0
+# over 1 kv head), D = 32, a batch with a row of length 0, D = 12 (padded
+# to DMAX 16: staged key row by key row, and bf16 rows copied by element)
+# and 64 kv heads (a block stages 8 or 16 of them: key row by key row)
 FD_PATH = (128, 2, 2, 8, 64, 64)
 FD_CASES = [(1, 4, 4, 64, 256, 256), (2, 8, 2, 64, 512, 300),
             (3, 4, 1, 128, 256, 17), FD_PATH,
             (2, 4, 2, 16, 100, 100), (4, 4, 1, 8, 64, 64),
-            (2, 4, 2, 32, 128, 90), (3, 2, 2, 8, 64, (0, 64, 17))]
-# flash_decode_lanes_kernel<T, DMAX, G> in ptxas' mangled names
+            (2, 4, 2, 32, 128, 90), (3, 2, 2, 8, 64, (0, 64, 17)),
+            (2, 4, 2, 12, 100, (100, 31)), (2, 64, 64, 8, 64, 64)]
+# flash_decode_lanes_kernel<T, DMAX> in ptxas' mangled names
 SEQ_KERNEL_NAMES = r"flash_attention|flash_decode|rglru_scan"
 FD_KERNEL_NAME = re.compile(
-    r"25flash_decode_lanes_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
+    r"25flash_decode_lanes_kernelI(f|13__nv_bfloat16)Li(\d+)EE")
 # (b, l, w, h0)
 RG_PATH = (128, 4, 512, True)
 RG_CASES = [(1, 128, 128, False), (2, 64, 96, True), (3, 64, 512, True),
@@ -439,16 +443,15 @@ RG_CASES = [(1, 128, 128, False), (2, 64, 96, True), (3, 64, 512, True),
 
 def check_ptxas(log: str, name_re, kernel: str, n_instances: int) -> dict:
     """Phase 2: ptxas' report (``-Xptxas -v``) of each instantiation of a
-    lanes kernel, ``"<dtype>, <DMAX>, <G>"`` -> registers and the bytes of
-    spill stores and loads.  All ``n_instances`` must be reported, without
-    a spill."""
+    lanes kernel, ``"<dtype>, <template ints>"`` -> registers and the bytes
+    of spill stores and loads.  All ``n_instances`` must be reported,
+    without a spill."""
     report, current = {}, None
     for line in log.splitlines():
         if "Compiling entry" in line or "Function properties" in line:
             m = name_re.search(line)
-            current = None if m is None else (
-                f"{'f32' if m.group(1) == 'f' else 'bf16'}, {m.group(2)}, "
-                f"{m.group(3)}")
+            current = None if m is None else ", ".join(
+                ("f32" if m.group(1) == "f" else "bf16",) + m.groups()[1:])
             if current:
                 report.setdefault(current, {})
         elif current and "spill stores" in line:
@@ -477,9 +480,9 @@ def check_fa_ptxas(log: str) -> dict:
 
 
 def check_fd_ptxas(log: str) -> dict:
-    """``flash_decode_lanes_kernel``: f32 and bf16 at DMAX 8, 16, 32, each
-    for G = 4, 8, 16, 32."""
-    return check_ptxas(log, FD_KERNEL_NAME, "flash_decode_lanes_kernel", 24)
+    """``flash_decode_lanes_kernel``: f32 and bf16 at DMAX 8, 16, 32
+    (G = 32)."""
+    return check_ptxas(log, FD_KERNEL_NAME, "flash_decode_lanes_kernel", 6)
 
 
 def check_flash_attention(torch, fak, ref, randn) -> float:
@@ -516,33 +519,72 @@ def decode_lengths(torch, case):
     return torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
+def decode_layouts(torch, q, k, v) -> dict:
+    """The same inputs as a caller may hand them to ``flash_decode``:
+    dense; one query broadcast over the batch (batch stride 0, as the attn
+    detector passes it); q a strided slice of a larger batch; and q, k and
+    v each one element past a 16-byte boundary, so that copies fall to the
+    element size."""
+    b, hq, d = q.shape
+
+    def off_by_one(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    wide = torch.zeros((2 * b, hq, d), dtype=q.dtype, device=q.device)
+    wide[::2] = q
+    return {"dense": (q, k, v), "broadcast q": (q[:1].expand(b, hq, d), k, v),
+            "strided q": (wide[::2], k, v),
+            "unaligned": tuple(off_by_one(x) for x in (q, k, v))}
+
+
+def decode_branch(fdk, q, k, v):
+    """The lanes kernel's staging branch for these inputs, as the wrapper's
+    plan picks it: ``(flat, copy width)`` (flat: a row's key tile is one
+    contiguous range), or None for the thread-per-key kernel."""
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    q_bstride = q.stride(0) if b > 1 else hq * d
+    aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v)) and \
+        q_bstride * q.element_size() % 16 == 0
+    plan = fdk.launch_plan(b, t, hq, hkv, d, q.dtype, aligned)
+    if plan.lanes == 1:
+        return None
+    return (plan.kv_heads == hkv and d == plan.dmax, plan.copy_width)
+
+
 def check_flash_decode(torch, fdk, ref, randn) -> float:
     """Phase 8 for ``flash_decode``: every case of :data:`FD_CASES` in f32
-    (2e-5) and bf16 (2e-2 in o; m and l at 2e-5) against the plain version
-    with the plan's lanes, two calls bitwise equal in o, m and l, the call
-    without partials bitwise equal in o, and (head dims up to 32) every
-    other lane count G of the plan within the same tolerances.  A row of
-    length 0 must give m = -1e30 and l = T exactly.  Returns the f32 max
-    abs error at :data:`FD_PATH`."""
-    err = None
+    (2e-5) and bf16 (2e-2 in o; m and l at 2e-5), in every layout of
+    :func:`decode_layouts`, against the plain version on the same inputs;
+    two calls bitwise equal in o, m and l, and the call without partials
+    bitwise equal in o.  A row of length 0 must give m = -1e30 and l = T
+    exactly.  Every staging branch of the lanes kernel (a flat or a
+    key-row-by-key-row tile, copies of 16 bytes, 4 bytes or one bf16) must
+    run.  Returns the f32 max abs error at :data:`FD_PATH`, dense."""
+    err, branches = None, set()
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for case in FD_CASES:
             b, hq, hkv, d, t, _ = case
-            q, k, v = (randn(b, hq, d, dtype=dtype),
-                       randn(b, t, hkv, d, dtype=dtype),
-                       randn(b, t, hkv, d, dtype=dtype))
             ln = decode_lengths(torch, case)
-            want = ref.flash_decode_ref(q, k, v, ln, return_partials=True)
-            got = fdk.flash_decode(q, k, v, ln, return_partials=True)
-            check(got[0].dtype == dtype, "flash_decode output dtype")
-            again = fdk.flash_decode(q, k, v, ln, return_partials=True)
-            check(all(torch.equal(a, z) for a, z in zip(got, again)),
-                  f"flash_decode not bitwise repeatable at {case}")
-            check(torch.equal(got[0], fdk.flash_decode(q, k, v, ln)),
-                  f"flash_decode without partials differs at {case}")
-            for lanes in (None,) + (fdk.LANE_CHOICES if d <= 32 else ()):
-                o, m, l = (got if lanes is None else fdk.flash_decode(
-                    q, k, v, ln, return_partials=True, lanes=lanes))
+            dense = (randn(b, hq, d, dtype=dtype),
+                     randn(b, t, hkv, d, dtype=dtype),
+                     randn(b, t, hkv, d, dtype=dtype))
+            worst = 0.0
+            for layout, (q, k, v) in decode_layouts(torch, *dense).items():
+                branches.add(decode_branch(fdk, q, k, v))
+                want = ref.flash_decode_ref(q, k, v, ln, return_partials=True)
+                o, m, l = fdk.flash_decode(q, k, v, ln, return_partials=True)
+                check(o.dtype == dtype, "flash_decode output dtype")
+                again = fdk.flash_decode(q, k, v, ln, return_partials=True)
+                check(all(torch.equal(a, z) for a, z in zip((o, m, l), again)),
+                      f"flash_decode not bitwise repeatable at {case}, "
+                      f"{layout}")
+                check(torch.equal(o, fdk.flash_decode(q, k, v, ln)),
+                      f"flash_decode without partials differs at {case}, "
+                      f"{layout}")
                 torch.testing.assert_close(o.float(), want[0].float(),
                                            rtol=tol, atol=tol)
                 torch.testing.assert_close(m, want[1], rtol=2e-5, atol=2e-5)
@@ -551,12 +593,19 @@ def check_flash_decode(torch, fdk, ref, randn) -> float:
                 check(bool((m[empty] == -1e30).all())
                       and bool((l[empty] == t).all()),
                       f"a row of length 0 must give m = -1e30 and l = T "
-                      f"({case}, lanes {lanes})")
-            if case == FD_PATH and dtype == torch.float32:
-                err = max_abs(got[0], want[0])
+                      f"({case}, {layout})")
+                worst = max(worst, max_abs(o, want[0]))
+                if case == FD_PATH and dtype == torch.float32 and \
+                        layout == "dense":
+                    err = max_abs(o, want[0])
             print(f"  flash_decode    {str(dtype)[6:]:>8} {case}: max|err| "
-                  f"{max_abs(got[0], want[0]):.2e}, bitwise repeat"
-                  + (f", G in {fdk.LANE_CHOICES} ok" if d <= 32 else ""))
+                  f"{worst:.2e} over dense, broadcast q, strided q and "
+                  f"unaligned; bitwise repeat")
+    want = {(flat, width) for flat in (True, False) for width in (16, 4, 2)}
+    check(want <= branches, f"flash_decode staging branches not run: "
+          f"{sorted(want - branches)}")
+    print(f"  flash_decode    staging branches run (flat, copy bytes): "
+          f"{sorted(x for x in branches if x)}")
     return err
 
 
@@ -774,12 +823,10 @@ def serve_profile(torch, eng, stream):
     return out
 
 
-def decode_sweep(torch, fdk, q, k, v, ln) -> dict:
-    """Phase 10 for ``flash_decode`` at :data:`FD_PATH`: device us with
-    each lane count G of the lanes kernel and with the thread-per-key
-    kernel (lanes = 1, the first port's design), and eager us as the attn
-    detector calls it (one learned query broadcast over the batch, an int32
-    length on the card), with and without the first port's per-call
+def decode_eager(torch, fdk, q, k, v, ln) -> dict:
+    """Phase 10 for ``flash_decode`` at :data:`FD_PATH`: eager us as the
+    attn detector calls it (one learned query broadcast over the batch, an
+    int32 length on the card), with and without the first port's per-call
     conversions (length through ``as_tensor``/``to``/``expand``/
     ``contiguous``, q, k and v copied, m and l allocated) in front."""
     b, hq, d = q.shape
@@ -791,14 +838,10 @@ def decode_sweep(torch, fdk, q, k, v, ln) -> dict:
                                 v.contiguous(), length.expand(b).contiguous(),
                                 return_partials=True)
 
-    sweep = {str(g): device_ms(lambda g=g: fdk.flash_decode(q, k, v, ln,
-                                                             lanes=g)) * 1e3
-             for g in fdk.LANE_CHOICES + (1,)}
     after = eager_ms(lambda: fdk.flash_decode(qb, k, v, ln))
     before = eager_ms(with_conversions)
     after_again = eager_ms(lambda: fdk.flash_decode(qb, k, v, ln))
-    return {"lanes_sweep_us": sweep,
-            "eager_detector_us": [after * 1e3, after_again * 1e3],
+    return {"eager_detector_us": [after * 1e3, after_again * 1e3],
             "eager_detector_with_conversions_us": before * 1e3}
 
 
@@ -834,8 +877,9 @@ def phase_seq_timing(torch, fak, fdk, rgk, ref, errs, launches):
     q4 = q[:, :, None, :].contiguous()
     kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     mask = (torch.arange(t, device="cuda")[None] < ln[:, None])[:, None, None]
-    b_fd, by_fd = bound(4 * (2 * b * hq * d + 2 * b * t * hkv * d + 2 * b * hq)
-                        + 4 * b, 4 * d * length * b * hq)
+    # q and o, k and v, length: the timed call returns no partials
+    b_fd, by_fd = bound(4 * (2 * b * hq * d + 2 * b * t * hkv * d) + 4 * b,
+                        4 * d * length * b * hq)
     rows.append({
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
@@ -846,8 +890,7 @@ def phase_seq_timing(torch, fak, fdk, rgk, ref, errs, launches):
         **timed(lambda: fdk.flash_decode(q, k, v, ln),
                 lambda: ref.flash_decode_ref(q, k, v, ln),
                 lambda: sdpa(q4, kt, vt, attn_mask=mask)),
-        "lanes": fdk.launch_plan(b, t, hq, hkv, d, q.dtype, True).lanes,
-        **decode_sweep(torch, fdk, q, k, v, ln),
+        **decode_eager(torch, fdk, q, k, v, ln),
     })
     b, l, w, _ = RG_PATH
     a, x, h0 = torch.sigmoid(randn(b, l, w)), randn(b, l, w), randn(b, w)
@@ -945,10 +988,7 @@ def main() -> int:
     fd = next(k for k in kernels if k["name"] == "flash_decode")
     print(f"  flash_decode / SDPA device time at {FD_PATH}: "
           f"{fd['ms'] / fd['library_ms']:.3f} ({fd['ms'] * 1e3:.2f} us / "
-          f"{fd['library_ms'] * 1e3:.2f} us, G = {fd['lanes']})  ({card})")
-    print("  flash_decode device us by lanes (1: thread-per-key kernel): "
-          + ", ".join(f"G={g} {us:.2f}"
-                      for g, us in fd["lanes_sweep_us"].items()))
+          f"{fd['library_ms'] * 1e3:.2f} us)  ({card})")
     eager = fd["eager_detector_us"]
     print(f"  flash_decode eager us as the detector calls it: "
           f"{eager[0]:.2f} and {eager[1]:.2f}; with the first port's "

@@ -28,39 +28,38 @@
 // chain of dependent instructions short.
 //
 // Head dims up to 32 (DMAX 8, 16, 32): flash_decode_lanes_kernel.
-//   * One block per (tile of batch rows, group of kv heads): the block is
-//     (heads * G, kv_heads, rows) threads, so thread (x, y, z) is lane
-//     x % G of q head x / G of kv head y of row z, found without a
-//     division.  A block takes every q head that shares its kv heads: on
-//     the path one row with both heads (G = 32: two warps, 128 blocks).
-//     Each kv head is read from global memory once per row, whatever the
-//     GQA group.
-//   * Staging: each row's K and V key tile [t0, t1) x (its kv heads) x D
-//     is one contiguous range when the block takes all kv heads; both go to
+//   * One block per (batch row, group of kv heads): the block is
+//     (heads * G, kv_heads) threads, so thread (x, y) is lane x % G of q
+//     head x / G of kv head y, found without a division.  A block takes
+//     every q head that shares its kv heads: on the path both heads of a row
+//     (two warps, 128 blocks).  Each kv head is read from global memory once
+//     per row, whatever the GQA group.
+//   * Staging: the row's K and V key tile [t0, t1) x (its kv heads) x D is
+//     one contiguous range when the block takes all kv heads; both go to
 //     shared memory together with 16-byte cp.async (4-byte cp.async or
 //     plain 2-byte copies where pointers or D * esize are not 16-byte
 //     aligned), then one wait and one barrier: K and V cost one round trip.
 //     The query's and the row's length's loads go out first and nothing
-//     waits on them until the copies are issued.  Key tiles are
+//     waits on them until the copies are issued.  Key tiles (64 keys) are
 //     double-buffered when T spans more than one.
-//   * G lanes per (row, q head) split the keys: lane g takes keys
-//     t0 + g, t0 + g + G, ... of each tile, keeps its own (m, l, acc[DMAX])
-//     in registers and does a softmax per tile, with scale * log2(e) folded
-//     into q and ex2.approx; the loops have no branch (a lane past the
-//     tile's keys reads the last one and weighs it 0), so the keys' loads
-//     and FMAs interleave.  The lanes merge in a fixed xor butterfly of
-//     shuffles (the log-sum-exp merge of ref.combine_partials) with the
-//     products and sums rounded apart, so every lane ends with the same
-//     bits and a call repeats bitwise (no atomics).  Lane g divides the
-//     columns it stores, once each; m goes back to natural-log units at the
-//     end, and -1e30 stays exactly -1e30.
-//   The launch plan (rows, heads, G, key tile, shared memory, copy width)
-//   is chosen by launch_plan() in kernels/flash_decode.py; this file checks
-//   it and refuses a plan it was not built for.  G is one of 4, 8, 16, 32;
-//   32 measured fastest on the path (chip_smoke.py times all four): the
-//   shortest chain of keys per lane wins over the longer merge.
+//   * G = 32 lanes, one warp, per (row, q head) split the keys: lane g takes
+//     keys t0 + g and t0 + g + 32 of each tile, keeps its own
+//     (m, l, acc[DMAX]) in registers and does a softmax per tile, with
+//     scale * log2(e) folded into q and ex2.approx; the loops have no
+//     branch (a lane past the tile's keys reads the last one and weighs it
+//     0), so the keys' loads and FMAs interleave.  The lanes merge in a
+//     fixed xor butterfly of shuffles (the log-sum-exp merge of
+//     ref.combine_partials) with the products and sums rounded apart, so
+//     every lane ends with the same bits and a call repeats bitwise (no
+//     atomics).  Lane g divides the column it stores, once; m goes back to
+//     natural-log units at the end, and -1e30 stays exactly -1e30.  G = 32
+//     measured fastest of 4, 8, 16 and 32 on the path: the shortest chain
+//     of keys per lane wins over the longer merge.
+//   The launch plan (q heads per block, shared memory, copy width) is chosen
+//   by launch_plan() in kernels/flash_decode.py; this file checks it and
+//   refuses a plan it was not built for.
 //
-// Head dims 64 and 128 (and a plan with lanes = 1): flash_decode_kernel,
+// Head dims 64 and 128: flash_decode_kernel,
 // the first port's design, unchanged: one block of 128 threads per
 // (row, q head), a thread per key of a 128-key tile, a block max and sum per
 // tile and the output accumulator split over (part, column).  No port path
@@ -80,7 +79,6 @@ namespace {
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kMaxKeyTile = 64;    // lanes kernel: keys per tile, at most
 constexpr int kMaxSmem = 48 * 1024;
 constexpr int kMaxGridYZ = 65535;
 
@@ -95,6 +93,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 
 // ---------------------------------------------------------------------------
 // Head dims up to 32: G lanes per (row, q head)
+
+constexpr int kLanes = 32;    // G: lanes per (row, q head), one warp
+constexpr int kKeyTile = 64;  // keys of one staged tile
 
 // the most threads a block of the lanes kernel may have
 template <int DMAX>
@@ -273,63 +274,55 @@ __device__ __forceinline__ void q_from_raw(
   }
 }
 
-// Shared memory: n_buf buffers, each [rows][K, V][key_tile][kv_heads][DMAX]
+// Shared memory: n_buf buffers, each [K, V][kKeyTile][kv_heads][DMAX]
 // (columns D..DMAX-1 zero).
-__host__ __device__ inline int smem_bytes_of(int rows, int kv_heads,
-                                             int key_tile, int Tk, int dmax,
+__host__ __device__ inline int smem_bytes_of(int kv_heads, int Tk, int dmax,
                                              int esize) {
-  const int n_buf = Tk > key_tile ? 2 : 1;
-  return n_buf * rows * 2 * key_tile * kv_heads * dmax * esize;
+  const int n_buf = Tk > kKeyTile ? 2 : 1;
+  return n_buf * 2 * kKeyTile * kv_heads * dmax * esize;
 }
 
-// K and V of the key tile [t0, t0 + jn) of every row of the block into
-// buffer `buf`, in one go: flat when a row's tile is one contiguous range
-// (all kv heads, D = DMAX), else thread (x, y, z) copies whole key rows of
-// kv head y.
+// K and V of the key tile [t0, t0 + jn) of row b into buffer `buf`, in one
+// go: flat when the tile is one contiguous range (all kv heads, D = DMAX),
+// else thread (x, y) copies whole key rows of kv head y.
 template <typename T, int DMAX>
 __device__ __forceinline__ void stage_tile(T* smem, const T* k, const T* v,
-                                           int t0, int buf, int rows,
-                                           int n_rows, int b0, int Tk,
+                                           int t0, int buf, int b, int Tk,
                                            int HKV, int kh0, int D,
-                                           int kv_heads, int key_tile,
-                                           int width, bool flat, int tid,
-                                           int nthreads) {
+                                           int kv_heads, int width, bool flat,
+                                           int tid, int nthreads) {
   constexpr int esize = static_cast<int>(sizeof(T));
-  const int tile_elems = key_tile * kv_heads * DMAX;
-  const int jn = min(key_tile, Tk - t0);
-  for (int r = 0; r < n_rows; ++r) {
-    T* ks = smem + (buf * rows + r) * 2 * tile_elems;
-    char* kd = reinterpret_cast<char*>(ks);
-    char* vd = reinterpret_cast<char*>(ks + tile_elems);
-    const int64_t first =
-        ((static_cast<int64_t>(b0 + r) * Tk + t0) * HKV + kh0) * D;
-    const char* kg = reinterpret_cast<const char*>(k + first);
-    const char* vg = reinterpret_cast<const char*>(v + first);
-    if (flat && width == 16) {  // the path: unrolled, 16 bytes a copy
-      const unsigned ks_s = shared_addr(kd), vs_s = shared_addr(vd);
-      const int units = jn * HKV * D * esize / 16;
+  const int tile_elems = kKeyTile * kv_heads * DMAX;
+  const int jn = min(kKeyTile, Tk - t0);
+  T* ks = smem + buf * 2 * tile_elems;
+  char* kd = reinterpret_cast<char*>(ks);
+  char* vd = reinterpret_cast<char*>(ks + tile_elems);
+  const int64_t first = ((static_cast<int64_t>(b) * Tk + t0) * HKV + kh0) * D;
+  const char* kg = reinterpret_cast<const char*>(k + first);
+  const char* vg = reinterpret_cast<const char*>(v + first);
+  if (flat && width == 16) {  // the path: unrolled, 16 bytes a copy
+    const unsigned ks_s = shared_addr(kd), vs_s = shared_addr(vd);
+    const int units = jn * HKV * D * esize / 16;
 #pragma unroll 4
-      for (int u = tid; u < units; u += nthreads) {
-        cp_async_16(ks_s + u * 16, kg + u * 16);
-        cp_async_16(vs_s + u * 16, vg + u * 16);
-      }
-    } else if (flat) {
-      const int bytes = jn * HKV * D * esize;
-      for (int off = tid * width; off < bytes; off += nthreads * width) {
-        copy_unit(kd + off, kg + off, width);
-        copy_unit(vd + off, vg + off, width);
-      }
-    } else {
-      const int row_bytes = D * esize;
-      for (int j = threadIdx.z * blockDim.x + threadIdx.x; j < jn;
-           j += blockDim.x * blockDim.z) {
-        const int64_t src =
-            (static_cast<int64_t>(j) * HKV + threadIdx.y) * row_bytes;
-        const int dst = (j * kv_heads + threadIdx.y) * DMAX * esize;
-        for (int c = 0; c < row_bytes; c += width) {
-          copy_unit(kd + dst + c, kg + src + c, width);
-          copy_unit(vd + dst + c, vg + src + c, width);
-        }
+    for (int u = tid; u < units; u += nthreads) {
+      cp_async_16(ks_s + u * 16, kg + u * 16);
+      cp_async_16(vs_s + u * 16, vg + u * 16);
+    }
+  } else if (flat) {
+    const int bytes = jn * HKV * D * esize;
+    for (int off = tid * width; off < bytes; off += nthreads * width) {
+      copy_unit(kd + off, kg + off, width);
+      copy_unit(vd + off, vg + off, width);
+    }
+  } else {
+    const int row_bytes = D * esize;
+    for (int j = threadIdx.x; j < jn; j += blockDim.x) {
+      const int64_t src =
+          (static_cast<int64_t>(j) * HKV + threadIdx.y) * row_bytes;
+      const int dst = (j * kv_heads + threadIdx.y) * DMAX * esize;
+      for (int c = 0; c < row_bytes; c += width) {
+        copy_unit(kd + dst + c, kg + src + c, width);
+        copy_unit(vd + dst + c, vg + src + c, width);
       }
     }
   }
@@ -337,57 +330,48 @@ __device__ __forceinline__ void stage_tile(T* smem, const T* k, const T* v,
 
 // (minBlocks 1: ptxas otherwise caps registers to fit two or three of the
 // largest blocks an SM and spills; the path runs one or two warps an SM)
-template <typename T, int DMAX, int G>
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(max_threads<DMAX>(), 1)
 flash_decode_lanes_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const int* __restrict__ length, T* __restrict__ o,
                           float* __restrict__ m_out,
-                          float* __restrict__ l_out, int B, int Tk, int HQ,
-                          int HKV, int D, int group, int64_t q_bstride,
-                          float qscale, int rows, int key_tile, int width) {
-  constexpr int NS = kMaxKeyTile / G;  // keys a lane takes from one tile
-  constexpr int esize = static_cast<int>(sizeof(T));
+                          float* __restrict__ l_out, int Tk, int HQ, int HKV,
+                          int D, int group, int64_t q_bstride, float qscale,
+                          int width) {
+  constexpr int NS = kKeyTile / kLanes;  // keys a lane takes from one tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
-  // block (heads_per_kv * G, kv_heads, rows); grid (row tiles, kv-head
-  // tiles, parts of a GQA group)
+  // block (heads_per_kv * G, kv_heads); grid (batch rows, kv-head tiles,
+  // parts of a GQA group)
   const int kv_heads = blockDim.y;
-  const int tile_elems = key_tile * kv_heads * DMAX;  // one K or V tile
-  const int tid = (threadIdx.z * blockDim.y + threadIdx.y) * blockDim.x +
-                  threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y * blockDim.z;
-  const int b0 = blockIdx.x * rows;
-  const int n_rows = min(rows, B - b0);
+  const int tile_elems = kKeyTile * kv_heads * DMAX;  // one K or V tile
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  const int b = blockIdx.x;
   const int kh0 = blockIdx.y * kv_heads;
-  const int n_buf = Tk > key_tile ? 2 : 1;
-  // all kv heads and D = DMAX: a row's tile is one contiguous range
+  const int n_buf = Tk > kKeyTile ? 2 : 1;
+  // all kv heads and D = DMAX: the row's tile is one contiguous range
   const bool flat = kv_heads == HKV && D == DMAX;
 
-  // this thread's row, head, length and query: the loads go out first, and
+  // this thread's head, length and query: the loads go out first, and
   // nothing waits on them until the K/V copies are issued
-  const int g = threadIdx.x % G;
-  const int r = threadIdx.z;
-  const int b = b0 + r;
-  const bool active = r < n_rows;
+  const int g = threadIdx.x % kLanes;
   const int h = (kh0 + threadIdx.y) * group +
-                blockIdx.z * (blockDim.x / G) + threadIdx.x / G;
-  const int len = active ? length[b] : 0;
+                blockIdx.z * (blockDim.x / kLanes) + threadIdx.x / kLanes;
+  const int len = length[b];
   QWords<T, DMAX> qw;
-#pragma unroll
-  for (int i = 0; i < QWords<T, DMAX>::kWords; ++i) qw.w[i] = 0u;
-  if (active)
-    load_q<T, DMAX>(qw, q + b * q_bstride + static_cast<int64_t>(h) * D, D,
-                    width);
+  load_q<T, DMAX>(qw, q + b * q_bstride + static_cast<int64_t>(h) * D, D,
+                  width);
 
   if (D < DMAX) {  // zero the pad columns, which no copy writes
-    const int n = n_buf * rows * 2 * tile_elems / DMAX;
+    const int n = n_buf * 2 * tile_elems / DMAX;
     for (int e = tid; e < n; e += nthreads)
       for (int d = D; d < DMAX; ++d) store(smem + e * DMAX + d, 0.0f);
   }
-  stage_tile<T, DMAX>(smem, k, v, 0, 0, rows, n_rows, b0, Tk, HKV, kh0, D,
-                      kv_heads, key_tile, width, flat, tid, nthreads);
+  stage_tile<T, DMAX>(smem, k, v, 0, 0, b, Tk, HKV, kh0, D, kv_heads, width,
+                      flat, tid, nthreads);
   cp_async_commit();
   float qr[DMAX], acc[DMAX];
   q_from_raw<DMAX>(qr, qw, qscale);
@@ -396,57 +380,52 @@ flash_decode_lanes_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m = kNegInf, l = 0.0f;
 
   int buf = 0;
-  for (int t0 = 0; t0 < Tk; t0 += key_tile, buf ^= 1) {
-    if (t0 + key_tile < Tk) {
-      stage_tile<T, DMAX>(smem, k, v, t0 + key_tile, buf ^ 1, rows, n_rows,
-                          b0, Tk, HKV, kh0, D, kv_heads, key_tile, width,
-                          flat, tid, nthreads);
+  for (int t0 = 0; t0 < Tk; t0 += kKeyTile, buf ^= 1) {
+    if (t0 + kKeyTile < Tk) {
+      stage_tile<T, DMAX>(smem, k, v, t0 + kKeyTile, buf ^ 1, b, Tk, HKV,
+                          kh0, D, kv_heads, width, flat, tid, nthreads);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // tile t0 of every row has landed
-    if (active) {
-      const int jn = min(key_tile, Tk - t0);
-      const T* ks = smem + (buf * rows + r) * 2 * tile_elems +
-                    threadIdx.y * DMAX;
-      const T* vs = ks + tile_elems;
-      // lane g takes keys j = g + i * G; past the tile's jn keys it reads
-      // the last staged key instead and gives it no weight, so the loops
-      // have no branch and the keys' loads and FMAs interleave
-      float sc[NS];
-      float mt = -INFINITY;
+    __syncthreads();  // tile t0 has landed
+    const int jn = min(kKeyTile, Tk - t0);
+    const T* ks = smem + buf * 2 * tile_elems + threadIdx.y * DMAX;
+    const T* vs = ks + tile_elems;
+    // lane g takes keys j = g + i * G; past the tile's jn keys it reads the
+    // last staged key instead and gives it no weight, so the loops have no
+    // branch and the keys' loads and FMAs interleave
+    float sc[NS];
+    float mt = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const int j = g + i * G;
-        const float s =
-            dot_row<DMAX>(qr, ks + min(j, jn - 1) * kv_heads * DMAX);
-        sc[i] = j >= jn ? -INFINITY : t0 + j < len ? s : kNegInf;
-        mt = fmaxf(mt, sc[i]);
-      }
-      const float m_new = fmaxf(m, mt);
-      const float alpha = fast_exp2(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < DMAX; ++d) acc[d] *= alpha;
-      // a masked key weighs 1 while the lane has no valid key, else 0; a key
-      // past the tile weighs 0 (exp2(-inf) = 0)
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        const float p = fast_exp2(sc[i] - m_new);
-        l += p;
-        axpy_row<DMAX>(acc, p,
-                       vs + min(g + i * G, jn - 1) * kv_heads * DMAX);
-      }
-      m = m_new;
+    for (int i = 0; i < NS; ++i) {
+      const int j = g + i * kLanes;
+      const float s = dot_row<DMAX>(qr, ks + min(j, jn - 1) * kv_heads * DMAX);
+      sc[i] = j >= jn ? -INFINITY : t0 + j < len ? s : kNegInf;
+      mt = fmaxf(mt, sc[i]);
     }
-    if (t0 + 2 * key_tile < Tk) __syncthreads();  // buf is refilled next
+    const float m_new = fmaxf(m, mt);
+    const float alpha = fast_exp2(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) acc[d] *= alpha;
+    // a masked key weighs 1 while the lane has no valid key, else 0; a key
+    // past the tile weighs 0 (exp2(-inf) = 0)
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float p = fast_exp2(sc[i] - m_new);
+      l += p;
+      axpy_row<DMAX>(acc, p,
+                     vs + min(g + i * kLanes, jn - 1) * kv_heads * DMAX);
+    }
+    m = m_new;
+    if (t0 + 2 * kKeyTile < Tk) __syncthreads();  // buf is refilled next
   }
 
   // log-sum-exp merge of the G lanes, the same bits in every lane
 #pragma unroll
-  for (int off = 1; off < G; off <<= 1) {
+  for (int off = 1; off < kLanes; off <<= 1) {
     const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
     const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
     const float m_new = fmaxf(m, m_o);
@@ -461,19 +440,13 @@ flash_decode_lanes_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m = m_new;
   }
 
-  if (!active) return;
-  // lane g stores columns g, g + G, ... of its (row, head)
+  // lane g stores column g of its (row, head) (DMAX <= G)
   const int64_t pair = static_cast<int64_t>(b) * HQ + h;
-  T* op = o + pair * D;
-  const float denom = fmaxf(l, 1e-30f);
+  float val = acc[0];
 #pragma unroll
-  for (int c0 = 0; c0 < DMAX; c0 += G) {
-    float val = acc[c0];
-#pragma unroll
-    for (int e = 1; e < G && c0 + e < DMAX; ++e)
-      if (g == e) val = acc[c0 + e];
-    if (c0 + g < D) store(op + c0 + g, val / denom);
-  }
+  for (int e = 1; e < DMAX; ++e)
+    if (g == e) val = acc[e];
+  if (g < D) store(o + pair * D + g, val / fmaxf(l, 1e-30f));
   if (g == 0 && m_out != nullptr) {
     // back to natural-log units; the mask value stays exactly -1e30
     m_out[pair] = m == kNegInf ? kNegInf : m * kLn2;
@@ -481,18 +454,17 @@ flash_decode_lanes_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DMAX, int G>
+template <typename T, int DMAX>
 int launch_lanes(const void* q, const void* k, const void* v,
                  const int* length, void* o, float* m, float* l, int B,
                  int Tk, int HQ, int HKV, int D, int64_t q_bstride,
-                 float scale, int rows, int heads, int key_tile,
-                 int smem_bytes, int width, cudaStream_t stream) {
+                 float scale, int lanes, int heads, int smem_bytes, int width,
+                 cudaStream_t stream) {
   const int esize = static_cast<int>(sizeof(T));
   const int group = HQ / HKV;
   const bool whole_groups = heads >= group;
   const int kv_heads = whole_groups ? heads / group : 1;
   const int per_kv = whole_groups ? group : heads;  // q heads per kv head
-  const int threads = rows * heads * G;
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) &
@@ -500,49 +472,26 @@ int launch_lanes(const void* q, const void* k, const void* v,
   const bool width_ok =
       width == esize || (width == 16 && aligned && D * esize % 16 == 0 &&
                          q_bstride * esize % 16 == 0);
-  if (rows < 1 || rows > 64 || heads < 1 || HQ % heads ||
+  if (lanes != kLanes || heads < 1 || HQ % heads ||
       (whole_groups ? heads % group : group % heads) ||
-      threads % 32 || threads > max_threads<DMAX>() || key_tile < G ||
-      key_tile > kMaxKeyTile || key_tile % G || !width_ok ||
+      heads * kLanes > max_threads<DMAX>() || !width_ok ||
       smem_bytes > kMaxSmem || (m == nullptr) != (l == nullptr) ||
-      smem_bytes != smem_bytes_of(rows, kv_heads, key_tile, Tk, DMAX, esize))
+      smem_bytes != smem_bytes_of(kv_heads, Tk, DMAX, esize))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((B + rows - 1) / rows, HKV / kv_heads, group / per_kv);
+  const dim3 grid(B, HKV / kv_heads, group / per_kv);
   if (grid.y > kMaxGridYZ || grid.z > kMaxGridYZ)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(per_kv * G, kv_heads, rows);
-  flash_decode_lanes_kernel<T, DMAX, G><<<grid, block, smem_bytes, stream>>>(
+  const dim3 block(per_kv * kLanes, kv_heads);
+  flash_decode_lanes_kernel<T, DMAX><<<grid, block, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), length, static_cast<T*>(o), m, l, B, Tk, HQ,
-      HKV, D, group, q_bstride, scale * kLog2e, rows, key_tile, width);
+      static_cast<const T*>(v), length, static_cast<T*>(o), m, l, Tk, HQ, HKV,
+      D, group, q_bstride, scale * kLog2e, width);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DMAX>
-int launch_lanes_g(const void* q, const void* k, const void* v,
-                   const int* length, void* o, float* m, float* l, int B,
-                   int Tk, int HQ, int HKV, int D, int64_t q_bstride,
-                   float scale, int lanes, int rows, int heads, int key_tile,
-                   int smem_bytes, int width, cudaStream_t stream) {
-#define FD_LANES(G_)                                                          \
-  case G_:                                                                    \
-    return launch_lanes<T, DMAX, G_>(q, k, v, length, o, m, l, B, Tk, HQ,   \
-                                     HKV, D, q_bstride, scale, rows, heads,  \
-                                     key_tile, smem_bytes, width, stream);
-  switch (lanes) {
-    FD_LANES(4)
-    FD_LANES(8)
-    FD_LANES(16)
-    FD_LANES(32)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef FD_LANES
-}
-
 // ---------------------------------------------------------------------------
-// Head dims 64 and 128, and lanes = 1: one block per (row, q head), a thread
-// per key (the first port's design)
+// Head dims 64 and 128: one block per (row, q head), a thread per key (the
+// first port's design)
 
 constexpr int kThreads = 128;      // keys per tile, one per thread
 constexpr int kWarps = kThreads / 32;
@@ -643,10 +592,11 @@ template <typename T>
 int launch_rows(const void* q, const void* k, const void* v,
                 const int* length, void* o, float* m, float* l, int B, int Tk,
                 int HQ, int HKV, int D, int64_t q_bstride, float scale,
-                int rows, int heads, cudaStream_t stream) {
+                int lanes, int heads, cudaStream_t stream) {
   // the first port's layout: a contiguous q, and m and l always written
-  if (rows != 1 || heads != 1 || q_bstride != static_cast<int64_t>(HQ) * D ||
-      m == nullptr || l == nullptr || B > kMaxGridYZ)
+  if (lanes != 1 || heads != 1 ||
+      q_bstride != static_cast<int64_t>(HQ) * D || m == nullptr ||
+      l == nullptr || B > kMaxGridYZ)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(HQ, B);
   flash_decode_kernel<T><<<grid, kThreads, 0, stream>>>(
@@ -659,47 +609,39 @@ int launch_rows(const void* q, const void* k, const void* v,
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const int* length,
              void* o, float* m, float* l, int B, int Tk, int HQ, int HKV,
-             int D, int64_t q_bstride, float scale, int lanes, int rows,
-             int heads, int key_tile, int smem_bytes, int width,
-             cudaStream_t stream) {
-  if (lanes == 1)
-    return launch_rows<T>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
-                          q_bstride, scale, rows, heads, stream);
-  if (D <= 8)
-    return launch_lanes_g<T, 8>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
-                                q_bstride, scale, lanes, rows, heads,
-                                key_tile, smem_bytes, width, stream);
-  if (D <= 16)
-    return launch_lanes_g<T, 16>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
-                                 q_bstride, scale, lanes, rows, heads,
-                                 key_tile, smem_bytes, width, stream);
-  if (D <= 32)
-    return launch_lanes_g<T, 32>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
-                                 q_bstride, scale, lanes, rows, heads,
-                                 key_tile, smem_bytes, width, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+             int D, int64_t q_bstride, float scale, int lanes, int heads,
+             int smem_bytes, int width, cudaStream_t stream) {
+#define FD_ARGS                                                         \
+  q, k, v, length, o, m, l, B, Tk, HQ, HKV, D, q_bstride, scale, lanes, \
+      heads, smem_bytes, width, stream
+  if (D <= 8) return launch_lanes<T, 8>(FD_ARGS);
+  if (D <= 16) return launch_lanes<T, 16>(FD_ARGS);
+  if (D <= 32) return launch_lanes<T, 32>(FD_ARGS);
+#undef FD_ARGS
+  return launch_rows<T>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
+                        q_bstride, scale, lanes, heads, stream);
 }
 
 }  // namespace
 
 // is_bf16: q, k, v, o are bf16, else f32.  D <= 128.  q_bstride: elements
 // between q's batch rows (0 broadcasts one query).  m and l may both be null
-// (lanes kernel only): the partials are then not written.  lanes, rows,
-// heads, key_tile, smem_bytes, width: the launch plan of
-// kernels/flash_decode.py launch_plan (lanes = 1 takes the thread-per-key
-// kernel with rows 1, heads 1 and ignores the rest).
+// (lanes kernel only): the partials are then not written.  lanes, heads,
+// smem_bytes, width: the launch plan of kernels/flash_decode.py launch_plan
+// (head dims above 32 take the thread-per-key kernel with lanes 1 and
+// heads 1, and ignore the rest).
 extern "C" int fd_flash_decode(const void* q, const void* k, const void* v,
                                const int* length, void* o, float* m, float* l,
                                int B, int Tk, int HQ, int HKV, int D,
                                long long q_bstride, float scale, int is_bf16,
-                               int lanes, int rows, int heads, int key_tile,
-                               int smem_bytes, int width,
-                               cudaStream_t stream) {
+                               int lanes, int heads, int smem_bytes,
+                               int width, cudaStream_t stream) {
+  if (D < 1 || D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
     return dispatch<__nv_bfloat16>(q, k, v, length, o, m, l, B, Tk, HQ, HKV,
-                                   D, q_bstride, scale, lanes, rows, heads,
-                                   key_tile, smem_bytes, width, stream);
+                                   D, q_bstride, scale, lanes, heads,
+                                   smem_bytes, width, stream);
   return dispatch<float>(q, k, v, length, o, m, l, B, Tk, HQ, HKV, D,
-                         q_bstride, scale, lanes, rows, heads, key_tile,
-                         smem_bytes, width, stream);
+                         q_bstride, scale, lanes, heads, smem_bytes, width,
+                         stream);
 }

@@ -8,9 +8,9 @@ operands, and optionally the partials ``(o, m, l)`` a caller merges across
 cache shards with ``ref.combine_partials``.  The source is
 ``csrc/flash_decode.cu``, built and loaded by ``_nvcc.py``; it says how the
 kernel is laid out and what bounds it.  :func:`launch_plan` chooses the
-launch (rows and heads per block, lanes, key tile, shared memory, copy
-width) in plain Python, so that the CPU tests can hold it to the card's
-limits; the C entry point checks the plan it is given.
+launch (q heads per block, shared memory, copy width) in plain Python, so
+that the CPU tests can hold it to the card's limits; the C entry point
+checks the plan it is given.
 
 A CPU tensor runs the plain version (``ref.flash_decode_ref``); a CUDA
 tensor launches the kernel or raises.  Nothing falls back.  ``LAUNCHES``
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -29,24 +29,22 @@ from repro_torch.kernels.flash_attention import MAX_SMEM, check_qkv
 
 LAUNCHES = {"flash_decode": 0}
 
-LANES = 32  # G of the lanes kernel when the caller does not choose (fastest)
-LANE_CHOICES = (4, 8, 16, 32)
+LANES = 32      # G: lanes per (row, q head) of the lanes kernel (kLanes)
+KEY_TILE = 64   # keys of one staged tile (kKeyTile)
 
 _SIGNATURES = {"fd_flash_decode": (_nvcc.PTR,) * 7 + (_nvcc.I32,) * 5
-               + (_nvcc.I64, _nvcc.F32) + (_nvcc.I32,) * 7 + (_nvcc.PTR,)}
+               + (_nvcc.I64, _nvcc.F32) + (_nvcc.I32,) * 5 + (_nvcc.PTR,)}
 
 
 class LaunchPlan(NamedTuple):
     """How ``fd_flash_decode`` launches: ``dmax`` is the head-dim bound it
     is built for, ``lanes`` the threads that split one (row, q head)'s keys
-    (1: the thread-per-key kernel of head dims 64 and 128), ``rows`` ×
-    ``heads`` the (batch row, q head) pairs of a block, ``kv_heads`` the kv
-    heads it stages, ``key_tile`` the keys of one staged tile,
-    ``block``/``grid`` the launch dims and ``copy_width`` the bytes of one
-    copy unit."""
+    (1: the thread-per-key kernel of head dims 64 and 128), ``heads`` the
+    q heads of a block, ``kv_heads`` the kv heads it stages, ``key_tile``
+    the keys of one staged tile, ``block``/``grid`` the launch dims and
+    ``copy_width`` the bytes of one copy unit."""
     dmax: int
     lanes: int
-    rows: int
     heads: int
     kv_heads: int
     key_tile: int
@@ -59,58 +57,42 @@ class LaunchPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(b: int, t: int, hq: int, hkv: int, d: int,
-                dtype: torch.dtype, ptrs_aligned: bool,
-                lanes: Optional[int] = None) -> LaunchPlan:
+                dtype: torch.dtype, ptrs_aligned: bool) -> LaunchPlan:
     """The launch for q [b, hq, d] against k/v [b, t, hkv, d].
 
-    Head dims up to 32 take the lanes kernel with ``lanes`` (G, one of
-    :data:`LANE_CHOICES`; :data:`LANES` when None) adjacent threads per
-    (row, q head): a block takes the most q heads that are whole GQA groups
-    (or a part of one group) and fit in 512 (D ≤ 16) or 256 threads, and as
-    few rows as make whole warps (the lanes merge by warp shuffles), so the
-    grid keeps as many blocks as it can (128 on the attn read-out, one for
-    each of the H100's 132 SMs, about); the largest key tile of 64, 32, 16
-    or 8 (at least G) whose K and V tiles (two buffers each when ``t``
-    spans more than one tile) fit in :data:`MAX_SMEM`.  Copies move 16
-    bytes when every pointer and q's batch stride are 16-byte aligned
-    (``ptrs_aligned``) and a row of ``d`` elements is a multiple of 16
-    bytes, else one element.  Head dims 64 and 128, or ``lanes`` = 1, take
-    the thread-per-key kernel (any D ≤ 128): one block of 128 threads per
-    (row, q head)."""
+    Head dims up to 32 take the lanes kernel with :data:`LANES` (one warp)
+    per (row, q head): a block takes one batch row and the most q heads
+    that are whole GQA groups (or a part of one group), fit in 512 (D ≤ 16)
+    or 256 threads, and whose K and V tiles of :data:`KEY_TILE` keys (two
+    buffers each when ``t`` spans more than one tile) fit in
+    :data:`MAX_SMEM`; so the attn read-out runs 128 blocks, about one for
+    each of the H100's 132 SMs.  Copies move 16 bytes when every pointer
+    and q's batch stride are 16-byte aligned (``ptrs_aligned``) and a row
+    of ``d`` elements is a multiple of 16 bytes, else one element.  Head
+    dims 64 and 128 take the thread-per-key kernel (any D ≤ 128): one block
+    of 128 threads per (row, q head)."""
     esize = 2 if dtype == torch.bfloat16 else 4
-    if d > 32 or lanes == 1:
-        return LaunchPlan(128, 1, 1, 1, 1, 128, 128, (128, 1, 1), (hq, b, 1),
+    if d > 32:
+        return LaunchPlan(128, 1, 1, 1, 128, 128, (128, 1, 1), (hq, b, 1),
                           0, esize)
-    g = LANES if lanes is None else lanes
-    if g not in LANE_CHOICES:
-        raise ValueError(f"flash_decode: lanes must be 1 or one of "
-                         f"{LANE_CHOICES}, got {lanes}")
     dmax = 8 if d <= 8 else 16 if d <= 16 else 32
     max_threads = 512 if dmax <= 16 else 256
     width = 16 if ptrs_aligned and d * esize % 16 == 0 else esize
     group = hq // hkv
-    for key_tile in (64, 32, 16, 8):
-        if key_tile < g:
+    n_buf = 2 if t > KEY_TILE else 1
+    for heads in range(min(hq, max_threads // LANES), 0, -1):
+        if hq % heads or (heads % group and group % heads):
             continue
-        n_buf = 2 if t > key_tile else 1
-        for heads in range(min(hq, max_threads // g), 0, -1):
-            if hq % heads or (heads % group and group % heads):
-                continue
-            kv_heads = max(heads // group, 1)
-            # whole warps: rows * heads * G a multiple of 32
-            rows = 32 // math.gcd(32, heads * g)
-            if rows * heads * g > max_threads:
-                continue
-            smem = n_buf * rows * 2 * key_tile * kv_heads * dmax * esize
-            if smem <= MAX_SMEM:
-                per_kv = min(heads, group)
-                return LaunchPlan(
-                    dmax, g, rows, heads, kv_heads, key_tile,
-                    rows * heads * g, (per_kv * g, kv_heads, rows),
-                    (-(-b // rows), hkv // kv_heads, group // per_kv),
-                    smem, width)
+        kv_heads = max(heads // group, 1)
+        smem = n_buf * 2 * KEY_TILE * kv_heads * dmax * esize
+        if smem <= MAX_SMEM:
+            per_kv = min(heads, group)
+            return LaunchPlan(dmax, LANES, heads, kv_heads, KEY_TILE,
+                              heads * LANES, (per_kv * LANES, kv_heads, 1),
+                              (b, hkv // kv_heads, group // per_kv), smem,
+                              width)
     raise ValueError(f"flash_decode: no launch fits q [{b}, {hq}, {d}] "
-                     f"against k/v [{b}, {t}, {hkv}, {d}] with {g} lanes")
+                     f"against k/v [{b}, {t}, {hkv}, {d}]")
 
 
 def reset_launches() -> None:
@@ -129,15 +111,11 @@ def _kernel_length(length, b: int, device: torch.device) -> torch.Tensor:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
-                 *, return_partials: bool = False,
-                 lanes: Optional[int] = None):
+                 *, return_partials: bool = False):
     """q: [B,HQ,D]; k,v: [B,T,HKV,D]; ``length``: [] or [B] valid cache
     prefix.  Returns o [B,HQ,D] in q's dtype, or ``(o, m [B,HQ], l [B,HQ])``
     (f32) when ``return_partials``.  q may broadcast one query over the
-    batch (batch stride 0, as ``expand`` gives): it is read in place.
-    ``lanes`` overrides the launch plan's G (4, 8, 16 or 32, or 1 for the
-    thread-per-key kernel; head dims above 32 always take that one): it is
-    there to measure the design."""
+    batch (batch stride 0, as ``expand`` gives): it is read in place."""
     _nvcc.require_no_grad("flash_decode", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k, v, length,
@@ -158,7 +136,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
     aligned = all(p % 16 == 0 for p in ptrs) and \
         q_bstride * q.element_size() % 16 == 0
-    plan = launch_plan(b, t, hq, hkv, d, q.dtype, aligned, lanes)
+    plan = launch_plan(b, t, hq, hkv, d, q.dtype, aligned)
     if plan.lanes == 1 and q_bstride != hq * d:  # that kernel reads q dense
         q = q.contiguous()
         q_bstride = hq * d
@@ -172,8 +150,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
     _nvcc.raise_on(lib.fd_flash_decode(
         q.data_ptr(), ptrs[1], ptrs[2], length.data_ptr(), ptrs[3], *ml, b,
         t, hq, hkv, d, q_bstride, 1.0 / math.sqrt(d),
-        int(q.dtype == torch.bfloat16), plan.lanes, plan.rows, plan.heads,
-        plan.key_tile, plan.smem_bytes, plan.copy_width,
-        _nvcc.stream_of(q)), "flash_decode")
+        int(q.dtype == torch.bfloat16), plan.lanes, plan.heads,
+        plan.smem_bytes, plan.copy_width, _nvcc.stream_of(q)), "flash_decode")
     LAUNCHES["flash_decode"] += 1
     return (o, m, l) if return_partials else o

@@ -5,9 +5,10 @@ run here; ``chip_smoke.py`` holds it against the plain version on the card.
 These tests mirror its arithmetic in torch — G lanes splitting each key
 tile, a softmax per tile in the exp2 domain, the xor-butterfly merge — and
 hold the mirror against the port's plain version and the JAX package's
-interpret-mode Pallas kernel, for every G the launch plan can choose and
-for G = 1 and 2.  The launch plan is held to the card's limits for every
-shape ``chip_smoke.py`` launches.  Inputs come from a NumPy seed.
+interpret-mode Pallas kernel, for the plan's G = 32 and for G = 1 to 16.
+The launch plan is held to the card's limits for every shape
+``chip_smoke.py`` launches, and those launches are shown to run every
+staging branch of the kernel.  Inputs come from a NumPy seed.
 """
 import functools
 import importlib.util
@@ -158,59 +159,89 @@ FD_CASES, FD_PATH = _chip_smoke_fd_cases()
     (65535, 2, 1, 12, 9, 9),               # the largest batch
 ], ids=str)
 def test_flash_decode_launch_plan_fits_the_card(case, dtype, aligned):
-    """Every launch ``chip_smoke.py`` makes (the plan's own lanes, each G of
-    its sweep and the thread-per-key kernel) and a few edge shapes stay
+    """Every launch ``chip_smoke.py`` makes and a few edge shapes stay
     within 1,024 threads of whole warps, 48 KB of static shared memory a
-    block and the grid's limits; the lanes of a (row, head) lie in one warp,
-    each lane's chain is at most 16 keys a tile, and the grid covers every
+    block and the grid's limits; the lanes of a (row, head) are one warp,
+    each lane's chain is 2 keys a tile, and the grid covers every
     (row, q head) once."""
     b, hq, hkv, d, t, _ = case
     esize = 2 if dtype == torch.bfloat16 else 4
     group = hq // hkv
-    for lanes in (None,) + t_fd.LANE_CHOICES + (1,):
-        plan = t_fd.launch_plan(b, t, hq, hkv, d, dtype, aligned, lanes)
-        assert plan.threads <= 1024 and plan.smem_bytes <= 48 * 1024
-        assert math.prod(plan.block) == plan.threads
-        assert plan.grid[0] < 2 ** 31 and max(plan.grid[1:]) <= 65535
-        if d > 32 or lanes == 1:  # a block per (row, q head), thread per key
-            assert (plan.lanes, plan.threads, plan.grid) == (1, 128,
-                                                             (hq, b, 1))
-            continue
-        assert plan.lanes == (t_fd.LANES if lanes is None else lanes)
-        assert plan.threads % 32 == 0 and plan.block[2] == plan.rows <= 64
-        assert plan.threads == plan.rows * plan.heads * plan.lanes
-        assert plan.dmax >= d and 32 % plan.lanes == 0
-        assert plan.key_tile % plan.lanes == 0 and \
-            plan.key_tile // plan.lanes <= 16
-        assert plan.heads % group == 0 or group % plan.heads == 0
-        assert plan.kv_heads == max(plan.heads // group, 1)
-        n_buf = 2 if t > plan.key_tile else 1
-        assert plan.smem_bytes == n_buf * plan.rows * 2 * plan.key_tile * \
-            plan.kv_heads * plan.dmax * esize
-        assert plan.copy_width == (16 if aligned and d * esize % 16 == 0
-                                   else esize)
-        # block (q heads of a kv head × G, kv heads, rows); the grid covers
-        # each (row, q head) exactly once
-        per_kv = plan.block[0] // plan.lanes
-        assert plan.block[1] == plan.kv_heads and \
-            per_kv * plan.kv_heads == plan.heads
-        covered = set()
-        for bx in range(plan.grid[0]):
-            for by in range(plan.grid[1]):
-                for bz in range(plan.grid[2]):
-                    for ty in range(plan.kv_heads):
-                        for hh in range(per_kv):
-                            h = (by * plan.kv_heads + ty) * group + \
-                                bz * per_kv + hh
-                            assert (h // group) == by * plan.kv_heads + ty
-                            for r in range(plan.rows):
-                                if bx * plan.rows + r < b:
-                                    covered.add((bx * plan.rows + r, h))
-            if b > 256 and bx > 4:  # the rest of a huge grid repeats
-                break
-        rows_seen = min(b, 6 * plan.rows) if b > 256 else b
-        assert covered == {(r, h) for r in range(rows_seen)
-                           for h in range(hq)}
-        if case == FD_PATH:  # every q head of a row in one block
-            assert (plan.heads, plan.kv_heads) == (2, 2)
-            assert plan.grid == (-(-b // plan.rows), 1, 1)
+    plan = t_fd.launch_plan(b, t, hq, hkv, d, dtype, aligned)
+    assert plan.threads <= 1024 and plan.smem_bytes <= 48 * 1024
+    assert math.prod(plan.block) == plan.threads
+    assert plan.grid[0] < 2 ** 31 and max(plan.grid[1:]) <= 65535
+    if d > 32:  # a block per (row, q head), a thread per key
+        assert (plan.lanes, plan.threads, plan.grid) == (1, 128, (hq, b, 1))
+        return
+    assert plan.lanes == 32 and plan.key_tile == 64
+    assert plan.threads == plan.heads * plan.lanes
+    assert plan.threads <= (512 if plan.dmax <= 16 else 256)
+    assert plan.dmax >= d and plan.dmax <= plan.lanes
+    assert plan.heads % group == 0 or group % plan.heads == 0
+    assert plan.kv_heads == max(plan.heads // group, 1)
+    n_buf = 2 if t > plan.key_tile else 1
+    assert plan.smem_bytes == n_buf * 2 * plan.key_tile * plan.kv_heads * \
+        plan.dmax * esize
+    assert plan.copy_width == (16 if aligned and d * esize % 16 == 0
+                               else esize)
+    # block (q heads of a kv head × G, kv heads, 1), grid (rows, kv-head
+    # tiles, parts of a group); the grid covers each (row, q head) once
+    per_kv = plan.block[0] // plan.lanes
+    assert plan.block[1] == plan.kv_heads and plan.block[2] == 1 and \
+        per_kv * plan.kv_heads == plan.heads
+    assert plan.grid[0] == b
+    heads = []
+    for by in range(plan.grid[1]):
+        for bz in range(plan.grid[2]):
+            for ty in range(plan.kv_heads):
+                for hh in range(per_kv):
+                    h = (by * plan.kv_heads + ty) * group + bz * per_kv + hh
+                    assert h // group == by * plan.kv_heads + ty
+                    heads.append(h)
+    assert sorted(heads) == list(range(hq))
+    if case == FD_PATH:  # every q head of a row in one block, 128 blocks
+        assert (plan.heads, plan.kv_heads, plan.grid) == (2, 2, (b, 1, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_chip_smoke_decode_layouts_run_every_staging_branch(dtype):
+    """``chip_smoke.py``'s decode cases in its four layouts (dense, q
+    broadcast, q strided, all three unaligned) reach, per dtype, a flat and
+    a key-row-by-key-row staging with 16-byte copies and with element
+    copies, and the layouts hand the wrapper the inputs unchanged: the
+    plain version gives the same outputs in each."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", Path(__file__).resolve().parent.parent /
+        "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    branches = set()
+    for case in FD_CASES:
+        b, hq, hkv, d, t, lengths = case
+        rng = np.random.default_rng(b * 1000 + hq * 100 + t + d)
+        q, k, v = (torch.as_tensor(rng.standard_normal(s).astype(np.float32)
+                                   ).to(dtype)
+                   for s in ((b, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
+        ln = torch.as_tensor(np.broadcast_to(np.asarray(lengths, np.int32),
+                                             (b,)).copy())
+        layouts = cs.decode_layouts(torch, q, k, v)
+        assert b == 1 or layouts["broadcast q"][0].stride(0) == 0
+        assert layouts["strided q"][0].stride(0) == 2 * hq * d
+        assert all(x.data_ptr() % 16 == esize
+                   for x in layouts["unaligned"])
+        want = t_ref.flash_decode_ref(q[:1].expand(b, hq, d), k, v, ln,
+                                      return_partials=True)
+        got = t_ref.flash_decode_ref(*layouts["broadcast q"], ln,
+                                     return_partials=True)
+        assert all(torch.equal(a, z) for a, z in zip(got, want))
+        for name in ("dense", "strided q", "unaligned"):
+            got = t_ref.flash_decode_ref(*layouts[name], ln,
+                                         return_partials=True)
+            want = t_ref.flash_decode_ref(q, k, v, ln, return_partials=True)
+            assert all(torch.equal(a, z) for a, z in zip(got, want)), name
+        for qkv in layouts.values():
+            branches.add(cs.decode_branch(t_fd, *qkv))
+    assert {(flat, width) for flat in (True, False)
+            for width in (16, esize)} <= branches

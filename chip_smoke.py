@@ -10,10 +10,14 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
 2. build the four CUDA libraries from the sources in the checkout (one
    nvcc per source, all at once, sm_90a), print ptxas' registers and
    spills, and require no spill in ``flash_attention_kernel`` and
-   ``flash_decode_lanes_kernel`` (the head dims up to 32);
+   ``flash_decode_lanes_kernel`` (the head dims up to 32),
+   ``rglru_scan_tiles_kernel`` and ``sumsq_rows_cluster_kernel``;
 3. hold the DP kernels against their plain PyTorch versions on the card, at
-   the paper config's shape [40, 13890] and at ragged shapes, and require
-   ``sumsq_rows`` to repeat bitwise;
+   the paper config's shape [40, 13890] and at ragged shapes (P ≡ 1, 2, 3
+   mod 4, a base pointer one element off, rows shorter than a cluster's
+   blocks, one row of 10⁶, 1,000 rows), require ``sumsq_rows`` to repeat
+   bitwise, and require its cluster and one-block plans and every load
+   branch (head, 16-byte body, tail, empty block) to run;
 4. drive the FL path: ``run_fl_legacy`` on the paper's config (40 clients,
    hidden 128, unsw) for 10 rounds, counting kernel launches;
 5. run 3 rounds on the card and on the CPU from the same state with the
@@ -27,8 +31,9 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    three off 16-byte alignment, so that every staging branch runs; two
    calls bitwise equal, rows of length 0, its shard partials and their
    merge) and
-   ``rglru_scan`` (bitwise, and bitwise across runs) against their plain
-   versions on the card;
+   ``rglru_scan`` (bitwise, and bitwise across runs; a, x and h0 dense and
+   one element off 16-byte alignment, so that every branch of its plan
+   runs) against their plain versions on the card;
 9. drive the serving path for ``attn`` and ``ssm``: train a checkpoint with
    ``run_fl_legacy`` on ``road_raw`` at hidden 64, load it into a
    ``ServeEngine`` with buckets (16, 128) and stream 9,000 windows in
@@ -36,11 +41,14 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    scorer on the same bucket batches (bitwise), one unpadded call (1e-6)
    and the CPU engine (1e-5); time the batch-1 loop; profile one pass
    (and require ``attn``'s decode to run ``flash_decode_lanes_kernel``);
-10. time the sequence kernels at the serving path's shapes (B = 128),
-   ``flash_attention`` and ``flash_decode`` beside SDPA (the ratios
-   printed), and ``flash_decode``'s eager time as the detector calls it
-   with and without the first port's per-call conversions; print the
-   ``kernels`` JSON line for all five kernels.
+10. time a launch's own floor (``add_`` on a one-element tensor), the
+   sequence kernels at the serving path's shapes (B = 128; ``rglru_scan``
+   also at the rglru detector's [128, 64, 16]), ``flash_attention`` and
+   ``flash_decode`` beside SDPA (the ratios printed), and ``flash_decode``'s
+   eager time as the detector calls it with and without the first port's
+   per-call conversions; print each kernel's time less the floor beside its
+   bound, and the ``kernels`` JSON line for all five kernels with the
+   floor.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -139,12 +147,35 @@ def device_ms(fn, iters: int = 100, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def launch_floor_ms(torch) -> float:
+    """A launch's own floor: the device time per call of a stock kernel
+    that does next to nothing (``add_`` on a one-element tensor), by the
+    :func:`device_ms` protocol that times the kernels."""
+    t = torch.zeros(1, device="cuda")
+    return device_ms(lambda: t.add_(1))
+
+
 def bound(bytes_moved, flops):
     """The least time (ms) the card could take: bytes over HBM bandwidth or
     fp32 operations over the fp32 peak, whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sumsq_bound(r: int, p: int):
+    """``sumsq_rows``' bound on [r, p]: x read, one sum a row written, a
+    multiply and an add an element."""
+    return bound(4 * r * p + 4 * r, 2 * r * p)
+
+
+def scan_bound(case):
+    """``rglru_scan``'s bound on an ``RG_CASES`` case: a and x read and h
+    written, [B, L, W] each; h0 read (when given) and h_last written,
+    [B, W] each; a multiply and an add an element."""
+    b, l, w, with_h0 = case
+    return bound(4 * (3 * b * l * w + (2 if with_h0 else 1) * b * w),
+                 2 * b * l * w)
 
 
 def timed(kernel, plain, library):
@@ -158,20 +189,59 @@ def timed(kernel, plain, library):
     return out
 
 
+# (r, p, offset): x [r, p] starting `offset` elements past a 16-byte
+# boundary.  The paper config's update (P ≡ 2 mod 4: every other row starts
+# 8 bytes off), the grid of PR 11, P ≡ 1 and 3, the update one element off,
+# rows shorter than a cluster's blocks (empty blocks), one row of 10⁶ and
+# 1,000 rows (one block a row)
+SQ_CASES = [(SLICE_ROWS, SLICE_P, 0)] + [
+    (r, p, 0) for p in (64, 1000, 40_000) for r in (1, 7)] + [
+    (5, 1001, 0), (5, 4099, 0), (SLICE_ROWS, SLICE_P, 1), (5, 4099, 1),
+    (3, 5, 0), (2, 30, 3), (1, 1_000_000, 0), (1000, SLICE_P, 0)]
+SQ_BRANCHES = {"cluster", "one block", "head", "float4", "tail", "empty"}
+
+
+def sumsq_branches(dpk, x) -> set:
+    """The branches ``sumsq_rows_cluster_kernel`` takes on ``x [R, P]``:
+    a cluster of blocks a row or one block, and per block a scalar head,
+    16-byte loads, a scalar tail or no columns at all."""
+    r, p = x.shape
+    plan = dpk.sumsq_plan(r, p)
+    out = {"cluster" if plan.cluster > 1 else "one block"}
+    for row in range(min(r, 4)):  # row starts repeat mod 4
+        start = x.data_ptr() % 16 // 4 + row * p
+        for head, vec4s, tail in dpk.sumsq_segments(plan, p, start):
+            out |= {name for name, n in (("head", head), ("float4", vec4s),
+                                         ("tail", tail)) if n}
+            if head + vec4s + tail == 0:
+                out.add("empty")
+    return out
+
+
+def offset_copy(torch, x, offset: int):
+    """A contiguous copy of ``x`` that starts ``offset`` elements past a
+    16-byte boundary (a fresh allocation starts on one)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
 def phase_kernels_vs_plain(torch, dpk, ref, ops):
     """Phase 3.  Returns the max abs error per kernel at [40, 13890]."""
     gen = torch.Generator().manual_seed(0)
     errs = {"sumsq_rows": 0.0, "scale_noise_rows": 0.0}
-    shapes = [(SLICE_ROWS, SLICE_P)] + [(r, p) for p in (64, 1000, 40_000)
-                                        for r in (1, 7)]
-    for r, p in shapes:
-        x = (torch.randn(r, p, generator=gen) * 3).cuda()
+    branches = set()
+    for r, p, offset in SQ_CASES:
+        x = offset_copy(torch, (torch.randn(r, p, generator=gen) * 3).cuda(),
+                        offset)
         nz = torch.randn(r, p, generator=gen).cuda()
+        branches |= sumsq_branches(dpk, x)
         sq = dpk.sumsq_rows(x)
         sq_ref = ref.sumsq_rows_ref(x)
         torch.testing.assert_close(sq, sq_ref, rtol=1e-5, atol=0)
         check(torch.equal(sq, dpk.sumsq_rows(x)),
-              f"sumsq_rows not bitwise repeatable at [{r}, {p}]")
+              f"sumsq_rows not bitwise repeatable at [{r}, {p}] + {offset}")
         for clip, sigma in ((1.0, 0.0), (0.5, 0.1), (100.0, 1.0)):
             scale = ref.clip_scale(torch.sqrt(sq_ref), clip)
             o = dpk.scale_noise_rows(x, nz, scale, sigma)
@@ -181,13 +251,18 @@ def phase_kernels_vs_plain(torch, dpk, ref, ops):
             out_ref, norm_ref = ref.dp_clip_noise_rows_ref(x, nz, clip, sigma)
             torch.testing.assert_close(norm, norm_ref, rtol=1e-5, atol=0)
             torch.testing.assert_close(out, out_ref, rtol=1e-5, atol=1e-5)
-            if (r, p) == (SLICE_ROWS, SLICE_P):
+            if (r, p, offset) == (SLICE_ROWS, SLICE_P, 0):
                 errs["scale_noise_rows"] = max(errs["scale_noise_rows"],
                                                max_abs(o, o_ref))
-        if (r, p) == (SLICE_ROWS, SLICE_P):
+        if (r, p, offset) == (SLICE_ROWS, SLICE_P, 0):
             errs["sumsq_rows"] = max_abs(sq, sq_ref)
-        print(f"  [{r:>2}, {p:>6}]  sumsq max|err| {max_abs(sq, sq_ref):.3e}  "
-              f"bitwise repeat ok  scale_noise/dp_clip_noise ok")
+        print(f"  [{r:>4}, {p:>7}] + {offset}  "
+              f"C={dpk.sumsq_plan(r, p).cluster}  sumsq max|err| "
+              f"{max_abs(sq, sq_ref):.3e}  bitwise repeat ok  "
+              f"scale_noise/dp_clip_noise ok")
+    check(SQ_BRANCHES <= branches,
+          f"sumsq_rows branches not run: {sorted(SQ_BRANCHES - branches)}")
+    print(f"  sumsq_rows branches run: {sorted(branches)}")
     torch.cuda.synchronize()
     return errs
 
@@ -309,7 +384,7 @@ def phase_timing(torch, dpk, ref, errs, launches):
     scale_col = scale[:, None]
 
     rows = []
-    b_sq, by_sq = bound(4 * r * p + 4 * r, 2 * r * p)
+    b_sq, by_sq = sumsq_bound(r, p)
     rows.append({
         "name": "sumsq_rows", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
@@ -384,8 +459,7 @@ def phase_profile(torch, fed, fl, run_fl_legacy, rounds: int = 3):
                         for k, (n, t) in top],
         "dp_kernel_device_us": {
             name: 1e3 * t / n for k, (n, t) in by_kernel.items()
-            for name in ("sumsq_rows", "scale_noise_rows")
-            if f"{name}_kernel" in k},
+            for name in ("sumsq_rows", "scale_noise_rows") if name in k},
     }
     print(f"  wall {out['wall_ms_per_round']:.2f} ms/round, device busy "
           f"{out['device_busy_ms_per_round']} ms/round "
@@ -435,34 +509,48 @@ FD_CASES = [(1, 4, 4, 64, 256, 256), (2, 8, 2, 64, 512, 300),
 SEQ_KERNEL_NAMES = r"flash_attention|flash_decode|rglru_scan"
 FD_KERNEL_NAME = re.compile(
     r"25flash_decode_lanes_kernelI(f|13__nv_bfloat16)Li(\d+)EE")
-# (b, l, w, h0)
+# (b, l, w, h0): the grid of PR 12, the ssm detector's path shape (4 lanes
+# a thread), the rglru detector's (B = 128 at hidden 64: one lane a thread,
+# rows packed), L not a multiple of the tile, L = 1, W % 4 != 0 and B·W
+# smaller than one block.
+# Each runs dense and with a, x and h0 one element off 16-byte alignment.
 RG_PATH = (128, 4, 512, True)
+RG_RGLRU = (128, 64, 16, False)
 RG_CASES = [(1, 128, 128, False), (2, 64, 96, True), (3, 64, 512, True),
-            (1, 4, 512, False), RG_PATH]
+            (1, 4, 512, False), RG_PATH, RG_RGLRU, (2, 100, 64, True),
+            (3, 1, 64, True), (2, 20, 18, True), (1, 9, 8, False),
+            (2, 3, 18, True), (128, 20, 512, False), (2048, 40, 16, True)]
+RG_BRANCHES = {"4 lanes, 16-byte loads", "1 lane, 4-byte loads",
+               "one row a block", "rows packed", "one tile", "two tiles",
+               "more tiles", "ragged tile", "idle threads", "h0", "no h0"}
+# rglru_scan_tiles_kernel<VEC> and sumsq_rows_cluster_kernel
+RG_KERNEL_NAME = re.compile(r"23rglru_scan_tiles_kernelILi(\d+)EE")
+SQ_KERNEL_NAME = re.compile(r"25sumsq_rows_cluster_kernel()")
 
 
 def check_ptxas(log: str, name_re, kernel: str, n_instances: int) -> dict:
     """Phase 2: ptxas' report (``-Xptxas -v``) of each instantiation of a
-    lanes kernel, ``"<dtype>, <template ints>"`` -> registers and the bytes
-    of spill stores and loads.  All ``n_instances`` must be reported,
-    without a spill."""
+    kernel, ``"<template arguments>"`` (the name's groups; f32 or bf16 for a
+    type) -> registers and the bytes of spill stores and loads.  All
+    ``n_instances`` must be reported, without a spill."""
+    types = {"f": "f32", "13__nv_bfloat16": "bf16"}
     report, current = {}, None
     for line in log.splitlines():
         if "Compiling entry" in line or "Function properties" in line:
             m = name_re.search(line)
             current = None if m is None else ", ".join(
-                ("f32" if m.group(1) == "f" else "bf16",) + m.groups()[1:])
-            if current:
+                types.get(g, g) for g in m.groups())
+            if current is not None:
                 report.setdefault(current, {})
-        elif current and "spill stores" in line:
+        elif current is not None and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill", line)
             report[current].update(spill_stores=int(stores),
                                    spill_loads=int(loads))
-        elif current and "registers" in line:
+        elif current is not None and "registers" in line:
             report[current]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
     for name, info in sorted(report.items()):
-        print(f"  {kernel}<{name}>: {info}")
+        print(f"  {kernel}<{name}>: {info}" if name else f"  {kernel}: {info}")
     check(len(report) == n_instances and all(
         {"registers", "spill_stores", "spill_loads"} <= set(info)
         for info in report.values()),
@@ -483,6 +571,16 @@ def check_fd_ptxas(log: str) -> dict:
     """``flash_decode_lanes_kernel``: f32 and bf16 at DMAX 8, 16, 32
     (G = 32)."""
     return check_ptxas(log, FD_KERNEL_NAME, "flash_decode_lanes_kernel", 6)
+
+
+def check_rg_ptxas(log: str) -> dict:
+    """``rglru_scan_tiles_kernel``: 4 lanes a thread (16-byte loads) and 1."""
+    return check_ptxas(log, RG_KERNEL_NAME, "rglru_scan_tiles_kernel", 2)
+
+
+def check_sq_ptxas(log: str) -> dict:
+    """``sumsq_rows_cluster_kernel``: one instance."""
+    return check_ptxas(log, SQ_KERNEL_NAME, "sumsq_rows_cluster_kernel", 1)
 
 
 def check_flash_attention(torch, fak, ref, randn) -> float:
@@ -526,18 +624,11 @@ def decode_layouts(torch, q, k, v) -> dict:
     v each one element past a 16-byte boundary, so that copies fall to the
     element size."""
     b, hq, d = q.shape
-
-    def off_by_one(x):
-        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-        view = buf[1:].view(x.shape)
-        view.copy_(x)
-        return view
-
     wide = torch.zeros((2 * b, hq, d), dtype=q.dtype, device=q.device)
     wide[::2] = q
     return {"dense": (q, k, v), "broadcast q": (q[:1].expand(b, hq, d), k, v),
             "strided q": (wide[::2], k, v),
-            "unaligned": tuple(off_by_one(x) for x in (q, k, v))}
+            "unaligned": tuple(offset_copy(torch, x, 1) for x in (q, k, v))}
 
 
 def decode_branch(fdk, q, k, v):
@@ -643,8 +734,8 @@ def check_decode_shards(torch, fdk, ref, ops, randn, shape, lengths):
 
 
 def phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops):
-    """Phase 8.  Returns the max abs error per kernel at the path shapes
-    (f32)."""
+    """Phase 8.  Returns the max abs error of the attention kernels at the
+    path shapes (f32)."""
     gen = torch.Generator().manual_seed(7)
 
     def randn(*shape, dtype=torch.float32):
@@ -655,23 +746,59 @@ def phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops):
     for shape, lengths in (((2, 8, 2, 64, 512), (300, 512)),
                            ((2, 2, 2, 8, 256), (150, 256))):
         check_decode_shards(torch, fdk, ref, ops, randn, shape, lengths)
-    for case in RG_CASES:
-        b, l, w, with_h0 = case
-        a = torch.sigmoid(randn(b, l, w))
-        x = randn(b, l, w)
-        h0 = randn(b, w) if with_h0 else None
-        h, h_last = rgk.rglru_scan(a, x, h0)
-        h_ref, hl_ref = ref.rglru_scan_ref(a, x, h0)
-        check(torch.equal(h, h_ref) and torch.equal(h_last, hl_ref),
-              f"rglru_scan not bitwise equal to the plain version at {case}")
-        h2, hl2 = rgk.rglru_scan(a, x, h0)
-        check(torch.equal(h, h2) and torch.equal(h_last, hl2),
-              f"rglru_scan not bitwise repeatable at {case}")
-        if case == RG_PATH:
-            errs["rglru_scan"] = max_abs(h, h_ref)
-        print(f"  rglru_scan {case}: bitwise equal to plain, bitwise repeat")
+    check_rglru_scan(torch, rgk, ref, randn)
     torch.cuda.synchronize()
     return errs
+
+
+def scan_branches(rgk, case, aligned: bool) -> set:
+    """The branches ``rglru_scan_tiles_kernel`` takes on a case of
+    :data:`RG_CASES`, as the wrapper's plan picks them."""
+    b, l, w, with_h0 = case
+    plan = rgk.launch_plan(b, l, w, aligned)
+    (tx, ty), (gx, gy) = plan.block, plan.grid
+    tiles = -(-l // plan.tile)
+    out = {"4 lanes, 16-byte loads" if plan.vec == 4 else
+           "1 lane, 4-byte loads",
+           "rows packed" if ty > 1 else "one row a block",
+           "h0" if with_h0 else "no h0",
+           "one tile" if tiles == 1 else "two tiles" if tiles == 2
+           else "more tiles"}
+    if l % plan.tile:
+        out.add("ragged tile")
+    if gy * ty > b or gx * tx * plan.vec >= w + plan.vec:
+        out.add("idle threads")
+    return out
+
+
+def check_rglru_scan(torch, rgk, ref, randn) -> None:
+    """Phase 8 for ``rglru_scan``: every case of :data:`RG_CASES`, dense and
+    with a, x and h0 one element off 16-byte alignment, bitwise equal to the
+    plain version and bitwise repeatable; every branch of
+    :data:`RG_BRANCHES` must run."""
+    branches = set()
+    for case in RG_CASES:
+        b, l, w, with_h0 = case
+        dense = (torch.sigmoid(randn(b, l, w)), randn(b, l, w),
+                 randn(b, w) if with_h0 else None)
+        off = tuple(None if t is None else offset_copy(torch, t, 1)
+                    for t in dense)
+        for layout, (a, x, h0) in (("dense", dense), ("unaligned", off)):
+            branches |= scan_branches(rgk, case, all(
+                t.data_ptr() % 16 == 0 for t in (a, x, h0) if t is not None))
+            h, h_last = rgk.rglru_scan(a, x, h0)
+            h_ref, hl_ref = ref.rglru_scan_ref(a, x, h0)
+            check(torch.equal(h, h_ref) and torch.equal(h_last, hl_ref),
+                  f"rglru_scan not bitwise equal to the plain version at "
+                  f"{case}, {layout}")
+            h2, hl2 = rgk.rglru_scan(a, x, h0)
+            check(torch.equal(h, h2) and torch.equal(h_last, hl2),
+                  f"rglru_scan not bitwise repeatable at {case}, {layout}")
+        print(f"  rglru_scan {case}: dense and unaligned bitwise equal to "
+              f"plain, bitwise repeat")
+    check(RG_BRANCHES <= branches,
+          f"rglru_scan branches not run: {sorted(RG_BRANCHES - branches)}")
+    print(f"  rglru_scan branches run: {sorted(branches)}")
 
 
 def phase_serve(torch, name, fed, seq_kernels):
@@ -892,20 +1019,25 @@ def phase_seq_timing(torch, fak, fdk, rgk, ref, errs, launches):
                 lambda: sdpa(q4, kt, vt, attn_mask=mask)),
         **decode_eager(torch, fdk, q, k, v, ln),
     })
-    b, l, w, _ = RG_PATH
-    a, x, h0 = torch.sigmoid(randn(b, l, w)), randn(b, l, w), randn(b, w)
-    b_rg, by_rg = bound(4 * (3 * b * l * w + 2 * b * w), 2 * b * l * w)
-    rows.append({
-        "name": "rglru_scan", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
-        "replaces": "src/repro/kernels/rglru_scan.py:60",
-        "launches": launches["rglru_scan"],
-        "max_abs_err": errs["rglru_scan"],
-        "bound_ms": b_rg, "bound_by": by_rg,
-        # no single PyTorch call computes a sequential linear recurrence
-        **timed(lambda: rgk.rglru_scan(a, x, h0),
-                lambda: ref.rglru_scan_ref(a, x, h0), None),
-    })
+    for name, case, n in (("rglru_scan", RG_PATH, launches["rglru_scan"]),
+                          # no port path runs the rglru detector yet
+                          ("rglru_scan_rglru_shape", RG_RGLRU, 0)):
+        b, l, w, with_h0 = case
+        a, x = torch.sigmoid(randn(b, l, w)), randn(b, l, w)
+        h0 = randn(b, w) if with_h0 else None
+        h_ref = ref.rglru_scan_ref(a, x, h0)[0]
+        b_rg, by_rg = scan_bound(case)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan.py:60",
+            "shape": list(case[:3]), "launches": n,
+            "max_abs_err": max_abs(rgk.rglru_scan(a, x, h0)[0], h_ref),
+            "bound_ms": b_rg, "bound_by": by_rg,
+            # no single PyTorch call computes a sequential linear recurrence
+            **timed(lambda: rgk.rglru_scan(a, x, h0),
+                    lambda: ref.rglru_scan_ref(a, x, h0), None),
+        })
     return rows
 
 
@@ -943,8 +1075,11 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or \
                     "spill" in line:
                 print(f"    {line.strip()}")
-    fa_regs = check_fa_ptxas(builds["flash_attention"]["log"])
-    fd_regs = check_fd_ptxas(builds["flash_decode"]["log"])
+    ptxas = {
+        "flash_attention": check_fa_ptxas(builds["flash_attention"]["log"]),
+        "flash_decode": check_fd_ptxas(builds["flash_decode"]["log"]),
+        "rglru_scan": check_rg_ptxas(builds["rglru_scan"]["log"]),
+        "sumsq_rows": check_sq_ptxas(builds["dp_clip_noise"]["log"])}
 
     print("== 3. DP kernels vs plain versions on the card")
     errs = phase_kernels_vs_plain(torch, dpk, ref, ops)
@@ -979,6 +1114,9 @@ def main() -> int:
         "rglru_scan": serve["ssm"]["launches"]["rglru_scan"]}
 
     print("== 10. sequence kernel times at the serving shapes (CUDA events)")
+    floor_ms = launch_floor_ms(torch)
+    print(f"  launch floor (add_ on a one-element tensor): device "
+          f"{floor_ms * 1e3:.3f} us  ({card})")
     kernels += phase_seq_timing(torch, fak, fdk, rgk, ref, errs,
                                 serve_launches)
     fa = next(k for k in kernels if k["name"] == "flash_attention")
@@ -997,19 +1135,20 @@ def main() -> int:
     for k in kernels:
         lib = ("none" if k["library_ms"] is None
                else f"{k['library_ms'] * 1e3:.2f} us")
-        print(f"  {k['name']}: device {k['ms'] * 1e3:.2f} us (eager "
+        print(f"  {k['name']}: device {k['ms'] * 1e3:.2f} us (less the floor "
+              f"{(k['ms'] - floor_ms) * 1e3:.2f}; bound "
+              f"{k['bound_ms'] * 1e3:.3f} us, {k['bound_by']}) (eager "
               f"{k['eager_ms'] * 1e3:.2f})  plain "
               f"{k['plain_ms'] * 1e3:.2f} us (eager "
-              f"{k['eager_plain_ms'] * 1e3:.2f})  library {lib}  bound "
-              f"{k['bound_ms'] * 1e3:.3f} us ({k['bound_by']})  launches "
+              f"{k['eager_plain_ms'] * 1e3:.2f})  library {lib}  launches "
               f"{k['launches']}")
 
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": {lib: info["seconds"] for lib, info in builds.items()},
-        "flash_attention_ptxas": fa_regs, "flash_decode_ptxas": fd_regs,
-        "kernels": kernels, "round_wall_ms": walls, "profile": profile,
+        "ptxas": ptxas, "launch_floor_ms": floor_ms, "kernels": kernels,
+        "round_wall_ms": walls, "profile": profile,
         "round_wall_ms_median_after_first": statistics.median(steady),
         "history": res.history, "eps_spent": res.eps_spent, "serve": serve,
         "total_s": time.perf_counter() - t_all,
@@ -1021,7 +1160,7 @@ def main() -> int:
           f"{record['round_wall_ms_median_after_first']:.2f} ms; "
           f"total {record['total_s']:.1f} s")
 
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 PTR, I64, I32, F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                       ctypes.c_float)
+SMS = 132  # streaming multiprocessors of an H100 SXM: launch plans cover them
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

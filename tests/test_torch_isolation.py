@@ -1,6 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``)
-imports JAX or the reference package, and its entry points never run on the
-CPU unless asked to."""
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
+or ``chip_before_after.py``) imports JAX or the reference package, and its
+entry points never run on the CPU unless asked to."""
 import ast
 from pathlib import Path
 
@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_before_after.py"]
 
 
 def _forbidden(module: str) -> bool:

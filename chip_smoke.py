@@ -26,6 +26,19 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    with CUDA events;
 7. profile 3 warm FL rounds with ``torch.profiler`` (device busy share,
    spans, heaviest kernels);
+7b. drive the sweep engine: ``run_fl_sweep`` on the paper's config over
+   Fig. 3's ε column (30, 100, 300, 1000) × seeds 0-9 (40 lanes, 1,600
+   client rows), 20 rounds, eval every 10, counting kernel launches (one
+   of each a round for all lanes); require one runner build and a hit on
+   a second call, the round loop under ``torch.cuda.set_sync_debug_mode
+   ("error")``, ε per cell equal to the host accountant and different
+   across cells, and lanes (0, 0) and (3, 9) equal to ``run_fl`` of their
+   cell and seed (atol 1e-5 in accuracy, rtol 1e-5 in simulated time);
+   run the lane step on the card and on the CPU from the same states and
+   draws (2 cells, iid and Markov, × 2 seeds, 3 rounds: equal
+   ``sel_mask``, state within rtol 1e-4 / atol 1e-6); profile 3 warm
+   sweep rounds; hold the DP kernels at [1600, 13890] against their plain
+   versions (``scale_noise_rows`` with one σ a row bitwise) and time them;
 8. hold ``flash_attention`` (and require two calls to agree bitwise),
    ``flash_decode`` (q, k and v dense, q broadcast or strided, or all
    three off 16-byte alignment, so that every staging branch runs; two
@@ -35,7 +48,7 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    one element off 16-byte alignment, so that every branch of its plan
    runs) against their plain versions on the card;
 9. drive the serving path for ``attn`` and ``ssm``: train a checkpoint with
-   ``run_fl_legacy`` on ``road_raw`` at hidden 64, load it into a
+   ``run_fl`` on ``road_raw`` at hidden 64, as the serve CLI does, load it into a
    ``ServeEngine`` with buckets (16, 128) and stream 9,000 windows in
    bursts of 37, counting kernel launches; check the scores against the
    scorer on the same bucket batches (bitwise), one unpadded call (1e-6)
@@ -47,8 +60,8 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    ``flash_decode`` beside SDPA (the ratios printed), and ``flash_decode``'s
    eager time as the detector calls it with and without the first port's
    per-call conversions; print each kernel's time less the floor beside its
-   bound, and the ``kernels`` JSON line for all five kernels with the
-   floor.
+   bound, and the ``kernels`` JSON line for all five kernels (the DP
+   kernels also at the sweep's shape) with the floor.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -79,6 +92,14 @@ SERVE_BUCKETS = (16, 128)
 SERVE_CHUNK = 37
 SPANS = ("fl.batches", "fl.round_step", "fl.sim_time", "fl.eval",
          "selection", "local_train", "dp_privatize", "aggregate")
+# phase 7b: Fig. 3's ε column (benchmarks/bench_fig3.py) × REPRO_FULL's 10
+# seeds on the paper's config: 40 lanes of 40 clients, 1,600 client rows
+SWEEP_EPS = (30.0, 100.0, 300.0, 1000.0)
+SWEEP_SEEDS = tuple(range(10))
+SWEEP_ROUNDS, SWEEP_EVAL = 20, 10
+SWEEP_SPANS = ("sweep.prepare", "sweep.execute", "sweep.readback",
+               "selection", "local_train", "dp_privatize", "aggregate",
+               "eval_block")
 
 
 def card_line() -> str:
@@ -341,8 +362,8 @@ def phase_card_vs_cpu(torch, fed, fl, dpk):
     rng = np.random.default_rng(3)
     launches0 = sum(dpk.LAUNCHES.values())
     for r in range(3):
-        draws = rounds_lib.draw_round(draw_gen, n, fl.local_epochs, n_params,
-                                      fl.selection)
+        draws = rounds_lib.draw_round([draw_gen], n, fl.local_epochs,
+                                      n_params, fl.selection).lane(0)
         b = round_batches(rng, fed, fl.local_epochs, fl.local_batch)
         metrics = {}
         for dev in states:
@@ -472,6 +493,347 @@ def phase_profile(torch, fed, fl, run_fl_legacy, rounds: int = 3):
               f"{k['device_ms']:.3f} ms")
     print(f"  dp kernels, device us per launch: {out['dp_kernel_device_us']}")
     return out
+
+
+def sweep_cells(fl):
+    import dataclasses
+    return [dataclasses.replace(fl, dp_epsilon=e) for e in SWEEP_EPS]
+
+
+def check_sync_debug_raises(torch) -> None:
+    """The mode the sweep engine runs its round loop under catches a host
+    synchronisation in this build: ``.item()`` raises under it."""
+    t = torch.zeros(1, device="cuda")
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t.item()
+    except RuntimeError:
+        return
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    raise AssertionError("sync debug mode 'error' did not catch .item()")
+
+
+def phase_sweep(torch, fed, fl, dpk, accounted_epsilon, legacy_walls):
+    """Phase 7b: ``run_fl_sweep`` on the paper's config over Fig. 3's ε
+    column × 10 seeds (40 lanes, 1,600 client rows), 20 rounds, eval every
+    10, then the checks and walls.  Returns the phase's record; the DP
+    kernels' launches are those of the first sweep's run."""
+    import numpy as np
+
+    from repro_torch.train import fl_driver
+
+    cells = sweep_cells(fl)
+    lanes = len(cells) * len(SWEEP_SEEDS)
+    kw = dict(seeds=SWEEP_SEEDS, rounds=SWEEP_ROUNDS, eval_every=SWEEP_EVAL,
+              hidden=128, device="cuda")
+    check_sync_debug_raises(torch)
+    modes, set_mode = [], torch.cuda.set_sync_debug_mode
+
+    def spy(mode):
+        modes.append(mode)
+        set_mode(mode)
+
+    stats0 = dict(fl_driver.RUNNER_STATS)
+    torch.cuda.synchronize()
+    dpk.reset_launches()
+    torch.cuda.set_sync_debug_mode = spy
+    try:
+        t0 = time.perf_counter()
+        res = fl_driver.run_fl_sweep(fed, fl, cells, **kw)
+        cold_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode = set_mode
+    launches = dict(dpk.LAUNCHES)
+    check(modes[:1] == ["error"] and len(modes) == 2,
+          f"the round loop did not run under sync debug mode 'error': {modes}")
+    check(fl_driver.RUNNER_STATS["misses"] == stats0["misses"] + 1,
+          "the grid did not build exactly one runner")
+    t0 = time.perf_counter()
+    again = fl_driver.run_fl_sweep(fed, fl, cells, **kw)
+    warm_s = time.perf_counter() - t0
+    check(fl_driver.RUNNER_STATS["hits"] == stats0["hits"] + 1 and
+          fl_driver.RUNNER_STATS["misses"] == stats0["misses"] + 1,
+          "a second call of the same grid did not hit the runner cache")
+    for name, n in launches.items():
+        check(n == SWEEP_ROUNDS, f"kernel {name}: {n} launches in "
+              f"{SWEEP_ROUNDS} sweep rounds (want one a round for all "
+              f"{lanes} lanes)")
+    check(len(res) == len(cells) and all(len(r) == len(SWEEP_SEEDS)
+                                         for r in res), "result shape")
+    keys = ("loss", "acc", "auc", "k", "fail", "cum_time")
+    for row in res:
+        for r in row:
+            check(r.history["round"] == [SWEEP_EVAL, SWEEP_ROUNDS],
+                  "eval rounds")
+            check(all(math.isfinite(v) for k in keys for v in r.history[k]),
+                  "sweep history has non-finite values")
+            check(all(0.0 <= a <= 1.0 for a in r.history["acc"]),
+                  "accuracy out of [0, 1]")
+    eps = [row[0].eps_spent for row in res]
+    for cell, row in zip(cells, res):
+        want = accounted_epsilon(cell, SWEEP_ROUNDS)
+        check(all(abs(r.eps_spent - want) <= 1e-12 for r in row),
+              f"eps_spent differs from the host accountant at "
+              f"ε={cell.dp_epsilon}")
+    check(len(set(eps)) == len(cells),
+          f"ε does not differ across cells: {eps}")
+    # lanes against single runs of their cell and seed, at the reference's
+    # tolerances (tests/test_sweep.py): atol 1e-5 on accuracy, rtol 1e-5 on
+    # the simulated time
+    singles = {}
+    for ci, si in ((0, 0), (len(cells) - 1, len(SWEEP_SEEDS) - 1)):
+        one = fl_driver.run_fl(fed, cells[ci], seed=SWEEP_SEEDS[si],
+                               rounds=SWEEP_ROUNDS, eval_every=SWEEP_EVAL,
+                               hidden=128, device="cuda")
+        lane = res[ci][si]
+        check(one.eps_spent == lane.eps_spent, "run_fl ε differs from lane")
+        np.testing.assert_allclose(lane.history["acc"], one.history["acc"],
+                                   atol=1e-5)
+        np.testing.assert_allclose(lane.history["cum_time"],
+                                   one.history["cum_time"], rtol=1e-5)
+        singles[f"{ci},{si}"] = {
+            k: [lane.history[k], one.history[k]] for k in keys}
+        print(f"  lane ({ci}, {si}) = run_fl(ε={cells[ci].dp_epsilon}, "
+              f"seed={SWEEP_SEEDS[si]}): acc {lane.history['acc']} / "
+              f"{one.history['acc']}, loss {lane.history['loss']} / "
+              f"{one.history['loss']}")
+    legacy_ms = statistics.median(legacy_walls[1:])
+    out = {
+        "lanes": lanes, "client_rows": lanes * fed.n_clients,
+        "rounds": SWEEP_ROUNDS, "eval_every": SWEEP_EVAL,
+        "launches": launches, "cold_s": cold_s, "warm_s": warm_s,
+        "warm_ms_per_round": 1e3 * warm_s / SWEEP_ROUNDS,
+        "warm_ms_per_lane_round": 1e3 * warm_s / SWEEP_ROUNDS / lanes,
+        "legacy_round_ms_median": legacy_ms,
+        "eps_per_cell": eps, "lanes_vs_run_fl": singles,
+        "final_acc_mean_per_cell": [
+            float(np.mean([r.accuracy for r in row])) for row in res],
+        "final_auc_mean_per_cell": [
+            float(np.mean([r.auc for r in row])) for row in res],
+        "repeat_equal": all(a.history == b.history for ra, rb in
+                            zip(res, again) for a, b in zip(ra, rb)),
+    }
+    print(f"  {lanes} lanes x {fed.n_clients} clients, {SWEEP_ROUNDS} "
+          f"rounds: one runner build, a hit on the second call; launches "
+          f"{launches}; loop under sync debug mode 'error'")
+    print(f"  eps per cell {eps}; mean final acc per cell "
+          f"{out['final_acc_mean_per_cell']}")
+    print(f"  wall: first call {cold_s:.2f} s, second {warm_s:.2f} s = "
+          f"{out['warm_ms_per_round']:.2f} ms a round, "
+          f"{out['warm_ms_per_lane_round']:.3f} ms a lane-round; "
+          f"run_fl_legacy (phase 4) {legacy_ms:.2f} ms a round; "
+          f"second call bitwise equal to the first: {out['repeat_equal']}")
+    return out
+
+
+def phase_sweep_profile(torch, fed, fl, rounds: int = 3):
+    """Phase 7b: ``torch.profiler`` over a warm 3-round sweep of the same
+    40 lanes (one eval block): the card's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import fl_driver
+
+    kw = dict(seeds=SWEEP_SEEDS, rounds=rounds, eval_every=rounds,
+              hidden=128, device="cuda")
+    fl_driver.run_fl_sweep(fed, fl, sweep_cells(fl), **kw)  # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fl_driver.run_fl_sweep(fed, fl, sweep_cells(fl), **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device, busy_ms, spans, by_kernel = profile_summary(prof.events(),
+                                                        SWEEP_SPANS)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
+    out = {"rounds": rounds, "wall_ms_per_round": wall_ms / rounds,
+           "device_busy_ms_per_round": busy_ms / rounds,
+           "device_busy_share": busy_ms / wall_ms,
+           "device_ops_per_round": len(device) / rounds,
+           "span_host_ms_per_round": {k: v / rounds
+                                      for k, v in spans.items()},
+           "top_kernels": [{"name": k[:80], "calls": n, "device_ms": t}
+                           for k, (n, t) in top]}
+    print(f"  profile, {rounds} warm sweep rounds: wall "
+          f"{out['wall_ms_per_round']:.2f} ms a round, device busy "
+          f"{out['device_busy_ms_per_round']:.3f} ms a round (share "
+          f"{out['device_busy_share']:.3f}), "
+          f"{out['device_ops_per_round']:.0f} device ops a round")
+    for k, v in out["span_host_ms_per_round"].items():
+        print(f"  span {k}: {v:.2f} ms a round (host)")
+    for k in out["top_kernels"]:
+        print(f"  kernel {k['name']}: {k['calls']} calls, "
+              f"{k['device_ms']:.3f} ms")
+    return out
+
+
+def phase_sweep_card_vs_cpu(torch, dpk):
+    """Phase 7b: the lane step on the card and on the CPU from the same
+    states with the same draws and batches, 2 cells (iid at ε = 100,
+    Markov outages) × 2 seeds, 3 rounds, at a small size."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs.base import FLConfig, params_lanes
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.data.synthetic import (draw_batch_indices,
+                                            make_federated,
+                                            sample_round_batches,
+                                            stack_federation)
+    from repro_torch.models.spec import get_model_spec, meta_for
+    from repro_torch.tree import flatten_rows
+
+    small = make_federated(0, "unsw", n_samples=2_000, n_clients=10)
+    fl = FLConfig(n_clients=10, clients_per_round=4, local_epochs=3,
+                  local_batch=32, dp_epsilon=100.0, dp_clip=5.0,
+                  failure_prob=0.2)
+    cells = [fl, dataclasses.replace(fl, fault_process=1.0)]
+    n = small.n_clients
+    spec = get_model_spec(fl.model, meta_for(small, hidden=32))
+    sizes = small.data_sizes()
+    cpu_states = []
+    for seed in (0, 1):
+        gen = torch.Generator().manual_seed(seed)
+        cpu_states.append(rounds_lib.init_round_state(
+            spec.init(gen), fl, gen, n_clients=n,
+            data_size=torch.as_tensor(sizes / sizes.mean()),
+            data_quality=torch.as_tensor(small.label_entropy())))
+    # cell-major lanes: (iid, seed 0), (iid, 1), (Markov, 0), (Markov, 1)
+    lanes_of = lambda ss: [ss[0], ss[1], ss[0], ss[1]]  # noqa: E731
+    states = {"cpu": rounds_lib.stack_states(lanes_of(cpu_states)),
+              "cuda": rounds_lib.stack_states(lanes_of([
+                  convert.round_state_from_jax(s.params, s.util, s.kctl,
+                                               s.fault, fl, "cuda")
+                  for s in cpu_states]))}
+    steps = {dev: rounds_lib.make_lane_round(spec.loss, fl, n, device=dev)
+             for dev in states}
+    prs = {dev: params_lanes(cells, 2, dev) for dev in states}
+    stacks = {dev: stack_federation(small, dev) for dev in states}
+    n_params = flatten_rows(cpu_states[0].params, 0).numel()
+    launches0 = sum(dpk.LAUNCHES.values())
+    worst = 0.0
+    for r in range(3):
+        gens = [torch.Generator().manual_seed(10 * r + i) for i in range(4)]
+        idx = draw_batch_indices(gens, stacks["cpu"].sizes, fl.local_epochs,
+                                 fl.local_batch)
+        draws = rounds_lib.draw_round(gens, n, fl.local_epochs, n_params,
+                                      fl.selection)
+        metrics = {}
+        for dev in states:
+            batches = sample_round_batches(stacks[dev], idx.to(dev))
+            states[dev], metrics[dev] = steps[dev](
+                states[dev], batches, prs[dev], draws.to(dev))
+        cpu, gpu = states["cpu"], states["cuda"]
+        check(torch.equal(metrics["cpu"].sel_mask,
+                          metrics["cuda"].sel_mask.cpu()),
+              f"lane sel_mask differs on round {r + 1}")
+        pairs = [(flatten_rows(gpu.params), flatten_rows(cpu.params))]
+        pairs += list(zip(gpu.util, cpu.util)) + list(zip(gpu.kctl, cpu.kctl))
+        pairs += list(zip(gpu.fault, cpu.fault))
+        for a, c in pairs:
+            torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-6)
+            worst = max(worst, max_abs(a.cpu(), c))
+        print(f"  lane step round {r + 1}: sel_mask equal "
+              f"({metrics['cpu'].sel_mask.sum(dim=1).tolist()} selected a "
+              f"lane), params/util/K/fault max|card-cpu| {worst:.3e}")
+    check(sum(dpk.LAUNCHES.values()) - launches0 == 6,
+          "the card's lane steps did not go through the kernels")
+    return worst
+
+
+def phase_sweep_kernels(torch, dpk, ref, launches):
+    """Phase 7b: the DP kernels at the sweep's shape [1600, 13890] against
+    their plain versions (``scale_noise_rows`` with one σ a row, from the
+    cells' ε, bitwise; ``sumsq_rows`` to rtol 1e-5), and their rows of the
+    kernels JSON line: device times by the ``device_ms`` protocol (20
+    calls a graph: an 89 MB array a call), the bytes bound, the library
+    call and the sweep's launches."""
+    from repro_torch.configs.base import params_lanes
+    from repro_torch.configs.paper_mlp import paper_fl_config
+    from repro_torch.core import dp as dp_lib
+
+    fl = paper_fl_config()
+    r, p = len(SWEEP_EPS) * len(SWEEP_SEEDS) * fl.n_clients, SLICE_P
+    gen = torch.Generator().manual_seed(12)
+    x = (torch.randn(r, p, generator=gen) * 0.05).cuda()
+    nz = torch.randn(r, p, generator=gen).cuda()
+    pr = params_lanes(sweep_cells(fl), len(SWEEP_SEEDS), "cuda")
+    sigma = dp_lib.gaussian_sigma_rt(pr.dp_epsilon, fl.dp_delta,
+                                     pr.dp_clip).repeat_interleave(
+                                         fl.n_clients).contiguous()
+    sq = dpk.sumsq_rows(x)
+    sq_ref = ref.sumsq_rows_ref(x)
+    torch.testing.assert_close(sq, sq_ref, rtol=1e-5, atol=0)
+    check(dpk.sumsq_plan(r, p).cluster == 1, "sumsq plan at R = 1600")
+    scale = ref.clip_scale(torch.sqrt(sq_ref), 1.0)
+    o = dpk.scale_noise_rows(x, nz, scale, sigma)
+    o_ref = ref.scale_noise_rows_ref(x, nz, scale, sigma)
+    check(torch.equal(o, o_ref), "scale_noise_rows with one σ a row is not "
+          "bitwise its plain version at [1600, 13890]")
+    check(torch.equal(dpk.scale_noise_rows(x, nz, scale, 0.6),
+                      dpk.scale_noise_rows(x, nz, scale,
+                                           torch.full((r,), 0.6,
+                                                      device="cuda"))),
+          "the scalar-σ and per-row-σ entries differ at one σ")
+    errs = {"sumsq_rows": max_abs(sq, sq_ref),
+            "scale_noise_rows": max_abs(o, o_ref)}
+    print(f"  [{r}, {p}]: sumsq_rows max|err| {errs['sumsq_rows']:.3e} "
+          f"(C = 1); scale_noise_rows (one σ a row) bitwise equal to plain; "
+          f"scalar and per-row σ entries bitwise equal")
+    sn = sigma[:, None] * nz
+    scale_col = scale[:, None]
+
+    def times(kernel, plain, library):
+        """:func:`timed` with 20 calls a graph and 50 eager calls a rep."""
+        out = {"ms": device_ms(kernel, iters=20),
+               "plain_ms": device_ms(plain, iters=20),
+               "library_ms": (None if library is None
+                              else device_ms(library, iters=20)),
+               "eager_ms": eager_ms(kernel, iters=50),
+               "eager_plain_ms": eager_ms(plain, iters=50)}
+        if library is not None:
+            out["eager_library_ms"] = eager_ms(library, iters=50)
+        return out
+
+    rows = []
+    b_sq, by_sq = sumsq_bound(r, p)
+    rows.append({
+        "name": "sumsq_rows_sweep_shape", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
+        "replaces": "src/repro/kernels/dp_clip_noise.py:62",
+        "shape": [r, p], "launches": launches["sumsq_rows"],
+        "max_abs_err": errs["sumsq_rows"],
+        "bound_ms": b_sq, "bound_by": by_sq,
+        **times(lambda: dpk.sumsq_rows(x), lambda: ref.sumsq_rows_ref(x),
+                lambda: torch.linalg.vector_norm(x, dim=1)),
+    })
+    # x, noise, out [R, P]; scale and σ [R]
+    b_sn, by_sn = bound(12 * r * p + 8 * r, 3 * r * p)
+    rows.append({
+        "name": "scale_noise_rows_sweep_shape", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
+        "replaces": "src/repro/kernels/dp_clip_noise.py:81",
+        "shape": [r, p], "launches": launches["scale_noise_rows"],
+        "max_abs_err": errs["scale_noise_rows"],
+        "bound_ms": b_sn, "bound_by": by_sn,
+        # no single PyTorch call takes (x, noise, scale, σ): addcmul on σ·n
+        # prepared outside the timed region is the yardstick
+        **times(lambda: dpk.scale_noise_rows(x, nz, scale, sigma),
+                lambda: ref.scale_noise_rows_ref(x, nz, scale, sigma), None),
+        "addcmul_ms": device_ms(lambda: torch.addcmul(sn, x, scale_col),
+                                iters=20),
+    })
+    for k in rows:
+        yardstick = ("library %.2f us" % (k["library_ms"] * 1e3)
+                     if k["library_ms"] is not None else
+                     "addcmul %.2f us" % (k["addcmul_ms"] * 1e3))
+        print(f"  {k['name']}: device {k['ms'] * 1e3:.2f} us, bound "
+              f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}), plain "
+              f"{k['plain_ms'] * 1e3:.2f} us, {yardstick}, launches "
+              f"{k['launches']}")
+    return rows
 
 
 # (b, s, t, hq, hkv, d, causal, window): the grid of tests/test_kernels.py,
@@ -811,7 +1173,7 @@ def phase_serve(torch, name, fed, seq_kernels):
     from repro_torch.serve import (ServeEngine, batches_of,
                                    save_serving_checkpoint)
     from repro_torch.serve.engine import _get_scorer
-    from repro_torch.train.fl_driver import run_fl_legacy
+    from repro_torch.train.fl_driver import run_fl
 
     # the serve CLI's training config (python -m repro_torch.serve)
     fl = FLConfig(n_clients=fed.n_clients,
@@ -820,9 +1182,9 @@ def phase_serve(torch, name, fed, seq_kernels):
                   local_lr=0.08, dp_enabled=False, fault_tolerance=False,
                   model=name)
     t0 = time.perf_counter()
-    res = run_fl_legacy(fed, fl, "random", seed=0, rounds=SERVE_ROUNDS,
-                        eval_every=max(SERVE_ROUNDS // 4, 1),
-                        dataset="road_raw", hidden=64, device="cuda")
+    res = run_fl(fed, fl, "random", seed=0, rounds=SERVE_ROUNDS,
+                 eval_every=max(SERVE_ROUNDS // 4, 1), dataset="road_raw",
+                 hidden=64, return_params=True, device="cuda")
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     print(f"  trained {name} for {SERVE_ROUNDS} rounds in {train_s:.1f} s: "
@@ -1099,6 +1461,14 @@ def main() -> int:
     print("== 7. profile of 3 warm FL rounds (torch.profiler)")
     profile = phase_profile(torch, fed, fl, run_fl_legacy)
 
+    print(f"== 7b. sweep engine: run_fl_sweep, paper config, ε "
+          f"{SWEEP_EPS} x seeds 0-{SWEEP_SEEDS[-1]}, {SWEEP_ROUNDS} rounds  "
+          f"({card})")
+    sweep = phase_sweep(torch, fed, fl, dpk, accounted_epsilon, walls)
+    sweep["card_vs_cpu_max_abs"] = phase_sweep_card_vs_cpu(torch, dpk)
+    sweep["profile"] = phase_sweep_profile(torch, fed, fl)
+    kernels += phase_sweep_kernels(torch, dpk, ref, sweep["launches"])
+
     print("== 8. sequence kernels vs plain versions on the card")
     errs.update(phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops))
 
@@ -1150,7 +1520,8 @@ def main() -> int:
         "ptxas": ptxas, "launch_floor_ms": floor_ms, "kernels": kernels,
         "round_wall_ms": walls, "profile": profile,
         "round_wall_ms_median_after_first": statistics.median(steady),
-        "history": res.history, "eps_spent": res.eps_spent, "serve": serve,
+        "history": res.history, "eps_spent": res.eps_spent, "sweep": sweep,
+        "serve": serve,
         "total_s": time.perf_counter() - t_all,
     }
     out_dir = ROOT / "chiprun_out"

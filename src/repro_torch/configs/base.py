@@ -1,18 +1,22 @@
 """Federated-learning configuration: the port's copy of the FL half of
 ``repro/configs/base.py`` (``FLConfig``, ``FLParams``, ``RUNTIME_FIELDS``,
-``fl_params``, ``fl_static``).  The language-model ``ModelConfig`` and the
-mesh configs are not ported yet.
+``fl_params``, ``fl_static``) and the sweep engine's ``params_lanes``.  The
+language-model ``ModelConfig`` and the mesh configs are not ported yet.
 
 Field names, defaults and the static/runtime split are the reference's, so
 one config reads the same in both packages.  STATIC fields shape the code
 path (plan, strategy, booleans); RUNTIME fields are the scalar knobs the
-round step reads from an :class:`FLParams` argument.
+round step reads from an :class:`FLParams` argument.  A field of an
+``FLParams`` is a Python float (one run) or a ``[L]`` f32 tensor with one
+value per lane of a sweep (``params_lanes``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -84,8 +88,9 @@ class FLConfig:
 
 
 class FLParams(NamedTuple):
-    """The RUNTIME half of :class:`FLConfig`: plain floats the round step
-    reads instead of closing over them."""
+    """The RUNTIME half of :class:`FLConfig`: the values the round step
+    reads instead of closing over them, each a Python float or a ``[L]``
+    f32 tensor of per-lane values."""
 
     local_lr: float = 0.05
     server_lr: float = 1.0
@@ -117,6 +122,15 @@ class FLParams(NamedTuple):
 RUNTIME_FIELDS = tuple(f for f in FLParams._fields if f != "plan_code")
 
 
+def as_f32(value, like: torch.Tensor) -> torch.Tensor:
+    """An :class:`FLParams` field as f32 on ``like``'s device: a lane tensor
+    as it is, a float filled in (no host-to-device copy)."""
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.full((), float(value), dtype=torch.float32,
+                      device=like.device)
+
+
 def fl_params(fl: FLConfig) -> FLParams:
     """The runtime knobs of ``fl``; ``plan_code`` comes from the plan name."""
     from repro_torch.core.plans import plan_code
@@ -131,3 +145,15 @@ def fl_static(fl: FLConfig) -> FLConfig:
     defaults = {f: FLConfig.__dataclass_fields__[f].default
                 for f in RUNTIME_FIELDS}
     return dataclasses.replace(fl, plan=plan_family(fl.plan), **defaults)
+
+
+def params_lanes(cells: Sequence[FLConfig], n_seeds: int,
+                 device=None) -> FLParams:
+    """Every cell's runtime params as ``[len(cells)·n_seeds]`` f32 lanes on
+    ``device``, cell-major (lane = cell_index · n_seeds + seed_index), as
+    the reference's ``_params_lanes`` stacks them."""
+    per_cell = [fl_params(c) for c in cells]
+    return FLParams(*(
+        torch.tensor([getattr(p, f) for p in per_cell], dtype=torch.float32,
+                     device=device).repeat_interleave(n_seeds)
+        for f in FLParams._fields))

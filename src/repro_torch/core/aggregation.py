@@ -11,11 +11,14 @@ import torch
 
 def aggregate_stacked(deltas: torch.Tensor, mask: torch.Tensor,
                       weights: torch.Tensor) -> torch.Tensor:
-    """deltas: ``[n, ...]`` with a leading client axis; mask/weights: [n]."""
+    """The weighted mean over the client axis, the last axis of ``mask``
+    and ``weights`` (``[n]``, or ``[L, n]`` for a sweep's lanes, each lane
+    its own mean); ``deltas`` is ``mask.shape + update shape``."""
     w = (mask * weights).float()
-    denom = torch.clamp(torch.sum(w), min=1e-9)
-    wb = w.reshape((-1,) + (1,) * (deltas.dim() - 1))
-    return torch.sum(deltas.float() * wb, dim=0) / denom
+    denom = torch.clamp(torch.sum(w, dim=-1), min=1e-9)
+    tail = (1,) * (deltas.dim() - w.dim())
+    return (torch.sum(deltas.float() * w.reshape(w.shape + tail),
+                      dim=w.dim() - 1) / denom.reshape(denom.shape + tail))
 
 
 def apply_server_update(server_opt, params, opt_state, agg_delta):

@@ -31,8 +31,14 @@ def gaussian_sigma(epsilon: float, delta: float, sensitivity: float = 1.0) -> fl
 
 def gaussian_sigma_rt(epsilon, delta: float, sensitivity=1.0):
     """:func:`gaussian_sigma` without validation, in the reference's
-    operation order (callers own the ε > 0 contract)."""
-    return sensitivity * (math.sqrt(2.0 * math.log(1.25 / delta)) / epsilon)
+    operation order (callers own the ε > 0 contract).  ``epsilon`` and
+    ``sensitivity`` may be per-lane f32 tensors: the constant then divides
+    as an f32 tensor, as a traced ε divides it in the reference (torch's
+    ``float / tensor`` multiplies by the reciprocal, one rounding more)."""
+    c = math.sqrt(2.0 * math.log(1.25 / delta))
+    if isinstance(epsilon, torch.Tensor):
+        return sensitivity * (torch.full_like(epsilon, c) / epsilon)
+    return sensitivity * (c / epsilon)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -65,12 +71,15 @@ def privatize_update(tree, noise: torch.Tensor, *, mode: str, clip: float,
 
 
 def privatize_rows(deltas: torch.Tensor, noise: torch.Tensor, *, mode: str,
-                   clip: float, sigma: float):
+                   clip, sigma):
     """:func:`privatize_update` for every client at once over the stacked
-    flat updates ``deltas [n, P]`` (the counterpart of the reference's
-    ``jax.vmap(privatize)``).  Returns ``(noised [n, P], norms [n])``."""
+    flat updates ``deltas [R, P]`` (the counterpart of the reference's
+    ``jax.vmap(privatize)``); ``clip`` and ``sigma`` are floats or ``[R]``
+    tensors, one value a row.  Returns ``(noised [R, P], norms [R])``."""
     if mode == "paper":
         norms = torch.sqrt(torch.sum(deltas * deltas, dim=1))
+        if isinstance(sigma, torch.Tensor):
+            sigma = sigma[:, None]
         return deltas + sigma * noise, norms
     if mode == "clipped":
         return kops.dp_clip_noise_rows(deltas.contiguous(),

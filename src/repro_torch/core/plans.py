@@ -60,6 +60,16 @@ def plan_code(name: str) -> float:
     return get_plan(name).code
 
 
+def plan_for_code(family: str, code: float) -> str:
+    """The name of the plan with this family and runtime lane code (a raw
+    :class:`FLParams` sweep cell carries a code, not a name)."""
+    for plan in _REGISTRY.values():
+        if plan.family == family and plan.code == float(code):
+            return plan.name
+    raise ValueError(f"no registered plan has family {family!r} "
+                     f"and code {code!r}")
+
+
 def validate_plan(fl) -> None:
     """Reject unknown plan names and plan/feature combinations the registry
     marks incompatible, at config-build time."""

@@ -10,6 +10,12 @@ selection variate itself: ``noise [n]``, a standard Gumbel for
 ``adaptive_utility``/``acfl``/``adafl`` and a uniform for
 ``random``/``power_of_choice`` (:data:`NOISE_KIND`).  The round step draws
 it from its ``torch.Generator``, or a test injects the reference's.
+
+Every function here takes one run's ``[n]`` client vectors or a sweep's
+``[L, n]`` lanes of them, reducing over the last axis; the controller's
+state is then ``[L]``, and a runtime knob (``explore``, ``fault_w``,
+``tol``, ``patience``) a float or a per-lane tensor that broadcasts
+against the state (``[L, 1]`` beside ``[L, n]``, ``[L]`` beside ``[L]``).
 """
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ F32_MIN = torch.finfo(torch.float32).min
 
 
 class UtilityState(NamedTuple):
-    """Per-client running statistics (all [n_clients] f32)."""
+    """Per-client running statistics (all [n_clients] f32, or
+    [L, n_clients] in a sweep)."""
 
     perf_ema: torch.Tensor          # EMA of local loss improvement
     loss_ema: torch.Tensor          # EMA of local loss (ACFL uncertainty proxy)
@@ -72,7 +79,8 @@ def compute_utility(state: UtilityState, fl: FLConfig,
     """U_i — the paper's multi-factor utility score,
     F(S_t) = α·Accuracy(S_t) − γ·Cost(S_t); ``fault_w`` penalises the
     per-client failure EMA (0.0 is an exact no-op)."""
-    ds = state.data_size / torch.clamp(torch.mean(state.data_size), min=1e-9)
+    ds = state.data_size / torch.clamp(
+        torch.mean(state.data_size, dim=-1, keepdim=True), min=1e-9)
     perf = 0.3 * state.perf_ema
     quality = 0.25 * state.data_quality * torch.log1p(ds) + 5.0 * state.coherence
     capacity = state.compute
@@ -91,15 +99,17 @@ def compute_utility(state: UtilityState, fl: FLConfig,
 
 def _topk_mask(scores: torch.Tensor, avail: torch.Tensor, k_eff, k_max: int):
     """Float mask selecting the dynamic top-``k_eff`` of the static
-    top-``k_max``.  Ties go to the lower index, as ``lax.top_k`` breaks
-    them: a stable sort of the negated scores.  A fractional ``k_eff``
-    selects every rank below it (12.5 selects 13)."""
+    top-``k_max`` along the last axis; ``k_eff`` is a number or a tensor of
+    ``scores.shape[:-1]`` (one K a lane).  Ties go to the lower index, as
+    ``lax.top_k`` breaks them: a stable sort of the negated scores.  A
+    fractional ``k_eff`` selects every rank below it (12.5 selects 13)."""
     masked = torch.where(avail > 0, scores, torch.full_like(scores, F32_MIN))
-    idx = torch.argsort(-masked, stable=True)[:k_max]
+    idx = torch.argsort(-masked, dim=-1, stable=True)[..., :k_max]
+    if isinstance(k_eff, torch.Tensor):
+        k_eff = k_eff[..., None]
     ranks = torch.arange(k_max, device=scores.device)
-    take = (ranks < k_eff).float()
-    mask = torch.zeros_like(scores)
-    mask[idx] = take
+    take = (ranks < k_eff).float().expand(idx.shape)
+    mask = torch.zeros_like(scores).scatter_(-1, idx, take)
     # never select unavailable clients even if k_eff > #available
     return mask * (avail > 0)
 
@@ -122,7 +132,7 @@ def score_acfl(noise, state, utility, avail, explore=0.05):
 def score_adafl(noise, state, utility, avail, explore=0.05):
     """AdaFL: current + historical contribution."""
     hist = state.perf_ema + 0.1 * state.participation / torch.clamp(
-        torch.max(state.participation), min=1.0)
+        torch.amax(state.participation, dim=-1, keepdim=True), min=1.0)
     return hist + explore * noise
 
 
@@ -145,7 +155,7 @@ def sel_acfl(noise, state, utility, avail, k_eff, k_max, explore=0.05):
 def sel_power_of_choice(noise, state, utility, avail, k_eff, k_max,
                         explore=0.05):
     """Power-of-choice: sample d=2·k_max candidates, keep highest-loss K."""
-    d = min(2 * k_max, avail.shape[0])
+    d = min(2 * k_max, avail.shape[-1])
     cand = _topk_mask(noise, avail, d, d)
     scores = torch.where(cand > 0, state.loss_ema,
                          torch.full_like(state.loss_ema, F32_MIN))
@@ -185,15 +195,15 @@ def get_strategy(name: str) -> Callable:
 
 
 class KControllerState(NamedTuple):
-    k: torch.Tensor            # current K (0-d f32)
+    k: torch.Tensor            # current K (0-d f32, or [L] in a sweep)
     best_metric: torch.Tensor  # best global metric seen
     plateau: torch.Tensor      # consecutive rounds without improvement
 
 
 def init_k_state(fl: FLConfig, device=None) -> KControllerState:
     return KControllerState(
-        k=torch.tensor(float(fl.clients_per_round), device=device),
-        best_metric=torch.tensor(float("inf"), device=device),
+        k=torch.full((), float(fl.clients_per_round), device=device),
+        best_metric=torch.full((), float("inf"), device=device),
         plateau=torch.zeros((), device=device),
     )
 

@@ -14,17 +14,20 @@
 Non-IID federation: Dirichlet(α) label skew + per-client feature shift, as
 assumed by the paper ("non-IID data distribution across clients").
 
-The port's copy of the NumPy half of ``repro/data/synthetic.py``: the same
-code draws the same NumPy generator in the same order, so a seed gives
-bitwise the same arrays in both packages.  The device-side samplers and the
-population federation of the reference are not ported yet.
+The port's copy of ``repro/data/synthetic.py``.  The NumPy generators are
+the same code drawing the same NumPy generator in the same order, so a seed
+gives bitwise the same arrays in both packages.  The device-side federation
+(``StackedFederation``, ``stack_federation``, ``sample_round_batches``)
+feeds the sweep engine; the population federation of the reference is not
+ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 UNSW_N_FEATURES = 42
 UNSW_N_CLASSES = 10
@@ -300,3 +303,77 @@ def round_batches(rng: np.random.Generator, fed: FederatedData, local_steps: int
         xs[ci] = fed.x[ci][idx]
         ys[ci] = fed.y[ci][idx]
     return {"x": xs, "y": ys}
+
+
+# ---------------------------------------------------------------------------
+# Device-side federation (for the sweep engine in train/fl_driver.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class StackedFederation:
+    """Ragged per-client shards padded to ``[n_clients, max_n, ...]`` on the
+    device.  ``sizes`` masks the padding: batch indices are drawn in
+    ``[0, sizes[i])``, so the pad rows are never read.  Labels are int64,
+    torch's index type."""
+
+    x: torch.Tensor        # [n_clients, max_n, d] f32
+    y: torch.Tensor        # [n_clients, max_n] int64
+    sizes: torch.Tensor    # [n_clients] int64 valid rows per client
+    test_x: torch.Tensor   # [n_test, d] f32
+    test_y: torch.Tensor   # [n_test] int64
+
+    @property
+    def n_clients(self) -> int:
+        return self.x.shape[0]
+
+    def shapes(self) -> Tuple:
+        """Shape fingerprint (the sweep engine's runner cache key)."""
+        return tuple((tuple(t.shape), str(t.dtype)) for t in
+                     (self.x, self.y, self.sizes, self.test_x, self.test_y))
+
+
+def stack_federation(fed: FederatedData, device=None) -> StackedFederation:
+    """Pad the ragged client shards into one array set on ``device``."""
+    max_n = max(len(xi) for xi in fed.x)
+    xs = np.zeros((fed.n_clients, max_n, fed.n_features), np.float32)
+    ys = np.zeros((fed.n_clients, max_n), np.int64)
+    for ci, (xi, yi) in enumerate(zip(fed.x, fed.y)):
+        xs[ci, : len(xi)] = xi
+        ys[ci, : len(yi)] = yi
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return StackedFederation(
+        x=t(xs), y=t(ys), sizes=t(fed.data_sizes().astype(np.int64)),
+        test_x=t(fed.test_x), test_y=t(fed.test_y.astype(np.int64)))
+
+
+def draw_batch_indices(gens: Sequence[torch.Generator], sizes: torch.Tensor,
+                       local_steps: int, batch: int,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One round's batch rows for every lane: lane ``l`` draws uniforms
+    ``u [n_clients, local_steps, batch]`` from ``gens[l]`` (into ``out[l]``
+    when a ``[L, n, local_steps, batch]`` buffer is given), and client i's
+    rows are ``floor(u·sizes[i])``, clamped to ``sizes[i] − 1``: uniform
+    with replacement over its valid rows.  Returns ``[L, n, local_steps,
+    batch]`` int64."""
+    n = sizes.shape[0]
+    if out is None:
+        out = torch.empty(len(gens), n, local_steps, batch,
+                          device=sizes.device)
+    for lane, gen in zip(out, gens):
+        lane.uniform_(generator=gen)
+    size = sizes.reshape(n, 1, 1)
+    return torch.minimum(torch.floor(out * size).long(), size - 1)
+
+
+def sample_round_batches(stack: StackedFederation,
+                         idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The rows ``idx [..., n_clients, local_steps, batch]`` of each client's
+    shard, in one gather: leaves ``[..., n_clients, local_steps, batch,
+    ...]``, as :func:`round_batches` lays them out."""
+    n, max_n = stack.y.shape
+    client = torch.arange(n, device=idx.device).reshape(n, 1, 1) * max_n
+    rows = (idx + client).reshape(-1)
+    x = stack.x.reshape(n * max_n, -1).index_select(0, rows)
+    y = stack.y.reshape(-1).index_select(0, rows)
+    return {"x": x.reshape(*idx.shape, -1), "y": y.reshape(idx.shape)}

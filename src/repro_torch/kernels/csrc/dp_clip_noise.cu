@@ -2,7 +2,8 @@
 // Pallas TPU kernels in src/repro/kernels/dp_clip_noise.py.
 //
 //   dpcn_sumsq_rows       replaces _sumsq_kernel       (pallas_call at :62)
-//   dpcn_scale_noise_rows replaces _scale_noise_kernel (pallas_call at :81)
+//   dpcn_scale_noise_rows replaces _scale_noise_kernel (pallas_call at :81);
+//   dpcn_scale_noise_rows_sigma is the same kernel with one σ a row
 //
 // Both work on the stacked client updates x[R, P] (row-major f32, one row per
 // client, the leaves of one update laid end to end in sorted-key order).
@@ -39,9 +40,16 @@
 //   sequential grid; here a row's C partials meet in the cluster, so no
 //   second pass is needed.)
 // * scale_noise: a 2-D grid, y over rows and x over column tiles; each thread
-//   reads its row's scale once.  __fmul_rn/__fadd_rn keep the compiler from
-//   contracting x·s + σ·n into an FMA, so the kernel rounds exactly as the
-//   plain PyTorch version (three rounded ops) does.
+//   reads its row's scale once, and its row's σ once when σ is per row (a
+//   sweep's stacked lanes, each with its own ε: R = L·N rows, up to
+//   [1600, 13890] f32 at 40 lanes of the paper's 40 clients, 89 MB an array,
+//   where the bytes and not the launch set the bound).  The TPU kernel
+//   bakes σ in as a constant, so the reference folds a traced σ into its
+//   noise operand, a further pass over [R, P]; reading σ[r] here costs one
+//   load a thread.  __fmul_rn/__fadd_rn keep the compiler from contracting
+//   x·s + σ·n into an FMA, so the kernel rounds exactly as the plain PyTorch
+//   version (three rounded ops) does, and as the fold does (σ·n rounded
+//   once, then 1.0·(σ·n) exact).
 //
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // caller's stream, allocates nothing, and returns cudaGetLastError(), or
@@ -175,13 +183,16 @@ sumsq_rows_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
   out[blockIdx.y] = row;
 }
 
+// sigma_rows: one σ a row, or null for the one `sigma` of every row
 __global__ void __launch_bounds__(kScaleThreads)
 scale_noise_rows_kernel(const float* __restrict__ x,
                         const float* __restrict__ noise,
                         const float* __restrict__ scale, float sigma,
+                        const float* __restrict__ sigma_rows,
                         float* __restrict__ out, int64_t P) {
   const int64_t base = static_cast<int64_t>(blockIdx.y) * P;
   const float s = scale[blockIdx.y];
+  if (sigma_rows != nullptr) sigma = sigma_rows[blockIdx.y];
   const int64_t tile = static_cast<int64_t>(kScaleThreads) * kScaleItems;
   for (int64_t col = static_cast<int64_t>(blockIdx.x) * tile + threadIdx.x;
        col < P; col += static_cast<int64_t>(gridDim.x) * tile) {
@@ -225,16 +236,36 @@ extern "C" int dpcn_sumsq_rows(const float* x, float* out, int64_t R,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dpcn_scale_noise_rows(const float* x, const float* noise,
-                                     const float* scale, float sigma,
-                                     float* out, int64_t R, int64_t P,
-                                     cudaStream_t stream) {
+namespace {
+
+int launch_scale_noise(const float* x, const float* noise, const float* scale,
+                       float sigma, const float* sigma_rows, float* out,
+                       int64_t R, int64_t P, cudaStream_t stream) {
   const int64_t tile = static_cast<int64_t>(kScaleThreads) * kScaleItems;
   int64_t tiles = (P + tile - 1) / tile;
   if (tiles < 1) tiles = 1;
   if (tiles > 65535) tiles = 65535;  // the loop strides over the rest
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(R));
   scale_noise_rows_kernel<<<grid, kScaleThreads, 0, stream>>>(
-      x, noise, scale, sigma, out, P);
+      x, noise, scale, sigma, sigma_rows, out, P);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int dpcn_scale_noise_rows(const float* x, const float* noise,
+                                     const float* scale, float sigma,
+                                     float* out, int64_t R, int64_t P,
+                                     cudaStream_t stream) {
+  return launch_scale_noise(x, noise, scale, sigma, nullptr, out, R, P,
+                            stream);
+}
+
+// one σ a row: sigma[R]
+extern "C" int dpcn_scale_noise_rows_sigma(const float* x, const float* noise,
+                                           const float* scale,
+                                           const float* sigma, float* out,
+                                           int64_t R, int64_t P,
+                                           cudaStream_t stream) {
+  return launch_scale_noise(x, noise, scale, 0.0f, sigma, out, R, P, stream);
 }

@@ -4,8 +4,9 @@ Replaces the two Pallas TPU kernels of ``repro/kernels/dp_clip_noise.py``:
 
 * :func:`sumsq_rows` — Σx² per row of the stacked client updates
   ``x [R, P]`` (counterpart of ``sumsq``, ``_sumsq_kernel``);
-* :func:`scale_noise_rows` — ``o = x·scale[r] + σ·n`` (counterpart of
-  ``scale_noise``, ``_scale_noise_kernel``).
+* :func:`scale_noise_rows` — ``o = x·scale[r] + σ·n``, with one σ or one
+  ``σ[r]`` a row (counterpart of ``scale_noise``, ``_scale_noise_kernel``,
+  and of the reference's traced-σ fold into its noise operand).
 
 The source is ``csrc/dp_clip_noise.cu``, built and loaded by ``_nvcc.py``.
 Both kernels are memory-bound; the source says how they are laid out.
@@ -37,6 +38,9 @@ _SIGNATURES = {
                         _nvcc.I32, _nvcc.I64, _nvcc.PTR),
     "dpcn_scale_noise_rows": (_nvcc.PTR, _nvcc.PTR, _nvcc.PTR, _nvcc.F32,
                               _nvcc.PTR, _nvcc.I64, _nvcc.I64, _nvcc.PTR),
+    "dpcn_scale_noise_rows_sigma": (_nvcc.PTR, _nvcc.PTR, _nvcc.PTR,
+                                    _nvcc.PTR, _nvcc.PTR, _nvcc.I64,
+                                    _nvcc.I64, _nvcc.PTR),
 }
 
 
@@ -128,8 +132,10 @@ def sumsq_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def scale_noise_rows(x: torch.Tensor, noise: torch.Tensor,
-                     scale: torch.Tensor, sigma: float) -> torch.Tensor:
-    """``o = x·scale[r] + σ·noise`` over ``[R, P]`` f32; ``scale [R]``."""
+                     scale: torch.Tensor, sigma) -> torch.Tensor:
+    """``o = x·scale[r] + σ·noise`` over ``[R, P]`` f32; ``scale [R]``;
+    ``sigma`` a float, or a ``[R]`` f32 tensor with one σ a row (a sweep's
+    lanes, each with its own ε)."""
     if x.device.type == "cpu":
         return ref.scale_noise_rows_ref(x, noise, scale, sigma)
     _require_cuda(x, "scale_noise_rows")
@@ -137,11 +143,20 @@ def scale_noise_rows(x: torch.Tensor, noise: torch.Tensor,
     _check_rows("x", x, x.device)
     _check_rows("noise", noise, x.device, (r, p))
     _check_rows("scale", scale, x.device, (r,))
+    per_row = isinstance(sigma, torch.Tensor)
+    if per_row:
+        _check_rows("sigma", sigma, x.device, (r,))
     lib = _load()
     out = torch.empty_like(x)
     stream = _nvcc.stream_of(x)
-    _nvcc.raise_on(lib.dpcn_scale_noise_rows(
-        x.data_ptr(), noise.data_ptr(), scale.data_ptr(), float(sigma),
-        out.data_ptr(), r, p, stream), "scale_noise_rows")
+    if per_row:
+        err = lib.dpcn_scale_noise_rows_sigma(
+            x.data_ptr(), noise.data_ptr(), scale.data_ptr(),
+            sigma.data_ptr(), out.data_ptr(), r, p, stream)
+    else:
+        err = lib.dpcn_scale_noise_rows(
+            x.data_ptr(), noise.data_ptr(), scale.data_ptr(), float(sigma),
+            out.data_ptr(), r, p, stream)
+    _nvcc.raise_on(err, "scale_noise_rows")
     LAUNCHES["scale_noise_rows"] += 1
     return out

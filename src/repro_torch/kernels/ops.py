@@ -4,8 +4,11 @@
 
 The route is decided by the tensors' device alone: the CUDA kernels for
 CUDA tensors, the plain versions in ``kernels/ref.py`` for CPU tensors.
-σ is a Python float here (``core/rounds.py`` ``_dp_sigma``), so it goes to
-the kernel as an argument; there is no traced σ to fold into the noise.
+σ and the clip bound are Python floats for one run, or ``[R]`` tensors
+with one value a row for a sweep's stacked lanes (``core/rounds.py``
+``_dp_sigma``): the kernel reads σ[r] beside scale[r], where the
+reference folds a traced σ into its noise operand, a further pass over
+``[R, P]``.
 
 The sequence detectors' default score route is ``"kernel"`` on every
 device (:data:`DEFAULT_ROUTE`): on the CPU these wrappers already run the
@@ -32,11 +35,11 @@ combine_decode_partials = combine_partials
 rglru_scan = _rg.rglru_scan
 
 
-def dp_clip_noise_rows(x: torch.Tensor, noise: torch.Tensor, clip: float,
-                       sigma: float):
+def dp_clip_noise_rows(x: torch.Tensor, noise: torch.Tensor, clip, sigma):
     """Per-row clip to L2 ``clip`` + σ-scaled noise over the stacked
     updates ``x [R, P]``: one shared norm per row (client-level DP).
-    Two kernel launches on the card.  Returns ``(out, pre_clip_norm [R])``."""
+    ``clip`` and ``sigma`` are floats or ``[R]`` tensors.  Two kernel
+    launches on the card.  Returns ``(out, pre_clip_norm [R])``."""
     norm = torch.sqrt(_dp.sumsq_rows(x))
     out = _dp.scale_noise_rows(x, noise, clip_scale(norm, clip), sigma)
     return out, norm

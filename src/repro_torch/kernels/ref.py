@@ -31,19 +31,26 @@ def sumsq_rows_ref(x: torch.Tensor) -> torch.Tensor:
 
 
 def scale_noise_rows_ref(x: torch.Tensor, noise: torch.Tensor,
-                         scale: torch.Tensor, sigma: float) -> torch.Tensor:
-    """``o = x·scale[r] + σ·n`` over ``[R, P]``."""
+                         scale: torch.Tensor, sigma) -> torch.Tensor:
+    """``o = x·scale[r] + σ·n`` over ``[R, P]``; ``sigma`` is one float or
+    a ``[R]`` tensor, one σ a row.  σ·n is rounded once either way, so a
+    per-row σ gives the bits of the reference's traced-σ fold
+    (``x·scale + 1.0·(σ·n)``)."""
+    if isinstance(sigma, torch.Tensor):
+        sigma = sigma[:, None]
     return x.float() * scale[:, None] + sigma * noise.float()
 
 
-def clip_scale(norm: torch.Tensor, clip: float) -> torch.Tensor:
-    """``min(1, clip / max(norm, 1e-12))`` (the reference's clip factor)."""
+def clip_scale(norm: torch.Tensor, clip) -> torch.Tensor:
+    """``min(1, clip / max(norm, 1e-12))`` (the reference's clip factor);
+    ``clip`` is a float or a tensor shaped like ``norm``."""
     return torch.clamp(clip / torch.clamp(norm, min=1e-12), max=1.0)
 
 
-def dp_clip_noise_rows_ref(x: torch.Tensor, noise: torch.Tensor, clip: float,
-                           sigma: float):
-    """Clip each row to L2 ``clip`` and add σ-scaled noise.
+def dp_clip_noise_rows_ref(x: torch.Tensor, noise: torch.Tensor, clip,
+                           sigma):
+    """Clip each row to L2 ``clip`` and add σ-scaled noise; ``clip`` and
+    ``sigma`` are floats or ``[R]`` tensors (one a row).
     Returns ``(out [R, P], pre_clip_norm [R])``."""
     norm = torch.sqrt(sumsq_rows_ref(x))
     return scale_noise_rows_ref(x, noise, clip_scale(norm, clip), sigma), norm

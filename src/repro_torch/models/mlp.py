@@ -59,18 +59,20 @@ def accuracy(params, x, y) -> torch.Tensor:
 
 
 def auc_roc_torch(scores, labels) -> torch.Tensor:
-    """Rank AUC on the device (Mann-Whitney U normalisation), without
-    average-rank tie correction: scores are continuous softmax outputs.
-    :func:`auc_roc` is the tie-exact host oracle."""
+    """Rank AUC on the device (Mann-Whitney U normalisation) over the last
+    axis, so ``scores [L, n]`` gives one AUC a lane; without average-rank
+    tie correction: scores are continuous softmax outputs.  :func:`auc_roc`
+    is the tie-exact host oracle."""
     s = scores.float()
     y = labels.float()
-    n_pos = torch.sum(y)
-    n_neg = y.shape[0] - n_pos
-    order = torch.argsort(s, stable=True)
-    ranks = torch.zeros_like(s)
-    ranks[order] = torch.arange(1, s.shape[0] + 1, dtype=torch.float32,
-                                device=s.device)
-    u = torch.sum(ranks * y) - n_pos * (n_pos + 1.0) / 2.0
+    n = s.shape[-1]
+    n_pos = torch.sum(y, dim=-1)
+    n_neg = n - n_pos
+    order = torch.argsort(s, dim=-1, stable=True)
+    ranks = torch.zeros_like(s).scatter_(
+        -1, order, torch.arange(1, n + 1, dtype=torch.float32,
+                                device=s.device).expand(s.shape))
+    u = torch.sum(ranks * y, dim=-1) - n_pos * (n_pos + 1.0) / 2.0
     return u / torch.clamp(n_pos * n_neg, min=1.0)
 
 

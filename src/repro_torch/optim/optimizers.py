@@ -3,7 +3,9 @@
 
 ``init(params) -> state`` and ``update(grads, state, params) ->
 (new_params, new_state)`` act elementwise on one tensor: the round step
-keeps the global model as one flat vector in leaf order.  Server-side,
+keeps the global model as one flat vector in leaf order, or a ``[L, P]``
+matrix of a sweep's lanes.  ``lr`` is a float or a tensor that broadcasts
+against the params (``[L, 1]``: one server lr a lane).  Server-side,
 FedAvg is SGD(1.0) on the aggregated pseudo-gradient; FedAvgM and FedAdam
 are the FedOpt variants.
 """
@@ -30,7 +32,7 @@ def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
         new_m = momentum * state + grads.float()
         return params - lr * new_m, new_m
 
-    return Optimizer(init, update, f"sgd(lr={lr},m={momentum})")
+    return Optimizer(init, update, f"sgd(m={momentum})")
 
 
 class AdamState(NamedTuple):
@@ -57,7 +59,7 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
         upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
         return params - lr * upd, AdamState(mu, nu, c)
 
-    return Optimizer(init, update, f"adam(lr={lr})")
+    return Optimizer(init, update, "adam")
 
 
 def make_server_optimizer(name: str, lr: float) -> Optimizer:

@@ -7,10 +7,10 @@ PYTHONPATH=src python -m repro_torch.serve \\
 
 Train-if-missing: when ``--ckpt`` does not exist yet, a short federated run
 trains the detector and ``save_serving_checkpoint`` persists it; later
-invocations go straight from checkpoint to traffic.  The port trains with
-its per-round driver ``run_fl_legacy`` (same ``FLConfig``, method
-``"random"``): the reference's compiled ``run_fl`` is not ported yet.  The
-stream is the federation's test windows replayed in ``--chunk``-sized
+invocations go straight from checkpoint to traffic.  It trains with
+``run_fl(..., return_params=True)`` (the sweep engine, one lane; same
+``FLConfig`` and method ``"random"`` as the reference's CLI).  The stream
+is the federation's test windows replayed in ``--chunk``-sized
 arrival bursts, which the engine rebatches into its static buckets.
 """
 from __future__ import annotations
@@ -27,7 +27,7 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.data.synthetic import make_federated
 from repro_torch.models.spec import meta_for
 from repro_torch.serve.engine import ServeEngine, save_serving_checkpoint
-from repro_torch.train.fl_driver import run_fl_legacy
+from repro_torch.train.fl_driver import run_fl
 
 
 def _train_checkpoint(args) -> str:
@@ -38,10 +38,9 @@ def _train_checkpoint(args) -> str:
                   rounds=args.rounds, local_epochs=2, local_batch=32,
                   local_lr=0.08, dp_enabled=False, fault_tolerance=False,
                   model=args.model)
-    res = run_fl_legacy(fed, fl, "random", seed=args.seed, rounds=args.rounds,
-                        eval_every=max(args.rounds // 4, 1),
-                        dataset=args.dataset, hidden=args.hidden,
-                        device=args.device)
+    res = run_fl(fed, fl, "random", seed=args.seed, rounds=args.rounds,
+                 eval_every=max(args.rounds // 4, 1), dataset=args.dataset,
+                 hidden=args.hidden, return_params=True, device=args.device)
     print(f"trained {args.model}/{args.dataset}: acc={res.accuracy*100:.1f}% "
           f"auc={res.auc:.3f}")
     return save_serving_checkpoint(args.ckpt, res.params, args.model,

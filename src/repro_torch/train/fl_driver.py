@@ -1,14 +1,27 @@
 """End-to-end FL driver for the anomaly-detection use case (paper §V): the
-port's copy of ``repro/train/fl_driver.py``'s per-round driver
-``run_fl_legacy`` and what it needs (``METHODS``, ``fl_for_method``,
-``RunResult``, ``simulate_round_time``, ``realized_cohort_fraction``, the
-FedL2P personalisation pass).
+port's copy of ``repro/train/fl_driver.py``'s engines and what they need
+(``METHODS``, ``fl_for_method``, ``RunResult``, ``simulate_round_time``,
+``realized_cohort_fraction``, the FedL2P personalisation pass).
 
-It runs the full Algorithm-1 loop on the synthetic UNSW-NB15 / ROAD
-federations and reports accuracy, AUC-ROC, simulated training time and the
-accounted ε.  Batches are sampled on the host with the reference's NumPy
-sampler, so one seed feeds both packages the same batches.  The compiled
-sweep engine of the reference is not ported yet.
+Both run the full Algorithm-1 loop on the synthetic UNSW-NB15 / ROAD
+federations and report accuracy, AUC-ROC, simulated training time and the
+accounted ε:
+
+* :func:`run_fl_sweep` — the sweep engine: every seed×config lane of a
+  grid advances together, round by round on the device, through one lane
+  round step (``core/rounds.py`` ``make_lane_round``); batches are sampled
+  on the device from each lane's ``torch.Generator``, test metrics are
+  computed on the device every ``eval_every`` rounds, and nothing is read
+  back to the host until the loop ends.  :func:`run_fl_batch` (one cell)
+  and :func:`run_fl` (one cell, one seed) are its front doors.
+* :func:`run_fl_legacy` — the per-round driver, kept as the oracle:
+  batches are sampled on the host with the reference's NumPy sampler, so
+  one seed feeds both packages the same batches, and eval is pulled to the
+  host.
+
+Not ported yet (each raises): scheduled privacy (``dp_scheduled``), plan
+codes 1 and 2 and ``client_serial``, the population engine, and capture
+of the round loop.
 
 Methods:
   proposed        — adaptive utility selection + DP + fault tolerance (ours)
@@ -21,9 +34,11 @@ Methods:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -31,14 +46,18 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.configs.base import FLConfig, FLParams, fl_params
+from repro_torch.configs.base import (FLConfig, FLParams, as_f32, fl_params,
+                                     fl_static, params_lanes)
 from repro_torch.core import fault as fault_lib
 from repro_torch.core import plans as plans_lib
 from repro_torch.core import rounds as rounds_lib
-from repro_torch.data.synthetic import FederatedData, round_batches
+from repro_torch.data.synthetic import (FederatedData, StackedFederation,
+                                        draw_batch_indices, round_batches,
+                                        sample_round_batches, stack_federation)
 from repro_torch.device import resolve_device
-from repro_torch.models.mlp import auc_roc
-from repro_torch.models.spec import ModelSpec, get_model_spec, meta_for
+from repro_torch.models.mlp import auc_roc, auc_roc_torch
+from repro_torch.models.spec import (DataMeta, ModelSpec, get_model_spec,
+                                     meta_for)
 from repro_torch.privacy.accountant import accounted_epsilon
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -145,7 +164,12 @@ def simulate_round_time(fl: FLConfig, util_state, sel_mask, failed,
     compute_i``, stretched by straggler ``slow`` factors) + communication +
     DP pass + checkpoint writes + recovery.  ``buffered_async`` (plan code
     1) waits for the K-th arrival instead of the slowest; ``hierarchical``
-    (code 2) pays two edge hops of ``hier_comm_frac`` of the WAN hop."""
+    (code 2) pays two edge hops of ``hier_comm_frac`` of the WAN hop.
+
+    Clients are the last axis (``[n]`` for one run, ``[L, n]`` for a
+    sweep's lanes, each with its own ``params`` lane); the plan variants are
+    selected by ``torch.where`` on the plan code, so nothing here reads a
+    value back to the host."""
     pr = fl_params(fl) if params is None else params
     sel = sel_mask > 0
     zero = torch.zeros_like(sel_mask)
@@ -153,13 +177,13 @@ def simulate_round_time(fl: FLConfig, util_state, sel_mask, failed,
     compute = steps * base_step_time / torch.clamp(util_state.compute, min=0.1)
     if slow is not None:
         compute = compute * slow
-    slowest = torch.max(torch.where(sel, compute, zero))
+    slowest = torch.amax(torch.where(sel, compute, zero), dim=-1)
     comm_full = comm_time * (1.0 + param_kb / 1024.0)
 
     t = slowest + comm_full
     if fl.dp_enabled:
         t = t + 0.01  # clip+noise pass
-    n_failed_sel = torch.sum(torch.where(sel, failed, zero))
+    n_failed_sel = torch.sum(torch.where(sel, failed, zero), dim=-1)
     if fl.fault_tolerance:
         t = t + ckpt_write * max(1, steps // 2)
         t = t + n_failed_sel * fault_lib.recovery_overhead(pr.recovery_time)
@@ -167,19 +191,21 @@ def simulate_round_time(fl: FLConfig, util_state, sel_mask, failed,
         # failed clients redo the whole round next time: amortised penalty
         t = t + n_failed_sel * slowest
 
-    code = float(pr.plan_code)
-    if code == 1.0:
-        arrivals = torch.sort(torch.where(sel, compute,
-                                          torch.full_like(compute, math.inf))
-                              ).values
-        k_idx = int(min(max(float(pr.async_buffer), 1.0),
-                        float(sel_mask.shape[0]))) - 1
-        t = torch.minimum(arrivals[k_idx], slowest) + comm_full
-        if fl.dp_enabled:
-            t = t + 0.01
-    elif code == 2.0:
-        t = t - comm_full + 2.0 * pr.hier_comm_frac * comm_full
-    return torch.where(torch.any(sel), t, torch.full_like(t, comm_time))
+    # buffered_async (code 1): the K-th smallest selected arrival, capped at
+    # the slowest; hierarchical (code 2): two edge hops for the WAN hop
+    arrivals = torch.sort(torch.where(sel, compute, torch.full_like(
+        compute, math.inf)), dim=-1).values
+    k_idx = torch.clamp(as_f32(pr.async_buffer, t), 1.0,
+                        float(sel_mask.shape[-1])).long() - 1
+    kth = torch.gather(arrivals, -1, k_idx.expand(t.shape)[..., None])[..., 0]
+    t_async = torch.minimum(kth, slowest) + comm_full
+    if fl.dp_enabled:
+        t_async = t_async + 0.01
+    t_hier = t - comm_full + 2.0 * pr.hier_comm_frac * comm_full
+    code = as_f32(pr.plan_code, t)
+    t = torch.where(code == 1.0, t_async, torch.where(code == 2.0, t_hier, t))
+    return torch.where(torch.any(sel, dim=-1), t,
+                       torch.full_like(t, comm_time))
 
 
 def realized_cohort_fraction(k_eff, n_clients: int):
@@ -289,3 +315,311 @@ def run_fl_legacy(
         rounds=rounds, eps_spent=eps, history=history,
         params=state.params,
     )
+
+
+# ---------------------------------------------------------------------------
+# Sweep engine: every seed×config lane of a grid, round by round on the card
+# ---------------------------------------------------------------------------
+
+
+def _eval_rounds(rounds: int, eval_every: int) -> List[int]:
+    """0-based round indices the legacy loop evaluated at."""
+    return [r for r in range(rounds)
+            if (r + 1) % eval_every == 0 or r == rounds - 1]
+
+
+@contextlib.contextmanager
+def _no_host_sync(device: torch.device):
+    """On a card, make any host synchronisation inside the block raise
+    (``torch.cuda.set_sync_debug_mode("error")``): the round loop reads
+    nothing back until the readback."""
+    if device.type != "cuda":
+        yield
+        return
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def _eval_lanes(spec: ModelSpec, params, test_x, test_y):
+    """Test accuracy and rank AUC of every lane ``[L]``: one forward a lane
+    (the sequence detectors' kernels cannot run under ``vmap``), then the
+    metrics over the stacked ``[L, n_test]`` logits."""
+    lanes = tree_leaves(params)[0].shape[0]
+    logits = torch.stack([spec.logits(tree_map(lambda a: a[i], params),
+                                      test_x) for i in range(lanes)])
+    acc = torch.mean((torch.argmax(logits, dim=-1) == test_y).float(), dim=-1)
+    proba = torch.softmax(logits, dim=-1)[..., 1]
+    return acc, auc_roc_torch(proba, test_y)
+
+
+def _build_lane_run(fl: FLConfig, rounds: int, eval_every: int,
+                    meta: DataMeta, n_clients: int, device: torch.device):
+    """``lane_run(seeds, stack, data_size, data_quality, params,
+    init_states=None, draws=None) -> (params [L], sim_time [L], trace)``
+    for the STATIC config ``fl``: the counterpart of the reference's
+    ``_build_single_run`` under its ``vmap`` over lanes.
+
+    Lane ``l`` has its own ``torch.Generator(device).manual_seed(seeds[l])``,
+    which draws the initial params, then the utility state, then each
+    round that lane's batch indices and its :class:`RoundDraws`; lanes of
+    one seed therefore share their draws across cells, as the reference's
+    keys do.  ``init_states`` (one run's :class:`RoundState` a lane) and
+    ``draws`` (a lane's list over rounds of ``(batch_idx [n, local_steps,
+    batch], RoundDraws)``) replace them, as the parity tests feed the
+    reference's own.
+
+    The loop runs eval blocks of ``eval_every`` rounds and a trailing
+    partial block when ``rounds % eval_every != 0``; test accuracy and AUC
+    are computed on the device at the end of each block.  ``trace`` maps
+    each history column to ``[L, n_evals]``.  Between the lanes'
+    initialisation and the return nothing is read back to the host."""
+    n_full, rem = divmod(rounds, eval_every)
+    blocks = [eval_every] * n_full + ([rem] if rem else [])
+    spec = get_model_spec(fl.model, meta)
+    n = n_clients
+    step = rounds_lib.make_lane_round(spec.loss, fl, n, device=device)
+
+    def lane_run(seeds: Sequence[int], stack: StackedFederation, data_size,
+                 data_quality, pr: FLParams, init_states=None, draws=None):
+        lanes = len(seeds)
+        if init_states is None:
+            init_states = []
+            for seed in seeds:
+                gen = torch.Generator(device=device).manual_seed(int(seed))
+                init_states.append(rounds_lib.init_round_state(
+                    spec.init(gen), fl, gen, n_clients=n,
+                    data_size=data_size, data_quality=data_quality))
+        state = rounds_lib.stack_states(init_states)
+        n_noise = (sum(t[0].numel() for t in tree_leaves(state.params))
+                   if fl.dp_enabled else 0)
+        steps, batch = fl.local_epochs, fl.local_batch
+        if draws is None:  # buffers each round's draws go into
+            u_batch = torch.empty(lanes, n, steps, batch, device=device)
+            draw_out = rounds_lib.RoundDraws.empty(lanes, n, n_noise, device)
+        cum_time = torch.zeros(lanes, device=device)
+        trace = {k: [] for k in ("loss", "acc", "auc", "k", "fail",
+                                 "cum_time")}
+        with _no_host_sync(device):
+            for block in blocks:
+                for _ in range(block):
+                    r = state.round_idx
+                    if draws is None:
+                        idx = draw_batch_indices(state.rng, stack.sizes,
+                                                 steps, batch, out=u_batch)
+                        d = rounds_lib.draw_round(state.rng, n, steps,
+                                                  n_noise, fl.selection,
+                                                  out=draw_out)
+                    else:
+                        idx = torch.stack([lane[r][0] for lane in draws])
+                        d = rounds_lib.RoundDraws.stack(
+                            [lane[r][1] for lane in draws])
+                    state, m = step(state, sample_round_batches(stack, idx),
+                                    pr, d)
+                    cum_time = cum_time + simulate_round_time(
+                        fl, state.util, m.sel_mask, m.failed, params=pr,
+                        slow=m.slow)
+                with record_function("eval_block"):
+                    acc, auc = _eval_lanes(spec, state.params, stack.test_x,
+                                           stack.test_y)
+                for name, v in (("loss", m.global_loss), ("acc", acc),
+                                ("auc", auc), ("k", m.k_effective),
+                                ("fail", torch.mean(m.failed, dim=-1)),
+                                ("cum_time", cum_time)):
+                    trace[name].append(v)
+        return (state.params, cum_time,
+                {k: torch.stack(v, dim=1) for k, v in trace.items()})
+
+    return lane_run
+
+
+# Lane runners keyed on (STATIC config, rounds, eval_every, DataMeta,
+# n_lanes, stack shapes, device): every runtime knob (FLParams) and the
+# federation are arguments, so one runner serves a whole ε/failure/lr grid.
+# RUNNER_STATS counts misses and hits, as the reference's does.
+_RUNNER_CACHE: Dict = {}
+RUNNER_STATS = {"misses": 0, "hits": 0}
+
+# Device-side federations cached per host FederatedData object (keyed by
+# id() and device, with a weakref guard: FederatedData defines __eq__, so it
+# is unhashable), so repeat calls skip the re-pad and upload.
+_STACK_CACHE: Dict = {}
+
+
+def _device_federation(fed: FederatedData, device: torch.device):
+    key = (id(fed), str(device))
+    entry = _STACK_CACHE.get(key)
+    if entry is None or entry[0]() is not fed:
+        sizes = fed.data_sizes()
+        ref = weakref.ref(fed, lambda _: _STACK_CACHE.pop(key, None))
+        entry = (ref, stack_federation(fed, device),
+                 torch.as_tensor(sizes / sizes.mean(), device=device),
+                 torch.as_tensor(fed.label_entropy(), device=device))
+        _STACK_CACHE[key] = entry
+    return entry[1], entry[2], entry[3]
+
+
+def _get_runner(fl: FLConfig, rounds: int, eval_every: int, meta: DataMeta,
+                n_lanes: int, stack: StackedFederation, device: torch.device):
+    static = fl_static(fl)
+    cache_key = (static, rounds, eval_every, meta, n_lanes, stack.shapes(),
+                 str(device))
+    runner = _RUNNER_CACHE.get(cache_key)
+    if runner is None:
+        RUNNER_STATS["misses"] += 1
+        runner = _build_lane_run(static, rounds, eval_every, meta,
+                                 stack.n_clients, device)
+        _RUNNER_CACHE[cache_key] = runner
+    else:
+        RUNNER_STATS["hits"] += 1
+    return runner
+
+
+def _sweep_cells(fl: FLConfig, params_grid: Sequence,
+                 method: str) -> List[FLConfig]:
+    """Resolve a params_grid into per-cell FLConfigs sharing ``fl``'s
+    statics, and refuse what the port's engine does not run yet."""
+    cells: List[FLConfig] = []
+    for p in params_grid:
+        if isinstance(p, FLConfig):
+            cell = fl_for_method(p, method)
+        elif isinstance(p, FLParams):
+            # plan_code is derived from FLConfig.plan, not a config field:
+            # map a differing code back to the registered plan name
+            overrides = p._asdict()
+            code = float(overrides.pop("plan_code"))
+            cell = dataclasses.replace(fl, **overrides)
+            if code != plans_lib.plan_code(cell.plan):
+                cell = dataclasses.replace(cell, plan=plans_lib.plan_for_code(
+                    plans_lib.plan_family(cell.plan), code))
+        else:
+            cell = dataclasses.replace(fl, **dict(p))
+        if fl_static(cell) != fl_static(fl):
+            raise ValueError(
+                "params_grid cell differs from the base config in a STATIC "
+                "field — those gate code structure and cannot ride the "
+                f"runtime lane axis: {cell}")
+        plan = plans_lib.get_plan(cell.plan)
+        if plan.family != "client_parallel" or plan.code != 0.0:
+            raise NotImplementedError(
+                f"the port's sweep engine runs only the synchronous "
+                f"client_parallel plan (code 0); plan {cell.plan!r} is not "
+                f"ported yet")
+        if cell.dp_enabled and cell.dp_scheduled:
+            raise NotImplementedError(
+                "dp_scheduled needs the in-loop RDP accountant, which the "
+                "port does not have yet")
+        cells.append(cell)
+    return cells
+
+
+def run_fl_sweep(
+    fed: FederatedData,
+    fl: FLConfig,
+    params_grid: Sequence,
+    seeds: Sequence[int] = (0, 1, 2, 3),
+    method: str = "proposed",
+    rounds: Optional[int] = None,
+    eval_every: int = 10,
+    dataset: str = "unsw",
+    hidden: int = 64,
+    return_params: bool = False,
+    *,
+    device=None,
+    init_states: Optional[Sequence[rounds_lib.RoundState]] = None,
+    draws: Optional[Sequence[Sequence]] = None,
+) -> List[List[RunResult]]:
+    """A whole hyper-parameter sweep, every lane advancing together.
+
+    ``params_grid``: one entry per cell — an :class:`FLConfig` sharing
+    ``fl``'s statics, a dict of runtime-field overrides applied to ``fl``,
+    or an :class:`FLParams`.  Each cell's runtime scalars become ``[L]``
+    lanes (``len(params_grid) · len(seeds)``, lane = cell_index · n_seeds
+    + seed_index), and each round is one set of batched device ops for all
+    lanes; test metrics are computed on the device every ``eval_every``
+    rounds and read back once, at the end.  Runs on ``device`` (``cuda``
+    unless ``"cpu"`` is asked).  ``init_states``/``draws``: one entry a
+    lane (see :func:`_build_lane_run`).
+
+    ``run_fl_sweep(..., [cfg_a, cfg_b], seeds)[i][j]`` equals
+    ``run_fl(fed, cfg_i, seed=seeds[j])`` up to float order.  Returns
+    results indexed ``[cell][seed]``."""
+    device = resolve_device(device)
+    fl = fl_for_method(fl, method)
+    rounds = int(rounds or fl.rounds)
+    seeds = [int(s) for s in seeds]
+    cells = _sweep_cells(fl, params_grid, method)
+    if not cells:
+        return []
+    n_lanes = len(cells) * len(seeds)
+
+    t0 = time.perf_counter()
+    with record_function("sweep.prepare"):
+        meta = meta_for(fed, hidden=hidden)
+        stack, data_size, data_quality = _device_federation(fed, device)
+        runner = _get_runner(fl, rounds, eval_every, meta, n_lanes, stack,
+                             device)
+        lanes = params_lanes(cells, len(seeds), device)
+    with record_function("sweep.execute"):
+        params_b, sim_b, trace_b = runner(
+            seeds * len(cells), stack, data_size, data_quality, lanes,
+            init_states=init_states, draws=draws)
+    with record_function("sweep.readback"):
+        trace_np = {k: v.cpu().numpy() for k, v in trace_b.items()}
+        sim_np = sim_b.cpu().numpy()
+    wall_per_lane = (time.perf_counter() - t0) / n_lanes
+
+    eval_idx = _eval_rounds(rounds, eval_every)
+    spec = get_model_spec(fl.model, meta) if method == "fedl2p" else None
+    out: List[List[RunResult]] = []
+    for ci, cell in enumerate(cells):
+        eps = accounted_epsilon(cell, rounds)
+        row = []
+        for si, seed in enumerate(seeds):
+            lane = ci * len(seeds) + si
+            history = {"round": [r + 1 for r in eval_idx]}
+            for name, v in trace_np.items():
+                history[name] = [float(x) for x in v[lane]]
+            sim_time = float(sim_np[lane])
+            acc, auc = history["acc"][-1], history["auc"][-1]
+            lane_params = (tree_map(lambda a: a[lane].clone(), params_b)
+                           if return_params or method == "fedl2p" else None)
+            if method == "fedl2p":
+                # personalisation pass (the point of FedL2P) + its cost
+                acc, auc = _personalize(lane_params, fed, spec, seed=seed)
+                sim_time *= 1.2
+            row.append(RunResult(
+                method=method, dataset=dataset, seed=seed,
+                accuracy=acc, auc=auc,
+                sim_time_s=sim_time, wall_time_s=wall_per_lane,
+                rounds=rounds, eps_spent=eps, history=history,
+                params=lane_params if return_params else None))
+        out.append(row)
+    return out
+
+
+def run_fl_batch(fed: FederatedData, fl: FLConfig, method: str = "proposed",
+                 seeds: Sequence[int] = (0, 1, 2, 3),
+                 rounds: Optional[int] = None, eval_every: int = 10,
+                 dataset: str = "unsw", hidden: int = 64,
+                 return_params: bool = False, *,
+                 device=None) -> List[RunResult]:
+    """All repeated trials of one (method, dataset) cell: a one-cell
+    :func:`run_fl_sweep` (one lane a seed)."""
+    return run_fl_sweep(fed, fl, [fl], seeds=seeds, method=method,
+                        rounds=rounds, eval_every=eval_every, dataset=dataset,
+                        hidden=hidden, return_params=return_params,
+                        device=device)[0]
+
+
+def run_fl(fed: FederatedData, fl: FLConfig, method: str = "proposed",
+           seed: int = 0, rounds: Optional[int] = None, eval_every: int = 10,
+           dataset: str = "unsw", hidden: int = 64,
+           return_params: bool = False, *, device=None) -> RunResult:
+    """One seed of one cell through the sweep engine (a batch of one)."""
+    return run_fl_batch(fed, fl, method, seeds=(seed,), rounds=rounds,
+                        eval_every=eval_every, dataset=dataset, hidden=hidden,
+                        return_params=return_params, device=device)[0]

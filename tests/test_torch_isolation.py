@@ -12,7 +12,7 @@ from repro_torch.core import rounds as t_rounds
 from repro_torch.data.synthetic import make_federated
 from repro_torch.device import resolve_device
 from repro_torch.models import mlp as t_mlp
-from repro_torch.train.fl_driver import run_fl_legacy
+from repro_torch.train.fl_driver import run_fl, run_fl_legacy, run_fl_sweep
 
 torch.set_num_threads(1)
 
@@ -45,9 +45,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
 
 
 def test_entry_points_default_to_cuda():
-    """Without ``device=``, run_fl_legacy and make_parallel_round go to
-    CUDA: on a machine without a card they raise instead of running on the
-    CPU."""
+    """Without ``device=``, run_fl_legacy, run_fl, run_fl_sweep and
+    make_parallel_round go to CUDA: on a machine without a card they raise
+    instead of running on the CPU."""
     fed = make_federated(0, "unsw", n_samples=300, n_clients=4)
     fl = FLConfig(n_clients=4, clients_per_round=2, local_epochs=1,
                   local_batch=8)
@@ -56,6 +56,11 @@ def test_entry_points_default_to_cuda():
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         run_fl_legacy(fed, fl, rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fl(fed, fl, rounds=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fl_sweep(fed, fl, [fl], seeds=(0,), rounds=1)
+    assert run_fl(fed, fl, rounds=1, eval_every=1, device="cpu").rounds == 1
     with pytest.raises(RuntimeError, match="CUDA"):
         t_rounds.make_parallel_round(t_mlp.mlp_loss, fl, 4)
     assert resolve_device("cpu").type == "cpu"

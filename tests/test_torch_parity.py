@@ -91,23 +91,41 @@ def _assert_close(a, b, what, rtol=RTOL, atol=ATOL):
                                atol=atol, err_msg=what)
 
 
-@pytest.mark.parametrize("fault_process,selection", [
-    (0.0, "adaptive_utility"),   # the quickstart config's iid failures
-    (2.0, "adaptive_utility"),   # Weibull lifetimes (lgamma, pow)
-    (1.0, "acfl"),               # Markov outages, fixed-K uncertainty selection
+@pytest.mark.parametrize("fault_process,selection,dataset,extra", [
+    pytest.param(0.0, "adaptive_utility", "unsw", {},   # the quickstart's iid
+                 id="0.0-adaptive_utility"),
+    pytest.param(2.0, "adaptive_utility", "unsw", {},   # Weibull (lgamma, pow)
+                 id="2.0-adaptive_utility"),
+    pytest.param(1.0, "acfl", "unsw", {},               # Markov, fixed-K ACFL
+                 id="1.0-acfl"),
+    pytest.param(0.0, "random", "unsw", {}, id="0.0-random"),
+    # power-of-choice trains the highest-loss clients, so at ε = 50 its
+    # losses pass 30 by round 5, where one f32 ulp (1.9e-6) of a loss
+    # exceeds atol in perf_ema (an EMA of pre − post loss); at ε = 500 they
+    # stay near 1
+    pytest.param(0.0, "power_of_choice", "unsw", {"dp_epsilon": 500.0},
+                 id="0.0-power_of_choice"),
+    pytest.param(0.0, "adafl", "unsw", {}, id="0.0-adafl"),
+    pytest.param(0.0, "adaptive_utility", "road", {},
+                 id="0.0-adaptive_utility-road"),
+    pytest.param(3.0, "adaptive_utility", "unsw", {},   # stragglers: alive
+                 id="3.0-adaptive_utility"),
 ])
-def test_parallel_round_matches_reference(fault_process, selection):
-    """5 rounds of make_parallel_round: sel_mask bitwise per round; params,
-    utility state, K controller and metrics to rtol 1e-5 (atol 1e-6).
+def test_parallel_round_matches_reference(fault_process, selection, dataset,
+                                          extra):
+    """5 rounds of make_parallel_round (the lane step at L = 1): sel_mask
+    bitwise per round; params, utility state, K controller and metrics to
+    rtol 1e-5 (atol 1e-6).  Every selection strategy, both datasets and
+    every failure process.
 
     The model is far from converged at these settings (losses reach ~1e2),
     so a server optimizer that amplifies float-order differences (FedAdam's
     g/(|g|+1e-3)) is held to the reference in the optimizer test of
     test_torch_selection_fault.py, not over rounds."""
-    fed = j_make_federated(0, "unsw", n_samples=2_000, n_clients=10)
+    fed = j_make_federated(0, dataset, n_samples=2_000, n_clients=10)
     # failure rate raised from 0.05 so that 10 clients x 5 rounds see failures
     cfg = dict(QUICK, fault_process=fault_process, selection=selection,
-               failure_prob=0.2)
+               failure_prob=0.2, **extra)
     jfl, tfl = JFLConfig(**cfg), FLConfig(**cfg)
     sizes = fed.data_sizes()
     jparams = j_mlp.init_mlp(jax.random.key(0), fed.n_features, 64, 2)

@@ -47,21 +47,45 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    ``rglru_scan`` (bitwise, and bitwise across runs; a, x and h0 dense and
    one element off 16-byte alignment, so that every branch of its plan
    runs) against their plain versions on the card;
-9. drive the serving path for ``attn`` and ``ssm``: train a checkpoint with
-   ``run_fl`` on ``road_raw`` at hidden 64, as the serve CLI does, load it into a
-   ``ServeEngine`` with buckets (16, 128) and stream 9,000 windows in
-   bursts of 37, counting kernel launches; check the scores against the
-   scorer on the same bucket batches (bitwise), one unpadded call (1e-6)
-   and the CPU engine (1e-5); time the batch-1 loop; profile one pass
-   (and require ``attn``'s decode to run ``flash_decode_lanes_kernel``);
+9. drive the serving path for ``attn``, ``ssm``, ``rglru`` and ``cnn``:
+   train a checkpoint with ``run_fl`` on ``road_raw`` at hidden 64, as the
+   serve CLI does, load it into a ``ServeEngine`` with buckets (16, 128)
+   and stream 9,000 windows in bursts of 37, counting kernel launches
+   (``attn``: attention and decode once a batch; ``ssm``: two scans a
+   batch; ``rglru``: one scan a batch on its ``"kernel"`` route; ``cnn``:
+   none); check the scores against the scorer on the same bucket batches
+   (bitwise), one unpadded call (1e-6) and the CPU engine (1e-5); time the
+   batch-1 loop; profile one pass (and require ``attn``'s decode to run
+   ``flash_decode_lanes_kernel`` and ``rglru``'s scan the one-lane
+   ``rglru_scan_tiles_kernel<1>``, once a batch);
 10. time a launch's own floor (``add_`` on a one-element tensor), the
    sequence kernels at the serving path's shapes (B = 128; ``rglru_scan``
-   also at the rglru detector's [128, 64, 16]), ``flash_attention`` and
+   also at the rglru detector's [128, 64, 16], with its launches and
+   profiled device time on the ``rglru`` path), ``flash_attention`` and
    ``flash_decode`` beside SDPA (the ratios printed), and ``flash_decode``'s
    eager time as the detector calls it with and without the first port's
    per-call conversions; print each kernel's time less the floor beside its
    bound, and the ``kernels`` JSON line for all five kernels (the DP
-   kernels also at the sweep's shape) with the floor.
+   kernels also at the sweep's shape) with the floor;
+11. the model grid of ``benchmarks/bench_models.py`` at its full settings
+   (unsw/mlp and road_raw mlp, cnn, rglru, ssm, attn × seeds 0-2, 12
+   clients, 2,400 samples, 40 rounds): each cell through ``run_fl_batch``,
+   one runner build and a warm rerun that is a pure cache hit; fail on a
+   non-finite loss or AUC or a mean AUC <= 0.5; print each mean AUC beside
+   ``BENCH_models.json``'s (JAX on the CPU) and the warm wall; run the lane
+   step of ``cnn`` and ``rglru`` on the card and on the CPU from the same
+   states and draws (2 rounds: equal ``sel_mask``, state within rtol 1e-4
+   / atol 1e-6);
+12. the privacy frontier of ``benchmarks/bench_privacy.py`` at its full
+   settings (unsw, 24 clients, 60 rounds, the adaptive schedule, budgets
+   300/1,000/3,000/10,000 × seeds 0-3: 16 lanes, one runner build):
+   every lane's ε within its budget, a lane's params bitwise frozen in
+   every round it is not live, the DP kernels once a round, the in-loop ε
+   of a uniform fixed-K lane equal to the host f64 composition (1e-6
+   relative); the scheduled lane step on the card against the CPU with the
+   same draws (``live`` and ``sel_mask`` equal, σ_t and state within rtol
+   1e-4 / atol 1e-6); the warm wall a round with ``dp_scheduled`` on and
+   off.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -90,6 +114,7 @@ SERVE_ROUNDS = 30          # the serve CLI's default training rounds
 SERVE_REPEAT = 6           # replays of the 1,500 test windows: 9,000 windows
 SERVE_BUCKETS = (16, 128)
 SERVE_CHUNK = 37
+SERVE_MODELS = ("attn", "ssm", "rglru", "cnn")
 SPANS = ("fl.batches", "fl.round_step", "fl.sim_time", "fl.eval",
          "selection", "local_train", "dp_privatize", "aggregate")
 # phase 7b: Fig. 3's ε column (benchmarks/bench_fig3.py) × REPRO_FULL's 10
@@ -669,29 +694,31 @@ def phase_sweep_profile(torch, fed, fl, rounds: int = 3):
     return out
 
 
-def phase_sweep_card_vs_cpu(torch, dpk):
-    """Phase 7b: the lane step on the card and on the CPU from the same
-    states with the same draws and batches, 2 cells (iid at ε = 100,
-    Markov outages) × 2 seeds, 3 rounds, at a small size."""
-    import dataclasses
-
+def lane_steps_card_vs_cpu(torch, dpk, small, fl, cells, hidden: int,
+                           rounds: int, label: str):
+    """The lane step on the card and on the CPU from the same states with
+    the same draws and batches: ``cells`` × seeds 0 and 1 (cell-major),
+    ``rounds`` rounds on the federation ``small``.  Under
+    ``fl.dp_scheduled`` each round goes through ``scheduled_round`` (a
+    ``rounds``-round plan).  Each round: equal ``sel_mask`` (and ``live``),
+    and params, utility, K and fault state (and σ_t, the accountant and
+    the scheduler) within rtol 1e-4 / atol 1e-6; on the card the DP
+    kernels launch once each a round.  Returns ``(max |card − cpu|, the
+    live gates per round or None)``."""
     from repro_torch import convert
-    from repro_torch.configs.base import FLConfig, params_lanes
+    from repro_torch.configs.base import params_lanes
     from repro_torch.core import rounds as rounds_lib
     from repro_torch.data.synthetic import (draw_batch_indices,
-                                            make_federated,
                                             sample_round_batches,
                                             stack_federation)
     from repro_torch.models.spec import get_model_spec, meta_for
+    from repro_torch.privacy import accountant as acct_lib
+    from repro_torch.train import fl_driver
     from repro_torch.tree import flatten_rows
 
-    small = make_federated(0, "unsw", n_samples=2_000, n_clients=10)
-    fl = FLConfig(n_clients=10, clients_per_round=4, local_epochs=3,
-                  local_batch=32, dp_epsilon=100.0, dp_clip=5.0,
-                  failure_prob=0.2)
-    cells = [fl, dataclasses.replace(fl, fault_process=1.0)]
+    scheduled = fl.dp_enabled and fl.dp_scheduled
     n = small.n_clients
-    spec = get_model_spec(fl.model, meta_for(small, hidden=32))
+    spec = get_model_spec(fl.model, meta_for(small, hidden=hidden))
     sizes = small.data_sizes()
     cpu_states = []
     for seed in (0, 1):
@@ -700,47 +727,88 @@ def phase_sweep_card_vs_cpu(torch, dpk):
             spec.init(gen), fl, gen, n_clients=n,
             data_size=torch.as_tensor(sizes / sizes.mean()),
             data_quality=torch.as_tensor(small.label_entropy())))
-    # cell-major lanes: (iid, seed 0), (iid, 1), (Markov, 0), (Markov, 1)
-    lanes_of = lambda ss: [ss[0], ss[1], ss[0], ss[1]]  # noqa: E731
-    states = {"cpu": rounds_lib.stack_states(lanes_of(cpu_states)),
-              "cuda": rounds_lib.stack_states(lanes_of([
+    lanes = [cpu_states[i % 2] for i in range(2 * len(cells))]
+    states = {"cpu": rounds_lib.stack_states(lanes),
+              "cuda": rounds_lib.stack_states([
                   convert.round_state_from_jax(s.params, s.util, s.kctl,
                                                s.fault, fl, "cuda")
-                  for s in cpu_states]))}
+                  for s in lanes])}
     steps = {dev: rounds_lib.make_lane_round(spec.loss, fl, n, device=dev)
              for dev in states}
     prs = {dev: params_lanes(cells, 2, dev) for dev in states}
     stacks = {dev: stack_federation(small, dev) for dev in states}
+    if scheduled:
+        grids = {dev: acct_lib.order_grid(fl.dp_delta, dev)
+                 for dev in states}
+        privs = {dev: fl_driver.init_privacy(fl, prs[dev], grids[dev], n,
+                                             rounds) for dev in states}
     n_params = flatten_rows(cpu_states[0].params, 0).numel()
     launches0 = sum(dpk.LAUNCHES.values())
-    worst = 0.0
-    for r in range(3):
-        gens = [torch.Generator().manual_seed(10 * r + i) for i in range(4)]
+    worst, lives = 0.0, []
+    for r in range(rounds):
+        gens = [torch.Generator().manual_seed(10 * r + i)
+                for i in range(len(lanes))]
         idx = draw_batch_indices(gens, stacks["cpu"].sizes, fl.local_epochs,
                                  fl.local_batch)
         draws = rounds_lib.draw_round(gens, n, fl.local_epochs, n_params,
                                       fl.selection)
-        metrics = {}
+        metrics, extra, gates = {}, {}, {}
         for dev in states:
             batches = sample_round_batches(stacks[dev], idx.to(dev))
-            states[dev], metrics[dev] = steps[dev](
-                states[dev], batches, prs[dev], draws.to(dev))
-        cpu, gpu = states["cpu"], states["cuda"]
+            if scheduled:
+                states[dev], metrics[dev], privs[dev], sigma, live = \
+                    fl_driver.scheduled_round(
+                        steps[dev], fl, states[dev], batches, prs[dev],
+                        draws.to(dev), privs[dev], grids[dev], rounds)
+                extra[dev] = [sigma, *privs[dev].acct[:2],
+                              *privs[dev].sched]
+                gates[dev] = live.cpu()
+            else:
+                states[dev], metrics[dev] = steps[dev](
+                    states[dev], batches, prs[dev], draws.to(dev))
+                extra[dev] = []
         check(torch.equal(metrics["cpu"].sel_mask,
                           metrics["cuda"].sel_mask.cpu()),
-              f"lane sel_mask differs on round {r + 1}")
+              f"{label}: lane sel_mask differs on round {r + 1}")
+        if scheduled:
+            check(torch.equal(gates["cpu"], gates["cuda"]),
+                  f"{label}: live differs on round {r + 1}")
+            lives.append(gates["cpu"].tolist())
+        cpu, gpu = states["cpu"], states["cuda"]
         pairs = [(flatten_rows(gpu.params), flatten_rows(cpu.params))]
         pairs += list(zip(gpu.util, cpu.util)) + list(zip(gpu.kctl, cpu.kctl))
         pairs += list(zip(gpu.fault, cpu.fault))
+        pairs += list(zip(extra["cuda"], extra["cpu"]))
         for a, c in pairs:
             torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-6)
             worst = max(worst, max_abs(a.cpu(), c))
-        print(f"  lane step round {r + 1}: sel_mask equal "
+        print(f"  {label} round {r + 1}: sel_mask equal "
               f"({metrics['cpu'].sel_mask.sum(dim=1).tolist()} selected a "
-              f"lane), params/util/K/fault max|card-cpu| {worst:.3e}")
-    check(sum(dpk.LAUNCHES.values()) - launches0 == 6,
-          "the card's lane steps did not go through the kernels")
-    return worst
+              f"lane)" + (f", live {lives[-1]} equal" if scheduled
+                          else "") +
+              f"; state max|card-cpu| {worst:.3e}")
+    if fl.dp_enabled:
+        check(sum(dpk.LAUNCHES.values()) - launches0 == 2 * rounds,
+              f"{label}: the card's lane steps did not go through the "
+              f"DP kernels")
+    return worst, (lives if scheduled else None)
+
+
+def phase_sweep_card_vs_cpu(torch, dpk):
+    """Phase 7b: the lane step card vs CPU, 2 cells (iid at ε = 100,
+    Markov outages) × 2 seeds, 3 rounds, at a small size."""
+    import dataclasses
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.synthetic import make_federated
+
+    small = make_federated(0, "unsw", n_samples=2_000, n_clients=10)
+    fl = FLConfig(n_clients=10, clients_per_round=4, local_epochs=3,
+                  local_batch=32, dp_epsilon=100.0, dp_clip=5.0,
+                  failure_prob=0.2)
+    cells = [fl, dataclasses.replace(fl, fault_process=1.0)]
+    return lane_steps_card_vs_cpu(torch, dpk, small, fl, cells, 32, 3,
+                                  "lane step")[0]
 
 
 def phase_sweep_kernels(torch, dpk, ref, launches):
@@ -1213,13 +1281,15 @@ def phase_serve(torch, name, fed, seq_kernels):
     check(bool(np.all(np.isfinite(rep.scores))), f"{name}: non-finite scores")
     check(bool(np.all((rep.scores >= 0) & (rep.scores <= 1))),
           f"{name}: scores outside [0, 1]")
-    want = ({"flash_attention": rep.n_batches, "flash_decode": rep.n_batches,
-             "rglru_scan": 0} if name == "attn" else
-            {"flash_attention": 0, "flash_decode": 0,
-             "rglru_scan": 2 * rep.n_batches})
+    # attn: attention + decode a batch; ssm: two scans a batch (two
+    # time-rolled views); rglru: one scan a batch; cnn: no kernel
+    scans = {"ssm": 2, "rglru": 1}.get(name, 0)
+    attn = rep.n_batches if name == "attn" else 0
+    want = {"flash_attention": attn, "flash_decode": attn,
+            "rglru_scan": scans * rep.n_batches}
     check(launches == want, f"{name}: launches {launches} != {want} for "
           f"{rep.n_batches} batches")
-    check(all(v > 0 for v in want.values() if v) and rep.n_batches > 0,
+    check(rep.n_batches > 0 and (name == "cnn" or any(want.values())),
           f"{name}: a kernel of the path was never launched")
     # batching and the feed change no bits: the same scorer on the same
     # padded bucket batches
@@ -1252,6 +1322,13 @@ def phase_serve(torch, name, fed, seq_kernels):
               next(iter(decode)) and next(iter(decode.values()))["calls"]
               == prof["batches"],
               f"attn: the profiled decode kernels are {decode}")
+    if name == "rglru":  # one lane a thread at [bucket, 64, 16], once a batch
+        scan = {k: v for k, v in prof["seq_kernels"].items()
+                if "rglru_scan" in k}
+        check(len(scan) == 1 and re.search(r"rglru_scan_tiles_kernel<1\b",
+                                           next(iter(scan))) and
+              next(iter(scan.values()))["calls"] == prof["batches"],
+              f"rglru: the profiled scan kernels are {scan}")
     out = {
         "model": name, "train_rounds": SERVE_ROUNDS, "train_s": train_s,
         "train_acc": res.accuracy, "train_auc": res.auc,
@@ -1334,9 +1411,15 @@ def decode_eager(torch, fdk, q, k, v, ln) -> dict:
             "eager_detector_with_conversions_us": before * 1e3}
 
 
-def phase_seq_timing(torch, fak, fdk, rgk, ref, errs, launches):
+def phase_seq_timing(torch, fak, fdk, rgk, ref, errs, serve):
     """Phase 10: the sequence kernels at the serving path's shapes (the
-    128-window bucket), rows of the kernels JSON line."""
+    128-window bucket), rows of the kernels JSON line; launches are the
+    serving path's (phase 9), ``rglru_scan`` on the ``ssm`` path at
+    [128, 4, 512] and on the ``rglru`` path at [128, 64, 16], the latter
+    also with its device time in the ``rglru`` path's profile."""
+    launches = {
+        "flash_attention": serve["attn"]["launches"]["flash_attention"],
+        "flash_decode": serve["attn"]["launches"]["flash_decode"]}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator().manual_seed(9)
 
@@ -1381,9 +1464,8 @@ def phase_seq_timing(torch, fak, fdk, rgk, ref, errs, launches):
                 lambda: sdpa(q4, kt, vt, attn_mask=mask)),
         **decode_eager(torch, fdk, q, k, v, ln),
     })
-    for name, case, n in (("rglru_scan", RG_PATH, launches["rglru_scan"]),
-                          # no port path runs the rglru detector yet
-                          ("rglru_scan_rglru_shape", RG_RGLRU, 0)):
+    for name, case, path in (("rglru_scan", RG_PATH, "ssm"),
+                             ("rglru_scan_rglru_shape", RG_RGLRU, "rglru")):
         b, l, w, with_h0 = case
         a, x = torch.sigmoid(randn(b, l, w)), randn(b, l, w)
         h0 = randn(b, w) if with_h0 else None
@@ -1393,14 +1475,310 @@ def phase_seq_timing(torch, fak, fdk, rgk, ref, errs, launches):
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
             "replaces": "src/repro/kernels/rglru_scan.py:60",
-            "shape": list(case[:3]), "launches": n,
+            "shape": list(case[:3]),
+            "launches": serve[path]["launches"]["rglru_scan"],
             "max_abs_err": max_abs(rgk.rglru_scan(a, x, h0)[0], h_ref),
             "bound_ms": b_rg, "bound_by": by_rg,
             # no single PyTorch call computes a sequential linear recurrence
             **timed(lambda: rgk.rglru_scan(a, x, h0),
                     lambda: ref.rglru_scan_ref(a, x, h0), None),
+            # per-call device µs in the path's profile (buckets 16 and 128)
+            "path_profile_device_us": {
+                k: v["device_us"] for k, v in
+                serve[path]["profile"]["seq_kernels"].items()
+                if "rglru_scan" in k},
         })
     return rows
+
+
+# phase 11: benchmarks/bench_models.py's full settings (its GRID and
+# _bench_fl), each cell through the port's run_fl_batch
+GRID_CELLS = (("unsw", "mlp"), ("road_raw", "mlp"), ("road_raw", "cnn"),
+              ("road_raw", "rglru"), ("road_raw", "ssm"), ("road_raw", "attn"))
+GRID_CLIENTS, GRID_SAMPLES, GRID_ROUNDS = 12, 2_400, 40
+GRID_SEEDS, GRID_EVAL = (0, 1, 2), 10
+
+
+def grid_config(model: str):
+    """``bench_models._bench_fl``: 12 clients, K₀ = 4, 3 local steps of 32,
+    clipped DP at ε = 1000, iid failures with checkpoint recovery."""
+    from repro_torch.configs.base import FLConfig
+    return FLConfig(
+        n_clients=GRID_CLIENTS, clients_per_round=4, rounds=GRID_ROUNDS,
+        local_epochs=3, local_batch=32, local_lr=0.1, dp_enabled=True,
+        dp_mode="clipped", dp_epsilon=1000.0, dp_clip=1.0,
+        fault_tolerance=True, failure_prob=0.05, model=model)
+
+
+def phase_model_grid(torch, kernel_mods):
+    """Phase 11: the model grid of ``benchmarks/bench_models.py`` at its
+    full settings (6 cells × seeds 0–2, 12 clients, 2,400 samples, 40
+    rounds, eval every 10): each cell through ``run_fl_batch`` once (one
+    runner build) and again (a pure cache hit, the warm wall).  The port
+    draws its own batches, so each mean AUC is set beside the reference's
+    (``BENCH_models.json``, JAX on the CPU) and not held to its ordering;
+    a non-finite loss or AUC, or a mean AUC ≤ 0.5, fails."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_federated
+    from repro_torch.train import fl_driver
+
+    bench = json.loads((ROOT / "BENCH_models.json").read_text())
+    ref_auc = {(c["dataset"], c["model"]): c["auc_mean"]
+               for c in bench["grid"]}
+    feds = {ds: make_federated(0, ds, n_samples=GRID_SAMPLES,
+                               n_clients=GRID_CLIENTS)
+            for ds in sorted({ds for ds, _ in GRID_CELLS})}
+    kw = dict(seeds=GRID_SEEDS, rounds=GRID_ROUNDS, eval_every=GRID_EVAL,
+              device="cuda")
+    cells = []
+    for ds, model in GRID_CELLS:
+        fed, cfg = feds[ds], grid_config(model)
+        stats0 = dict(fl_driver.RUNNER_STATS)
+        for mod in kernel_mods:
+            mod.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fl_driver.run_fl_batch(fed, cfg, "proposed", **kw)
+        cold_s = time.perf_counter() - t0
+        launches = {k: n for mod in kernel_mods
+                    for k, n in mod.LAUNCHES.items() if n}
+        check(fl_driver.RUNNER_STATS["misses"] == stats0["misses"] + 1,
+              f"({ds}, {model}): the seed batch did not build one runner")
+        t0 = time.perf_counter()
+        again = fl_driver.run_fl_batch(fed, cfg, "proposed", **kw)
+        warm_s = time.perf_counter() - t0
+        check(fl_driver.RUNNER_STATS["misses"] == stats0["misses"] + 1 and
+              fl_driver.RUNNER_STATS["hits"] == stats0["hits"] + 1,
+              f"({ds}, {model}): the warm rerun was not a pure cache hit")
+        check(all(math.isfinite(v) for r in res
+                  for k in ("loss", "auc") for v in r.history[k]),
+              f"({ds}, {model}): non-finite loss or AUC")
+        auc = float(np.mean([r.auc for r in res]))
+        check(auc > 0.5, f"({ds}, {model}): mean AUC {auc:.4f} <= 0.5")
+        check(launches.get("sumsq_rows") == GRID_ROUNDS and
+              launches.get("scale_noise_rows") == GRID_ROUNDS,
+              f"({ds}, {model}): DP kernel launches {launches}")
+        cells.append({
+            "dataset": ds, "model": model, "auc_mean": auc,
+            "auc_per_seed": [r.auc for r in res],
+            "acc_mean": float(np.mean([r.accuracy for r in res])),
+            "reference_auc_mean_cpu_jax": ref_auc.get((ds, model)),
+            "cold_s": cold_s, "warm_s": warm_s,
+            "warm_ms_per_round": 1e3 * warm_s / GRID_ROUNDS,
+            "launches": launches,
+            "warm_repeat_equal": all(a.history == b.history
+                                     for a, b in zip(res, again))})
+        print(f"  ({ds}, {model}): mean AUC {auc:.4f} (reference, JAX on "
+              f"the CPU: {ref_auc.get((ds, model)):.4f}); first call "
+              f"{cold_s:.2f} s, warm {warm_s:.2f} s = "
+              f"{cells[-1]['warm_ms_per_round']:.1f} ms a round for "
+              f"{len(GRID_SEEDS)} lanes; launches {launches}")
+    return cells
+
+
+# phase 12: benchmarks/bench_privacy.py's full settings: the adaptive
+# budget frontier, 4 budgets × seeds 0-3 = 16 lanes of 24 clients
+PRIV_CLIENTS, PRIV_SAMPLES, PRIV_ROUNDS, PRIV_EVAL = 24, 6_000, 60, 10
+PRIV_BUDGETS = (300.0, 1000.0, 3000.0, 10000.0)
+PRIV_SEEDS = (0, 1, 2, 3)
+
+
+def privacy_config(**kw):
+    """``bench_privacy._bench_config``."""
+    from repro_torch.configs.base import FLConfig
+    return FLConfig(
+        n_clients=PRIV_CLIENTS, clients_per_round=4, rounds=PRIV_ROUNDS,
+        local_epochs=5, local_batch=32, local_lr=0.08, dp_enabled=True,
+        dp_mode="clipped", dp_epsilon=1000.0, dp_clip=1.0,
+        fault_tolerance=True, failure_prob=0.05, **kw)
+
+
+def phase_privacy_frontier(torch, dpk):
+    """Phase 12: the privacy frontier of ``benchmarks/bench_privacy.py`` at
+    its full settings (unsw, 24 clients, 6,000 samples, 60 rounds, eval
+    every 10, the adaptive schedule, budgets 300/1,000/3,000/10,000 ×
+    seeds 0–3: 16 lanes in one ``run_fl_sweep``, one runner build).
+    Checks: every lane's final ε within its budget; in every round a lane
+    is not live, its params stay bitwise (a spy on the engine's
+    ``scheduled_round``); the DP kernels launch once a round for all lanes,
+    gated or not; a uniform, fixed-K lane's ε equals the host f64
+    composition at the engine's own σ within 1e-6 relative (the
+    reference's ``offline_check``).  Prints, per budget, the mean AUC, ε,
+    the first and last σ and the live share beside ``BENCH_privacy.json``
+    (JAX on the CPU), and the warm wall a round with ``dp_scheduled`` on
+    and off for the same cell (a measurement, not a gate)."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_federated
+    from repro_torch.privacy import accountant as acct_lib
+    from repro_torch.privacy import schedule as sched_lib
+    from repro_torch.train import fl_driver
+    from repro_torch.tree import flatten_rows
+
+    bench = json.loads((ROOT / "BENCH_privacy.json").read_text())
+    ref = {c["budget"]: c for c in bench["frontier"]["cells"]}
+    fed = make_federated(0, "unsw", n_samples=PRIV_SAMPLES,
+                         n_clients=PRIV_CLIENTS)
+    fl = privacy_config(dp_scheduled=True,
+                        dp_sched=sched_lib.schedule_code("adaptive"))
+    cells = [{"dp_budget": b} for b in PRIV_BUDGETS]
+    kw = dict(seeds=PRIV_SEEDS, rounds=PRIV_ROUNDS, eval_every=PRIV_EVAL,
+              device="cuda")
+
+    # the spy keeps, on the card, each round's live gate and each lane's
+    # flat params before and after the round
+    rounds_seen, original = [], fl_driver.scheduled_round
+
+    def spy(step, fl_, state, *args):
+        before = flatten_rows(state.params).clone()
+        out = original(step, fl_, state, *args)
+        rounds_seen.append((before, flatten_rows(out[0].params).clone(),
+                            out[4].clone()))
+        return out
+
+    stats0 = dict(fl_driver.RUNNER_STATS)
+    dpk.reset_launches()
+    fl_driver.scheduled_round = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fl_driver.run_fl_sweep(fed, fl, cells, **kw)
+        cold_s = time.perf_counter() - t0
+    finally:
+        fl_driver.scheduled_round = original
+    launches = dict(dpk.LAUNCHES)
+    check(fl_driver.RUNNER_STATS["misses"] == stats0["misses"] + 1,
+          "the budget frontier did not build exactly one runner")
+    check(all(n == PRIV_ROUNDS for n in launches.values()),
+          f"DP kernel launches {launches}: want one a round for all lanes, "
+          f"gated or not")
+    check(len(rounds_seen) == PRIV_ROUNDS, "the spy missed rounds")
+    lanes = len(cells) * len(PRIV_SEEDS)
+    live = torch.stack([r[2] for r in rounds_seen]).cpu()     # [rounds, L]
+    frozen_ok, first_dead = True, []
+    for lane in range(lanes):
+        dead = [r for r in range(PRIV_ROUNDS) if live[r, lane] == 0]
+        first_dead.append(dead[0] + 1 if dead else None)
+        for r in dead:
+            before, after, _ = rounds_seen[r]
+            frozen_ok &= bool(torch.equal(before[lane], after[lane]))
+    check(frozen_ok, "a lane that was not live moved its params")
+    out_cells = []
+    for budget, row in zip(PRIV_BUDGETS, res):
+        check(all(r.eps_spent <= budget for r in row),
+              f"budget {budget}: ε {[r.eps_spent for r in row]} overshoots")
+        check(all(math.isfinite(v) for r in row for k in ("loss", "auc",
+                                                          "eps", "sigma")
+                  for v in r.history[k]), f"budget {budget}: non-finite")
+        c = {"budget": budget,
+             "auc_mean": float(np.mean([r.auc for r in row])),
+             "acc_mean": float(np.mean([r.accuracy for r in row])),
+             "eps_spent_mean": float(np.mean([r.eps_spent for r in row])),
+             "sigma_first": row[0].history["sigma"][0],
+             "sigma_last": row[0].history["sigma"][-1],
+             "live_frac_last": float(np.mean([r.history["live"][-1]
+                                              for r in row])),
+             "live_share": float(np.mean([np.mean(r.history["live"])
+                                          for r in row]))}
+        out_cells.append(c)
+        b = ref[budget]
+        print(f"  budget {budget:>7.0f}: AUC {c['auc_mean']:.4f} (reference "
+              f"{b['auc_mean']:.4f}), ε {c['eps_spent_mean']:.2f} "
+              f"({b['eps_spent_mean']:.2f}), σ {c['sigma_first']:.5f} -> "
+              f"{c['sigma_last']:.5f} ({b['sigma_first']:.5f} -> "
+              f"{b['sigma_last']:.5f}), live share {c['live_share']:.3f}, "
+              f"last block {c['live_frac_last']:.3f} "
+              f"({b['live_frac_last']:.3f})")
+    print(f"  16 lanes: one runner build, {cold_s:.2f} s; DP launches "
+          f"{launches}; first round not live per lane {first_dead}; gated "
+          f"lanes' params bitwise frozen")
+
+    # the reference's offline check: uniform schedule, fixed K
+    fixed = privacy_config(dp_scheduled=True, adaptive_k=False)
+    one = fl_driver.run_fl_batch(fed, fixed, seeds=(0,), **{
+        k: v for k, v in kw.items() if k != "seeds"})[0]
+    blocks = [PRIV_EVAL] * (PRIV_ROUNDS // PRIV_EVAL)
+    released = int(round(sum(f * b for f, b in zip(one.history["live"],
+                                                   blocks))))
+    check(released >= PRIV_ROUNDS - 1,
+          f"uniform calibration released only {released}/{PRIV_ROUNDS}")
+    z = float(np.float32(one.history["sigma"][0])) / fixed.dp_clip
+    q = float(np.float32(fixed.clients_per_round / fixed.n_clients))
+    eps_host = acct_lib.compose_epsilon(z, q, released, fixed.dp_delta)
+    rel = abs(one.eps_spent - eps_host) / max(1.0, abs(eps_host))
+    check(rel <= 1e-6, f"in-loop ε {one.eps_spent} vs host f64 {eps_host} "
+          f"(rel {rel:.2e})")
+    print(f"  offline check: uniform fixed-K lane released {released} "
+          f"rounds, in-loop ε {one.eps_spent!r} vs host f64 "
+          f"{eps_host!r} (rel {rel:.2e}; reference run "
+          f"{bench['offline_check']['rel_err']:.2e})")
+
+    # warm wall a round, scheduled against fixed σ, same cell, in turns
+    walls = {"fixed": [], "scheduled": []}
+    configs = {"fixed": privacy_config(),
+               "scheduled": privacy_config(dp_scheduled=True)}
+    for name in ("fixed", "scheduled"):   # first calls build the runners
+        fl_driver.run_fl_batch(fed, configs[name], **kw)
+    for name in ("fixed", "scheduled", "scheduled", "fixed") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fl_driver.run_fl_batch(fed, configs[name], **kw)
+        walls[name].append(1e3 * (time.perf_counter() - t0) / PRIV_ROUNDS)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"  warm wall a round, 4 lanes: dp_scheduled off "
+          f"{med['fixed']:.2f} ms, on {med['scheduled']:.2f} ms (ratio "
+          f"{med['scheduled'] / med['fixed']:.3f}; runs {walls})")
+    return {"lanes": lanes, "cold_s": cold_s, "launches": launches,
+            "cells": out_cells, "first_round_not_live": first_dead,
+            "offline_check": {"released": released, "z": z, "q": q,
+                              "eps_in_loop": one.eps_spent,
+                              "eps_host_f64": eps_host, "rel_err": rel},
+            "wall_ms_per_round": walls, "wall_ms_per_round_median": med}
+
+
+def phase_privacy_card_vs_cpu(torch, dpk):
+    """Phase 12: the scheduled lane step card vs CPU (adaptive schedule;
+    budgets 0.01, which no release fits, 60 and 400 × 2 seeds, 4 rounds of
+    a 4-round plan at a small size): ``live`` and ``sel_mask`` equal, σ_t
+    and the state (accountant and scheduler included) within rtol 1e-4 /
+    atol 1e-6, and both gated and live rounds covered."""
+    import dataclasses
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.synthetic import make_federated
+
+    small = make_federated(0, "unsw", n_samples=2_000, n_clients=10)
+    fl = FLConfig(n_clients=10, clients_per_round=4, local_epochs=3,
+                  local_batch=32, dp_clip=5.0, failure_prob=0.2,
+                  dp_scheduled=True, dp_sched=2.0, dp_stall_tol=10.0)
+    cells = [dataclasses.replace(fl, dp_budget=b) for b in (0.01, 60.0,
+                                                            400.0)]
+    worst, lives = lane_steps_card_vs_cpu(torch, dpk, small, fl, cells, 32,
+                                          4, "scheduled lane step")
+    check(any(v == 0.0 for row in lives for v in row) and
+          any(v == 1.0 for row in lives for v in row),
+          "the card-vs-CPU lanes did not cover both live and gated rounds")
+    return {"max_abs": worst, "live": lives}
+
+
+def phase_grid_card_vs_cpu(torch, dpk):
+    """Phase 11: the lane step of the window detectors ``cnn`` and
+    ``rglru`` card vs CPU (``bench_models``' config on a small
+    ``road_raw`` federation, 1 cell × 2 seeds, 2 rounds): the conv's and
+    the log-depth scan's batching under ``vmap`` and their gradients on
+    the card, against the CPU's."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import make_federated
+
+    small = make_federated(0, "road_raw", n_samples=600, n_clients=6)
+    out = {}
+    for model in ("cnn", "rglru"):
+        fl = dataclasses.replace(grid_config(model), n_clients=6)
+        out[model] = lane_steps_card_vs_cpu(torch, dpk, small, fl, [fl], 64,
+                                            2, f"{model} lane step")[0]
+    return out
 
 
 def main() -> int:
@@ -1472,23 +1850,23 @@ def main() -> int:
     print("== 8. sequence kernels vs plain versions on the card")
     errs.update(phase_seq_kernels_vs_plain(torch, fak, fdk, rgk, ref, ops))
 
-    print(f"== 9. serving path: attn and ssm on road_raw, hidden 64, buckets "
-          f"{SERVE_BUCKETS}  ({card})")
+    print(f"== 9. serving path: {', '.join(SERVE_MODELS)} on road_raw, hidden "
+          f"64, buckets {SERVE_BUCKETS}  ({card})")
     road = make_federated(0, "road_raw", n_samples=6000, n_clients=20)
     serve = {}
-    for name in ("attn", "ssm"):
+    for name in SERVE_MODELS:
         serve[name] = phase_serve(torch, name, road, (fak, fdk, rgk))
     serve_launches = {
         "flash_attention": serve["attn"]["launches"]["flash_attention"],
         "flash_decode": serve["attn"]["launches"]["flash_decode"],
-        "rglru_scan": serve["ssm"]["launches"]["rglru_scan"]}
+        "rglru_scan": sum(serve[m]["launches"]["rglru_scan"]
+                          for m in ("ssm", "rglru"))}
 
     print("== 10. sequence kernel times at the serving shapes (CUDA events)")
     floor_ms = launch_floor_ms(torch)
     print(f"  launch floor (add_ on a one-element tensor): device "
           f"{floor_ms * 1e3:.3f} us  ({card})")
-    kernels += phase_seq_timing(torch, fak, fdk, rgk, ref, errs,
-                                serve_launches)
+    kernels += phase_seq_timing(torch, fak, fdk, rgk, ref, errs, serve)
     fa = next(k for k in kernels if k["name"] == "flash_attention")
     print(f"  flash_attention / SDPA device time at {FA_PATH}: "
           f"{fa['ms'] / fa['library_ms']:.3f} ({fa['ms'] * 1e3:.2f} us / "
@@ -1513,6 +1891,17 @@ def main() -> int:
               f"{k['eager_plain_ms'] * 1e3:.2f})  library {lib}  launches "
               f"{k['launches']}")
 
+    print(f"== 11. model grid: bench_models' full settings, 6 cells x seeds "
+          f"0-{GRID_SEEDS[-1]}, {GRID_ROUNDS} rounds  ({card})")
+    grid = {"cells": phase_model_grid(torch, (dpk, fak, fdk, rgk)),
+            "card_vs_cpu_max_abs": phase_grid_card_vs_cpu(torch, dpk)}
+
+    print(f"== 12. privacy frontier: bench_privacy's full settings, budgets "
+          f"{PRIV_BUDGETS} x seeds 0-{PRIV_SEEDS[-1]}, adaptive, "
+          f"{PRIV_ROUNDS} rounds  ({card})")
+    privacy = phase_privacy_frontier(torch, dpk)
+    privacy["card_vs_cpu"] = phase_privacy_card_vs_cpu(torch, dpk)
+
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1521,7 +1910,8 @@ def main() -> int:
         "round_wall_ms": walls, "profile": profile,
         "round_wall_ms_median_after_first": statistics.median(steady),
         "history": res.history, "eps_spent": res.eps_spent, "sweep": sweep,
-        "serve": serve,
+        "serve": serve, "serve_launches": serve_launches,
+        "model_grid": grid, "privacy": privacy,
         "total_s": time.perf_counter() - t_all,
     }
     out_dir = ROOT / "chiprun_out"

@@ -51,9 +51,9 @@ class FLConfig:
     dp_clip: float = 1.0
     dp_mode: str = "clipped"            # "paper" (fixed sigma, no clip) | "clipped"
     dp_sigma: float = 0.01              # used in "paper" mode
-    # scheduled budget accounting: a feature of the reference's compiled
-    # engine, not ported yet (run_fl_legacy rejects it, as the
-    # reference's run_fl_legacy does)
+    # scheduled budget accounting (STATIC dp_scheduled): the sweep engine's
+    # in-loop accountant and noise schedules; run_fl_legacy rejects it, as
+    # the reference's run_fl_legacy does
     dp_scheduled: bool = False
     dp_budget: float = 50.0
     dp_sched: float = 0.0

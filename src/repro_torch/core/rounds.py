@@ -13,8 +13,11 @@ are flattened to ``[L·n, P]`` rows in leaf order, privatised by the fused
 clip+noise kernel (``core/dp.py`` → ``kernels/ops.py``; the kernel takes
 one σ a row, so every lane's ε rides one launch), and aggregated as a
 masked weighted mean per lane.  :func:`make_parallel_round` is the one-run
-view of the same step (``L = 1``).  The other plan codes (buffered_async,
-hierarchical) raise: they are not ported yet.
+view of the same step (``L = 1``).  An optional ``update_gate`` (``[L]``
+0/1) withholds a lane's release (budget exhaustion under scheduled
+privacy, :func:`_gate_server_update`).  The other plan codes
+(buffered_async, hierarchical) and the ``client_serial`` plan raise: they
+are not ported yet.
 
 Fault tolerance: failure times come from ``fault/process.py``; a client
 that fails at step f keeps ``c·⌊f/c⌋`` steps of work with checkpoints every
@@ -156,15 +159,14 @@ def init_round_state(params, fl: FLConfig, gen: torch.Generator,
 
 
 def _opt_map(fn: Callable, *opt_states):
-    """``fn`` over the per-parameter tensors of server optimizer states of
-    one structure (Adam's step count is the first state's: lanes step
-    together)."""
+    """``fn`` over the tensors of server optimizer states of one structure
+    (a lane's Adam step count is its own, as each lane's is in the
+    reference's vmap: a gated lane does not step)."""
     first = opt_states[0]
     if isinstance(first, torch.Tensor):
         return fn(*opt_states)
     if isinstance(first, AdamState):
-        return first._replace(mu=fn(*(o.mu for o in opt_states)),
-                              nu=fn(*(o.nu for o in opt_states)))
+        return AdamState(*(fn(*ts) for ts in zip(*opt_states)))
     return first  # () of plain SGD
 
 
@@ -253,6 +255,25 @@ def _dp_sigma(fl: FLConfig, pr: FLParams):
     return dp_lib.gaussian_sigma_rt(pr.dp_epsilon, fl.dp_delta, pr.dp_clip)
 
 
+def _gate_server_update(update_gate, new_flat, new_server_state,
+                        flat_params, server_state):
+    """Budget-exhaustion masking: a lane whose ``update_gate`` is ≤ 0 keeps
+    its global params AND server-optimizer state bitwise (the old values
+    are selected, not a zero update added), as a deployment that halts at
+    exhaustion.  ``update_gate`` is an ``[L]`` 0/1 device tensor, so a lane
+    can flip without a host read; ``None`` leaves the step ungated."""
+    if update_gate is None:
+        return new_flat, new_server_state
+    live = update_gate > 0
+
+    def keep(new, old):
+        return torch.where(live.reshape(live.shape + (1,) * (new.dim() - 1)),
+                           new, old)
+
+    return (keep(new_flat, flat_params),
+            _opt_map(keep, new_server_state, server_state))
+
+
 def _column(v):
     """A per-lane ``[L]`` knob as an ``[L, 1]`` column beside ``[L, n]``
     client state; a float as it is."""
@@ -266,18 +287,19 @@ def _rows(v, n: int):
 
 def make_lane_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                     ckpt_every_steps: int = 2, device=None):
-    """Build ``lane_step(state, batches, params, draws=None) -> (state,
-    metrics)``, Algorithm 1 for ``L`` lanes at once on ``device`` (``cuda``
-    unless ``"cpu"`` is asked).
+    """Build ``lane_step(state, batches, params, draws=None,
+    update_gate=None) -> (state, metrics)``, Algorithm 1 for ``L`` lanes at
+    once on ``device`` (``cuda`` unless ``"cpu"`` is asked).
 
     ``state``: the lanes' :class:`RoundState` (:func:`stack_states`).
     batches: ``{"x": [L, n, local_steps, b, d] f32, "y": [L, n,
     local_steps, b] int}``.  ``params``: :class:`FLParams` whose fields are
     floats or ``[L]`` f32 tensors on the device; the caller has checked
     that every lane's ``plan_code`` is 0.  ``draws``: the lanes'
-    :class:`RoundDraws`, or ``None`` to draw from ``state.rng``.  Metrics
-    are ``[L, n]`` per client and ``[L]`` per lane.  The step issues no
-    host synchronisation."""
+    :class:`RoundDraws`, or ``None`` to draw from ``state.rng``.
+    ``update_gate``: ``[L]`` 0/1, or ``None`` (:func:`_gate_server_update`).
+    Metrics are ``[L, n]`` per client and ``[L]`` per lane.  The step
+    issues no host synchronisation."""
     device = resolve_device(device)
     plan = get_plan(fl.plan)
     if plan.family != "client_parallel" or plan.code != 0.0:
@@ -290,7 +312,8 @@ def make_lane_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
     n = n_clients
 
     def lane_step(state: RoundState, batches, pr: FLParams,
-                  draws: Optional[RoundDraws] = None
+                  draws: Optional[RoundDraws] = None,
+                  update_gate: Optional[torch.Tensor] = None
                   ) -> Tuple[RoundState, RoundMetrics]:
         flat_params = flatten_rows(state.params)
         if flat_params.device != device:
@@ -356,6 +379,9 @@ def make_lane_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                                               state.util.data_size)
             new_flat, new_server_state = agg.apply_server_update(
                 server, flat_params, state.server_opt_state, agg_delta)
+            new_flat, new_server_state = _gate_server_update(
+                update_gate, new_flat, new_server_state, flat_params,
+                state.server_opt_state)
 
         # ---- update-coherence (data-quality observable): cos(Δ_i, Δ_agg) ----
         if fl.coherence_scoring:
@@ -391,21 +417,24 @@ def make_lane_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
 
 def make_parallel_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                         ckpt_every_steps: int = 2, device=None):
-    """Build ``round_step(state, batches, params=None, draws=None) ->
-    (state, metrics)`` for one run on ``device`` (``cuda`` unless ``"cpu"``
-    is asked): the lane step of :func:`make_lane_round` at ``L = 1``.
+    """Build ``round_step(state, batches, params=None, draws=None,
+    update_gate=None) -> (state, metrics)`` for one run on ``device``
+    (``cuda`` unless ``"cpu"`` is asked): the lane step of
+    :func:`make_lane_round` at ``L = 1``.
 
     batches: ``{"x": [n, local_steps, b, d] f32, "y": [n, local_steps, b]
     int}`` on the device.  ``params``: runtime :class:`FLParams` (``None``
     uses ``fl``'s).  ``draws``: a :class:`RoundDraws` on the device, or
-    ``None`` to draw from ``state.rng``."""
+    ``None`` to draw from ``state.rng``.  ``update_gate``: a 0-d 0/1
+    tensor, or ``None``."""
     lane_step = make_lane_round(loss_fn, fl, n_clients, ckpt_every_steps,
                                 device)
     default_params = fl_params(fl)
 
     def round_step(state: RoundState, batches,
                    params: Optional[FLParams] = None,
-                   draws: Optional[RoundDraws] = None
+                   draws: Optional[RoundDraws] = None,
+                   update_gate: Optional[torch.Tensor] = None
                    ) -> Tuple[RoundState, RoundMetrics]:
         pr = default_params if params is None else params
         if float(pr.plan_code) != 0.0:
@@ -414,7 +443,8 @@ def make_parallel_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
         lanes, metrics = lane_step(
             stack_states([state]), {k: v[None] for k, v in batches.items()},
             pr,
-            None if draws is None else RoundDraws(*(t[None] for t in draws)))
+            None if draws is None else RoundDraws(*(t[None] for t in draws)),
+            None if update_gate is None else update_gate.reshape(1))
         return lane_state(lanes, 0), RoundMetrics(*(t[0] for t in metrics))
 
     return round_step

@@ -1,11 +1,20 @@
-"""Window-native sequence detectors on raw ROAD CAN windows: the port's copy
-of ``repro/models/detectors.py``'s ``ssm`` and ``attn`` (``cnn`` and
-``rglru`` are not ported yet).
+"""Window-native detectors on raw ROAD CAN windows: the port's copy of
+``repro/models/detectors.py`` (``cnn``, ``rglru``, ``ssm``, ``attn``).
 
-Both read ``make_federated(dataset="road_raw")`` windows, flat on the wire
+All read ``make_federated(dataset="road_raw")`` windows, flat on the wire
 and unflattened through ``DataMeta.feature_shape`` to ``[window,
-signals]``, and both have two score routes (``ModelSpec.route_variants``):
+signals]``:
 
+* ``cnn`` — a 1-D CNN over the window axis (signals are channels): two
+  conv stages (kernel 5, the second at stride 2, ``"SAME"`` padding as
+  JAX pads it) + mean/max pooling over time.  Weights stay in the
+  reference's ``[k, in, out]`` layout and are permuted at use.
+* ``rglru`` — the RG-LRU block (``models/rglru.py``) over an embedding of
+  the signals, residual, mean+last pooling.  Its recurrence runs on
+  ``kernels.ops.rglru_scan`` (``"kernel"``: the CUDA kernel on the card,
+  its sequential plain version on the CPU) or on the log-depth plain scan
+  of ``models/rglru.py`` (``"ref"``): the same recurrence by different
+  parallel decompositions, equal to about 1e-6.
 * ``ssm`` — a Mamba-2 detector (``models/ssm.py``): embed the signals, one
   ``ssd_block`` mixer, residual, mean+last+max pooling; the score path
   averages two circular time-rolls of the window.  Its inter-chunk
@@ -22,12 +31,14 @@ the reference's layout, drawn from a ``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import spec as spec_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import fan_in_init, normal_init
@@ -49,6 +60,104 @@ def _unflatten(x: torch.Tensor, meta: spec_lib.DataMeta) -> torch.Tensor:
 def _dense(gen: torch.Generator, a: int, b: int) -> dict:
     return {"w": fan_in_init(gen, (a, b)),
             "b": torch.zeros(b, device=gen.device)}
+
+
+# ---------------------------------------------------------------------------
+# 1-D CNN over CAN windows
+# ---------------------------------------------------------------------------
+
+
+def _same_pad(n: int, k: int, stride: int) -> Tuple[int, int]:
+    """(before, after) padding of JAX's ``"SAME"``: ``ceil(n / stride)``
+    outputs, the odd element of the padding after (stride 2, kernel 5 over
+    64 steps: 1 before, 2 after)."""
+    out = -(-n // stride)
+    pad = max((out - 1) * stride + k - n, 0)
+    return pad // 2, pad - pad // 2
+
+
+def _conv_same(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               stride: int) -> torch.Tensor:
+    """``lax.conv_general_dilated(h, w, (stride,), "SAME")`` in the
+    reference's ("NWC", "WIO", "NWC") layout, + b.  h: [b, window, in];
+    w: [k, in, out]."""
+    x = F.pad(h.transpose(1, 2), _same_pad(h.shape[1], w.shape[0], stride))
+    y = F.conv1d(x, w.permute(2, 1, 0), stride=stride)
+    return y.transpose(1, 2) + b
+
+
+def _build_cnn(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
+    _require_windowed(meta, "cnn")
+    n_signals = meta.feature_shape[-1]
+    c1 = max(8, meta.hidden // 4)
+    c2 = max(16, meta.hidden // 2)
+    kw = 5
+
+    def init(gen: torch.Generator):
+        conv = lambda cin, cout: {  # noqa: E731
+            "w": fan_in_init(gen, (kw, cin, cout), fan_in=kw * cin),
+            "b": torch.zeros(cout, device=gen.device)}
+        return {"c1": conv(n_signals, c1), "c2": conv(c1, c2),
+                "head": _dense(gen, 2 * c2, meta.n_classes)}
+
+    def logits(params, x):
+        h = _unflatten(x, meta)                        # [b, window, signals]
+        h = torch.relu(_conv_same(h, params["c1"]["w"], params["c1"]["b"], 1))
+        h = torch.relu(_conv_same(h, params["c2"]["w"], params["c2"]["b"], 2))
+        pooled = torch.cat([h.mean(dim=1), h.amax(dim=1)], dim=-1)
+        return pooled @ params["head"]["w"] + params["head"]["b"]
+
+    def loss(params, batch):
+        return spec_lib.cross_entropy(logits(params, batch["x"]), batch["y"])
+
+    return spec_lib.ModelSpec(name="cnn", init=init, loss=loss, logits=logits)
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU recurrent detector
+# ---------------------------------------------------------------------------
+
+
+class _RecCfg(NamedTuple):
+    """The config fields ``models/rglru.py`` reads."""
+
+    d_model: int
+    lru_width: int
+    conv_width: int
+
+
+def _build_rglru(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
+    _require_windowed(meta, "rglru")
+    n_signals = meta.feature_shape[-1]
+    d = max(8, meta.hidden // 4)
+    cfg = _RecCfg(d_model=d, lru_width=d, conv_width=4)
+
+    def init(gen: torch.Generator):
+        return {"embed": _dense(gen, n_signals, d),
+                "rec": rglru_lib.init_rglru(gen, cfg),
+                "head": _dense(gen, 2 * d, meta.n_classes)}
+
+    def make_logits(impl: str):
+        def logits(params, x):
+            h = _unflatten(x, meta)                    # [b, window, signals]
+            h = h @ params["embed"]["w"] + params["embed"]["b"]
+            rec, _ = rglru_lib.rglru_block(params["rec"], h, cfg, impl=impl)
+            h = h + rec                                # residual
+            pooled = torch.cat([h.mean(dim=1), h[:, -1]], dim=-1)
+            return pooled @ params["head"]["w"] + params["head"]["b"]
+
+        return logits
+
+    variants = {"kernel": make_logits("flash"), "ref": make_logits("ref")}
+    ref_logits = variants["ref"]
+
+    def loss(params, batch):
+        return spec_lib.cross_entropy(ref_logits(params, batch["x"]),
+                                      batch["y"])
+
+    return spec_lib.ModelSpec(name="rglru", init=init, loss=loss,
+                              logits=variants[kops.DEFAULT_ROUTE],
+                              route_variants=variants)
 
 
 # ---------------------------------------------------------------------------
@@ -210,5 +319,7 @@ def _build_attn(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
                               route_variants=variants)
 
 
+spec_lib.register_model("cnn", _build_cnn)
+spec_lib.register_model("rglru", _build_rglru)
 spec_lib.register_model("ssm", _build_ssm)
 spec_lib.register_model("attn", _build_attn)

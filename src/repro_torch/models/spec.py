@@ -4,10 +4,10 @@
 A :class:`ModelSpec` packages the surface the engine needs: ``init``,
 ``loss`` and ``logits``, plus the derived ``predict_proba``/``accuracy``.
 A builder ``(meta: DataMeta) -> ModelSpec`` is registered under the name
-that ``FLConfig.model`` takes.  The port registers ``mlp`` and, from
-``models/detectors.py``, the sequence detectors ``ssm`` and ``attn`` with
-their score routes; ``cnn``, ``rglru`` and the reference's sharding hooks
-are not ported yet.
+that ``FLConfig.model`` takes.  The port registers what the reference
+does: ``mlp`` and, from ``models/detectors.py``, the window-native
+detectors ``cnn``, ``rglru``, ``ssm`` and ``attn`` (the last three with
+their score routes).  The reference's sharding hooks are not ported.
 """
 from __future__ import annotations
 
@@ -117,5 +117,5 @@ def _build_mlp(meta: DataMeta) -> ModelSpec:
 
 register_model("mlp", _build_mlp)
 
-# The sequence detectors register themselves on import.
+# The window-native detectors register themselves on import.
 from repro_torch.models import detectors as _detectors  # noqa: E402,F401

@@ -4,8 +4,9 @@
 ``init(params) -> state`` and ``update(grads, state, params) ->
 (new_params, new_state)`` act elementwise on one tensor: the round step
 keeps the global model as one flat vector in leaf order, or a ``[L, P]``
-matrix of a sweep's lanes.  ``lr`` is a float or a tensor that broadcasts
-against the params (``[L, 1]``: one server lr a lane).  Server-side,
+matrix of a sweep's lanes (Adam then keeps one step count a lane).  ``lr``
+is a float or a tensor that broadcasts against the params (``[L, 1]``: one
+server lr a lane).  Server-side,
 FedAvg is SGD(1.0) on the aggregated pseudo-gradient; FedAvgM and FedAdam
 are the FedOpt variants.
 """
@@ -54,8 +55,10 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
         g = grads.float()
         mu = b1 * state.mu + (1 - b1) * g
         nu = b2 * state.nu + (1 - b2) * g * g
-        bc1 = 1 - b1 ** c.float()
-        bc2 = 1 - b2 ** c.float()
+        # one count a lane ([L]) against [L, P] moments
+        cf = c.float().reshape(c.shape + (1,) * (g.dim() - c.dim()))
+        bc1 = 1 - b1 ** cf
+        bc2 = 1 - b2 ** cf
         upd = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
         return params - lr * upd, AdamState(mu, nu, c)
 

@@ -19,9 +19,11 @@ accounted ε:
   one seed feeds both packages the same batches, and eval is pulled to the
   host.
 
-Not ported yet (each raises): scheduled privacy (``dp_scheduled``), plan
-codes 1 and 2 and ``client_serial``, the population engine, and capture
-of the round loop.
+Scheduled privacy (``dp_scheduled``, :func:`run_fl_sweep` and its front
+doors only) carries an in-loop RDP accountant and a noise scheduler per
+lane; a release that would overspend a lane's budget is withheld
+(:func:`scheduled_round`).  Not ported yet (each raises): plan codes 1 and
+2 and ``client_serial``, and the population (cohort) engine.
 
 Methods:
   proposed        — adaptive utility selection + DP + fault tolerance (ours)
@@ -40,7 +42,7 @@ import math
 import time
 import weakref
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +60,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.mlp import auc_roc, auc_roc_torch
 from repro_torch.models.spec import (DataMeta, ModelSpec, get_model_spec,
                                      meta_for)
+from repro_torch.privacy import accountant as acct_lib
+from repro_torch.privacy import schedule as sched_lib
 from repro_torch.privacy.accountant import accounted_epsilon
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -356,6 +360,58 @@ def _eval_lanes(spec: ModelSpec, params, test_x, test_y):
     return acc, auc_roc_torch(proba, test_y)
 
 
+class PrivacyState(NamedTuple):
+    """A scheduled-budget sweep's privacy state, one row a lane: the
+    in-loop accountant and the noise scheduler."""
+
+    acct: acct_lib.AccountantState
+    sched: sched_lib.SchedulerState
+
+
+def init_privacy(fl: FLConfig, pr: FLParams, grid: acct_lib.OrderGrid,
+                 n_clients: int, rounds: int) -> PrivacyState:
+    """An empty accountant, and each lane's scheduler calibrated to its
+    ``dp_budget`` (``pr``'s fields are ``[L]`` lanes) over ``rounds`` at
+    the nominal cohort fraction."""
+    q_nom = min(fl.clients_per_round / n_clients, 1.0)
+    return PrivacyState(
+        acct_lib.init_accountant_state(pr.dp_budget.shape[0],
+                                       grid.orders.device),
+        sched_lib.init_scheduler(pr.dp_budget, grid, rounds, q_nom))
+
+
+def scheduled_round(step: Callable, fl: FLConfig, state, batches,
+                    pr: FLParams, draws, priv: PrivacyState,
+                    grid: acct_lib.OrderGrid, rounds: int):
+    """One round of the lane step under scheduled privacy.
+
+    The scheduler gives each lane z_t (σ_t = z_t · clip); the accountant
+    composes the release tentatively at the realised cohort fraction
+    q_t = ``realized_cohort_fraction(k_eff)``; a lane is live when the
+    composed ε stays within its ``dp_budget``.  The step runs with σ_t and
+    the live gate (a lane that is not live keeps its global params and
+    server state bitwise), and the accountant commits only live lanes'
+    releases.  All on the device, by ``torch.where``.  Returns ``(state,
+    metrics, priv, sigma_t [L], live [L])``."""
+    n = state.util.compute.shape[-1]
+    k_eff = (state.kctl.k if fl.adaptive_k else
+             torch.full_like(state.kctl.k, float(fl.clients_per_round)))
+    q_t = realized_cohort_fraction(k_eff, n)
+    z_t = sched_lib.scheduled_multiplier(priv.sched, pr, state.round_idx,
+                                         rounds)
+    sigma_t = z_t * pr.dp_clip
+    acct_next = acct_lib.accountant_step(priv.acct, z_t, q_t, grid)
+    live = (acct_lib.epsilon_from_state(acct_next, grid)
+            <= pr.dp_budget).float()
+    state, m = step(state, batches, pr._replace(dp_sigma=sigma_t), draws,
+                    update_gate=live)
+    keep = live > 0
+    acct = acct_lib.AccountantState(*(
+        torch.where(keep.reshape(keep.shape + (1,) * (new.dim() - 1)), new,
+                    old) for new, old in zip(acct_next, priv.acct)))
+    return state, m, priv._replace(acct=acct), sigma_t, live
+
+
 def _build_lane_run(fl: FLConfig, rounds: int, eval_every: int,
                     meta: DataMeta, n_clients: int, device: torch.device):
     """``lane_run(seeds, stack, data_size, data_quality, params,
@@ -376,9 +432,23 @@ def _build_lane_run(fl: FLConfig, rounds: int, eval_every: int,
     partial block when ``rounds % eval_every != 0``; test accuracy and AUC
     are computed on the device at the end of each block.  ``trace`` maps
     each history column to ``[L, n_evals]``.  Between the lanes'
-    initialisation and the return nothing is read back to the host."""
+    initialisation and the return nothing is read back to the host.
+
+    A scheduled-budget config (``fl.dp_scheduled``) runs each round through
+    :func:`scheduled_round` and adds the columns ``eps`` (each lane's ε
+    after the block), ``sigma`` (σ of its last round) and ``live`` (the
+    block's share of released rounds); the scheduler updates from each
+    block's AUC."""
     n_full, rem = divmod(rounds, eval_every)
     blocks = [eval_every] * n_full + ([rem] if rem else [])
+    scheduled = fl.dp_enabled and fl.dp_scheduled
+    if scheduled and fl.dp_mode != "clipped":
+        raise ValueError(
+            "dp_scheduled requires dp_mode='clipped': the accountant "
+            "composes z_t = sigma_t/dp_clip, which is only a valid "
+            "(epsilon, delta) statement when updates are clipped to "
+            "dp_clip — the paper's unclipped fixed-sigma mode has "
+            "unbounded sensitivity")
     spec = get_model_spec(fl.model, meta)
     n = n_clients
     step = rounds_lib.make_lane_round(spec.loss, fl, n, device=device)
@@ -401,10 +471,15 @@ def _build_lane_run(fl: FLConfig, rounds: int, eval_every: int,
             u_batch = torch.empty(lanes, n, steps, batch, device=device)
             draw_out = rounds_lib.RoundDraws.empty(lanes, n, n_noise, device)
         cum_time = torch.zeros(lanes, device=device)
-        trace = {k: [] for k in ("loss", "acc", "auc", "k", "fail",
-                                 "cum_time")}
+        columns = ("loss", "acc", "auc", "k", "fail", "cum_time")
+        if scheduled:
+            columns += ("eps", "sigma", "live")
+            grid = acct_lib.order_grid(fl.dp_delta, device)
+            priv = init_privacy(fl, pr, grid, n, rounds)
+        trace = {k: [] for k in columns}
         with _no_host_sync(device):
             for block in blocks:
+                lives = []
                 for _ in range(block):
                     r = state.round_idx
                     if draws is None:
@@ -417,8 +492,14 @@ def _build_lane_run(fl: FLConfig, rounds: int, eval_every: int,
                         idx = torch.stack([lane[r][0] for lane in draws])
                         d = rounds_lib.RoundDraws.stack(
                             [lane[r][1] for lane in draws])
-                    state, m = step(state, sample_round_batches(stack, idx),
-                                    pr, d)
+                    batches = sample_round_batches(stack, idx)
+                    if scheduled:
+                        state, m, priv, sigma_t, live = scheduled_round(
+                            step, fl, state, batches, pr, d, priv, grid,
+                            rounds)
+                        lives.append(live)
+                    else:
+                        state, m = step(state, batches, pr, d)
                     cum_time = cum_time + simulate_round_time(
                         fl, state.util, m.sel_mask, m.failed, params=pr,
                         slow=m.slow)
@@ -430,6 +511,13 @@ def _build_lane_run(fl: FLConfig, rounds: int, eval_every: int,
                                 ("fail", torch.mean(m.failed, dim=-1)),
                                 ("cum_time", cum_time)):
                     trace[name].append(v)
+                if scheduled:
+                    trace["eps"].append(acct_lib.epsilon_from_state(
+                        priv.acct, grid))
+                    trace["sigma"].append(sigma_t)
+                    trace["live"].append(torch.stack(lives).mean(dim=0))
+                    priv = priv._replace(sched=sched_lib.scheduler_update(
+                        priv.sched, auc, pr))
         return (state.params, cum_time,
                 {k: torch.stack(v, dim=1) for k, v in trace.items()})
 
@@ -508,10 +596,6 @@ def _sweep_cells(fl: FLConfig, params_grid: Sequence,
                 f"the port's sweep engine runs only the synchronous "
                 f"client_parallel plan (code 0); plan {cell.plan!r} is not "
                 f"ported yet")
-        if cell.dp_enabled and cell.dp_scheduled:
-            raise NotImplementedError(
-                "dp_scheduled needs the in-loop RDP accountant, which the "
-                "port does not have yet")
         cells.append(cell)
     return cells
 
@@ -542,7 +626,9 @@ def run_fl_sweep(
     lanes; test metrics are computed on the device every ``eval_every``
     rounds and read back once, at the end.  Runs on ``device`` (``cuda``
     unless ``"cpu"`` is asked).  ``init_states``/``draws``: one entry a
-    lane (see :func:`_build_lane_run`).
+    lane (see :func:`_build_lane_run`).  A cell's ``eps_spent`` is the host
+    accountant's closed form, or, under ``dp_scheduled``, the lane's
+    in-loop ε after its last round (``history["eps"][-1]``).
 
     ``run_fl_sweep(..., [cfg_a, cfg_b], seeds)[i][j]`` equals
     ``run_fl(fed, cfg_i, seed=seeds[j])`` up to float order.  Returns
@@ -576,13 +662,17 @@ def run_fl_sweep(
     spec = get_model_spec(fl.model, meta) if method == "fedl2p" else None
     out: List[List[RunResult]] = []
     for ci, cell in enumerate(cells):
-        eps = accounted_epsilon(cell, rounds)
+        # fixed-σ cells: the host closed form; scheduled cells: the lane's
+        # in-loop accountant
+        scheduled = cell.dp_enabled and cell.dp_scheduled
+        eps_cell = None if scheduled else accounted_epsilon(cell, rounds)
         row = []
         for si, seed in enumerate(seeds):
             lane = ci * len(seeds) + si
             history = {"round": [r + 1 for r in eval_idx]}
             for name, v in trace_np.items():
                 history[name] = [float(x) for x in v[lane]]
+            eps = history["eps"][-1] if scheduled else eps_cell
             sim_time = float(sim_np[lane])
             acc, auc = history["acc"][-1], history["auc"][-1]
             lane_params = (tree_map(lambda a: a[lane].clone(), params_b)

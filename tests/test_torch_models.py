@@ -85,7 +85,12 @@ def test_model_spec_matches_reference():
         float(jspec.accuracy(jparams, jnp.asarray(fed.test_x),
                              jnp.asarray(fed.test_y))), rtol=1e-6)
     with pytest.raises(KeyError):
+        get_model_spec("no_such_model", meta_for(tfed, 32))
+    # cnn is registered now, and refuses tabular data as the reference does
+    with pytest.raises(ValueError, match="window-native"):
         get_model_spec("cnn", meta_for(tfed, 32))
+    with pytest.raises(ValueError, match="window-native"):
+        j_get_spec("cnn", j_meta_for(fed, 32))
     # torch.Generator init: right shapes, fresh draws per generator state
     p = tspec.init(torch.Generator().manual_seed(0))
     assert [tuple(l.shape) for l in tree_leaves(p)] == \

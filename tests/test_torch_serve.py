@@ -3,7 +3,8 @@ its own contracts and against the JAX reference's engine.
 
 * batching: the reference's unit tests against the port's own copy;
 * the feed keeps order and content;
-* ``ServeEngine(device="cpu")`` over uneven chunks for ``attn`` and ``ssm``:
+* ``ServeEngine(device="cpu")`` over uneven chunks for ``attn``, ``ssm``,
+  ``rglru`` and ``cnn``:
   bitwise equal to the scorer on the same padded bucket batches, within
   1e-6 of one unpadded ``predict_proba_routed`` call, within 1e-5 of the
   JAX engine on the same params;
@@ -125,7 +126,7 @@ def test_device_feed_preserves_order_and_content():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["attn", "ssm"])
+@pytest.mark.parametrize("name", ["attn", "ssm", "rglru", "cnn"])
 def test_score_stream_matches_scorer_reference_and_jax(fed, name):
     jspec, jparams, spec, meta, params = _setup(fed, name)
     x = np.asarray(fed.test_x[:21], np.float32)

@@ -1,5 +1,8 @@
 """The port's sweep engine (``run_fl_sweep`` / ``run_fl_batch`` /
-``run_fl``) against the JAX reference's, and against itself lane by lane.
+``run_fl``) against the JAX reference's, and against itself lane by lane:
+fixed-σ cells on unsw, ``dp_scheduled`` cells (the in-loop accountant,
+the three schedules and the exhaustion gate) and one ``road_raw`` cell
+each of the ``cnn`` and ``rglru`` detectors.
 
 The parity test rebuilds every lane's random decisions from the
 reference's own keys (``fold_in(key, 0..2)`` in ``_build_single_run``,
@@ -61,12 +64,13 @@ def _close(a, b, what, rtol=RTOL, atol=ATOL):
                                atol=atol, err_msg=what)
 
 
-def _reference_lane_inputs(jfed, tfl, seed, rounds):
+def _reference_lane_inputs(jfed, tfl, seed, rounds, jfl=None):
     """One seed's initial state and per-round ``(batch_idx, RoundDraws)``
-    as the reference's engine draws them from ``jax.random.key(seed)``."""
-    jfl = JFLConfig(**BASE)
+    as the reference's engine draws them from ``jax.random.key(seed)``,
+    for the model of ``jfl`` (the ``BASE`` config by default)."""
+    jfl = jfl or JFLConfig(**BASE)
     key = jax.random.key(seed)
-    spec = j_spec.get_model_spec("mlp", j_spec.meta_for(jfed, hidden=64))
+    spec = j_spec.get_model_spec(jfl.model, j_spec.meta_for(jfed, hidden=64))
     jparams = spec.init(jax.random.fold_in(key, 0))
     sizes = jfed.data_sizes()
     jstate = j_rounds.init_round_state(
@@ -118,6 +122,100 @@ def test_sweep_matches_jax_sweep_with_reference_draws(feds):
                    atol=0.0)
     # the grid is real: ε differs across the two ε cells
     assert tres[0][0].eps_spent != tres[1][0].eps_spent
+
+
+def _run_both(jfed, tfed, base, cells, seeds):
+    """The JAX ``run_fl_sweep`` and the port's, fed the reference's draws,
+    over ``cells × seeds`` at ROUNDS / EVAL_EVERY."""
+    jfl, tfl = JFLConfig(**base), FLConfig(**base)
+    jres = j_fl_driver.run_fl_sweep(jfed, jfl, list(cells), seeds=seeds,
+                                    rounds=ROUNDS, eval_every=EVAL_EVERY,
+                                    return_params=True)
+    per_seed = [_reference_lane_inputs(jfed, tfl, s, ROUNDS, jfl)
+                for s in seeds]
+    lanes = [per_seed[si] for _ in cells for si in range(len(seeds))]
+    tres = t_fl_driver.run_fl_sweep(
+        tfed, tfl, list(cells), seeds=seeds, rounds=ROUNDS,
+        eval_every=EVAL_EVERY, device="cpu",
+        init_states=[init for init, _ in lanes],
+        draws=[d for _, d in lanes], return_params=True)
+    return jres, tres
+
+
+def _assert_lanes_match(jres, tres):
+    """Every history key of every lane to rtol 1e-5 / atol 1e-6, ε and
+    the simulated time as in the three-cell parity test, and the final
+    params to 1e-5."""
+    for ci, (jrow, trow) in enumerate(zip(jres, tres)):
+        for jr, tr in zip(jrow, trow):
+            what = f"cell {ci} seed {tr.seed}"
+            assert tr.history.keys() == jr.history.keys(), what
+            for name in jr.history:
+                _close(tr.history[name], jr.history[name], f"{name}, {what}")
+            _close(tr.eps_spent, jr.eps_spent, f"eps, {what}")
+            _close(tr.sim_time_s, jr.sim_time_s, f"sim_time, {what}",
+                   atol=0.0)
+            for a, b in zip(jax.tree.leaves(jr.params),
+                            t_fl_driver.tree_leaves(tr.params)):
+                _close(b, a, f"params, {what}", atol=1e-5)
+
+
+# scheduled budgets: uniform, linear and an always-stalling adaptive lane,
+# and a budget below the conversion floor, which no release fits.  The
+# budgets keep σ at or under ~0.12 a coordinate, where the model trains
+# (at a budget of 300, σ = 0.41 drives the loss past 20: see CELLS)
+SCHED_CELLS = ({"dp_budget": 3000.0},
+               {"dp_budget": 5000.0, "dp_sched": 1.0, "dp_sched_rate": 0.4},
+               {"dp_budget": 5000.0, "dp_sched": 2.0, "dp_stall_tol": 10.0},
+               {"dp_budget": 0.01})
+
+
+def test_scheduled_sweep_matches_jax_sweep_with_reference_draws(feds):
+    """``dp_scheduled`` lanes against the JAX ``run_fl_sweep``: every
+    history key, ``eps``/``sigma``/``live`` included, to rtol 1e-5; ε from
+    the lane's in-loop accountant; the exhausted lane never releases and
+    its params stay at init bitwise."""
+    jfed, tfed = feds
+    base = {**BASE, "dp_scheduled": True}
+    jres, tres = _run_both(jfed, tfed, base, SCHED_CELLS, SEEDS)
+    _assert_lanes_match(jres, tres)
+    for row in tres:
+        for r in row:
+            assert {"eps", "sigma", "live"} <= r.history.keys()
+            assert r.eps_spent == r.history["eps"][-1]
+    # the linear lane's σ falls, the stalling adaptive lane's too; the
+    # uniform lane's is constant
+    for ci in (1, 2):
+        assert tres[ci][0].history["sigma"][-1] < \
+            tres[ci][0].history["sigma"][0]
+    assert len(set(tres[0][0].history["sigma"])) == 1
+    exhausted = tres[3]
+    init, _ = _reference_lane_inputs(jfed, FLConfig(**base), SEEDS[0],
+                                     ROUNDS, JFLConfig(**base))
+    assert all(v == 0.0 for r in exhausted for v in r.history["live"])
+    assert all(r.eps_spent == 0.0 for r in exhausted)
+    assert torch.equal(flatten_rows(exhausted[0].params, 0),
+                       flatten_rows(init.params, 0))
+
+
+@pytest.fixture(scope="module")
+def road_feds():
+    return (j_make_federated(0, "road_raw", n_samples=600, n_clients=8),
+            t_syn.make_federated(0, "road_raw", n_samples=600, n_clients=8))
+
+
+@pytest.mark.parametrize("model", ["cnn", "rglru"])
+def test_window_detector_sweep_matches_jax_sweep(road_feds, model):
+    """One ``road_raw`` cell of ``cnn`` or ``rglru`` × 2 seeds, at the
+    reference sweep test's config, against the JAX ``run_fl_sweep`` with
+    the reference's draws (every history key to rtol 1e-5 / atol 1e-6,
+    the final params to 1e-5).  The reference evaluates on its CPU
+    default route (``"ref"``), the port on ``"kernel"`` (the plain
+    sequential scan on the CPU)."""
+    jfed, tfed = road_feds
+    jres, tres = _run_both(jfed, tfed, {**BASE, "model": model}, [{}],
+                           SEEDS)
+    _assert_lanes_match(jres, tres)
 
 
 def test_sweep_lanes_equal_single_runs_with_own_rng(feds):
@@ -211,9 +309,10 @@ def test_cells_rejected_and_accepted_as_in_the_reference(feds):
     with pytest.raises(NotImplementedError, match="plan"):
         t_fl_driver.run_fl(tfed, dataclasses.replace(fl, plan="client_serial"),
                            rounds=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="dp_scheduled"):
-        t_fl_driver.run_fl(tfed, dataclasses.replace(fl, dp_scheduled=True),
-                           rounds=2, device="cpu")
+    # scheduled privacy needs clipped updates, as in the reference
+    with pytest.raises(ValueError, match="clipped"):
+        t_fl_driver.run_fl(tfed, dataclasses.replace(
+            fl, dp_scheduled=True, dp_mode="paper"), rounds=2, device="cpu")
     assert t_fl_driver.run_fl_sweep(tfed, fl, [], **kw) == []
 
 

@@ -85,7 +85,28 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    relative); the scheduled lane step on the card against the CPU with the
    same draws (``live`` and ``sel_mask`` equal, σ_t and state within rtol
    1e-4 / atol 1e-6); the warm wall a round with ``dp_scheduled`` on and
-   off.
+   off;
+13. the plan frontier of ``benchmarks/bench_async.py`` at its full settings
+   (unsw, 24 clients, 50 rounds; sync, ``buffered_async`` at K = 2 and 4,
+   ``hierarchical`` at E = 4, × Markov and straggler lanes × seeds 0-3: 32
+   lanes in one ``run_fl_sweep``): one runner build and warm hits, the
+   loop under sync debug mode "error", the DP kernels once a round, every
+   straggler lane's async time under sync's and hier's mean under flat's;
+   each cell beside ``BENCH_async.json`` (JAX on the CPU), the warm wall
+   and the async gate's Mann-Whitney p (printed, not gated); the lane step
+   at plan codes 1 and 2 card vs CPU (equal ``sel_mask``, state within
+   rtol 1e-4 / atol 1e-6); the DP kernels at the path's rows [768, P];
+14. the population engine at ``benchmarks/bench_scale.py``'s full settings
+   (pool 8,000, 32 members, k_max 16, 8 rounds, seeds 0-1) over 10^3,
+   10^4, 10^5 and 10^6 clients through ``run_fl_population``: one runner
+   build per population and hits after, finite accuracy, the loop under
+   sync debug mode "error", generation/cold/warm walls, DP launches a
+   round, the device busy share of a warm call, ``core/scale.py``'s
+   predicted bytes beside the peak allocated; the sublinear gate (warm
+   round wall 10^5/10^3 < 20); ``cohort_topk`` at [2, 10^6] bitwise equal
+   to ``cohort_topk_host``, chunked (4, 16) and not; the cohort step card
+   vs CPU (equal ``cohort_idx``/``take``, state within rtol 1e-4 / atol
+   1e-6); the DP kernels at the cohort rows [32, P].
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -116,7 +137,8 @@ SERVE_BUCKETS = (16, 128)
 SERVE_CHUNK = 37
 SERVE_MODELS = ("attn", "ssm", "rglru", "cnn")
 SPANS = ("fl.batches", "fl.round_step", "fl.sim_time", "fl.eval",
-         "selection", "local_train", "dp_privatize", "aggregate")
+         "selection", "local_train", "dp_privatize", "aggregate",
+         "async_buffer", "hier_aggregate")
 # phase 7b: Fig. 3's ε column (benchmarks/bench_fig3.py) × REPRO_FULL's 10
 # seeds on the paper's config: 40 lanes of 40 clients, 1,600 client rows
 SWEEP_EPS = (30.0, 100.0, 300.0, 1000.0)
@@ -124,7 +146,7 @@ SWEEP_SEEDS = tuple(range(10))
 SWEEP_ROUNDS, SWEEP_EVAL = 20, 10
 SWEEP_SPANS = ("sweep.prepare", "sweep.execute", "sweep.readback",
                "selection", "local_train", "dp_privatize", "aggregate",
-               "eval_block")
+               "async_buffer", "hier_aggregate", "eval_block")
 
 
 def card_line() -> str:
@@ -525,6 +547,30 @@ def sweep_cells(fl):
     return [dataclasses.replace(fl, dp_epsilon=e) for e in SWEEP_EPS]
 
 
+class SyncModeSpy:
+    """Records the modes ``torch.cuda.set_sync_debug_mode`` is set to while
+    it is entered: the engines set "error" around their round loops."""
+
+    def __init__(self, torch):
+        self.torch, self.modes = torch, []
+
+    def __enter__(self):
+        self.original = self.torch.cuda.set_sync_debug_mode
+
+        def spy(mode):
+            self.modes.append(mode)
+            self.original(mode)
+
+        self.torch.cuda.set_sync_debug_mode = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode = self.original
+
+    def ok(self) -> bool:
+        return self.modes[:1] == ["error"] and len(self.modes) % 2 == 0
+
+
 def check_sync_debug_raises(torch) -> None:
     """The mode the sweep engine runs its round loop under catches a host
     synchronisation in this build: ``.item()`` raises under it."""
@@ -554,25 +600,16 @@ def phase_sweep(torch, fed, fl, dpk, accounted_epsilon, legacy_walls):
     kw = dict(seeds=SWEEP_SEEDS, rounds=SWEEP_ROUNDS, eval_every=SWEEP_EVAL,
               hidden=128, device="cuda")
     check_sync_debug_raises(torch)
-    modes, set_mode = [], torch.cuda.set_sync_debug_mode
-
-    def spy(mode):
-        modes.append(mode)
-        set_mode(mode)
-
     stats0 = dict(fl_driver.RUNNER_STATS)
     torch.cuda.synchronize()
     dpk.reset_launches()
-    torch.cuda.set_sync_debug_mode = spy
-    try:
+    with SyncModeSpy(torch) as spy:
         t0 = time.perf_counter()
         res = fl_driver.run_fl_sweep(fed, fl, cells, **kw)
         cold_s = time.perf_counter() - t0
-    finally:
-        torch.cuda.set_sync_debug_mode = set_mode
     launches = dict(dpk.LAUNCHES)
-    check(modes[:1] == ["error"] and len(modes) == 2,
-          f"the round loop did not run under sync debug mode 'error': {modes}")
+    check(spy.ok() and len(spy.modes) == 2, f"the round loop did not run "
+          f"under sync debug mode 'error': {spy.modes}")
     check(fl_driver.RUNNER_STATS["misses"] == stats0["misses"] + 1,
           "the grid did not build exactly one runner")
     t0 = time.perf_counter()
@@ -1630,9 +1667,9 @@ def phase_privacy_frontier(torch, dpk):
     # flat params before and after the round
     rounds_seen, original = [], fl_driver.scheduled_round
 
-    def spy(step, fl_, state, *args):
+    def spy(step, fl_, state, *args, **kwargs):
         before = flatten_rows(state.params).clone()
-        out = original(step, fl_, state, *args)
+        out = original(step, fl_, state, *args, **kwargs)
         rounds_seen.append((before, flatten_rows(out[0].params).clone(),
                             out[4].clone()))
         return out
@@ -1781,6 +1818,470 @@ def phase_grid_card_vs_cpu(torch, dpk):
     return out
 
 
+# phase 13: benchmarks/bench_async.py's full settings: the plan frontier,
+# 4 plans × 2 fault lanes × seeds 0-3 = 32 lanes of 24 clients
+ASYNC_CLIENTS, ASYNC_SAMPLES, ASYNC_ROUNDS, ASYNC_EVAL = 24, 6_000, 50, 10
+ASYNC_SEEDS = (0, 1, 2, 3)
+ASYNC_RATE, ASYNC_BURST, ASYNC_SLOW = 0.4, 6.0, 8.0
+ASYNC_BUFFERS, ASYNC_POW = (2.0, 4.0), 0.5
+GATE_SEEDS, GATE_ROUNDS, GATE_K = tuple(range(8)), 40, 2.0
+FAULT_LANES = (("markov", {"fault_process": 1.0, "fault_burst": ASYNC_BURST}),
+               ("straggler", {"fault_process": 3.0,
+                              "straggler_slow": ASYNC_SLOW}))
+PLAN_VARIANTS = (("sync", {}),) + tuple(
+    (f"async_k{int(k)}", {"plan": "buffered_async", "async_buffer": k,
+                          "async_staleness_pow": ASYNC_POW})
+    for k in ASYNC_BUFFERS) + (("hier", {"plan": "hierarchical"}),)
+
+
+def async_config(**kw):
+    """``bench_async._bench_config``."""
+    from repro_torch.configs.base import FLConfig
+    return FLConfig(
+        n_clients=ASYNC_CLIENTS, clients_per_round=max(4, ASYNC_CLIENTS // 3),
+        rounds=ASYNC_ROUNDS, local_epochs=5, local_batch=32, local_lr=0.08,
+        fault_tolerance=True, failure_prob=ASYNC_RATE, **kw)
+
+
+def param_count(dataset: str, hidden: int) -> int:
+    """P of the ``mlp`` detector on ``dataset``'s features at ``hidden``:
+    the width of a client's flat update, a DP row."""
+    from repro_torch.data.synthetic import make_federated
+    from repro_torch.models.spec import get_model_spec, meta_for
+    fed = make_federated(0, dataset, n_samples=200, n_clients=2)
+    return get_model_spec("mlp", meta_for(fed, hidden=hidden)).param_bytes() \
+        // 4
+
+
+def check_dp_rows(torch, dpk, ref, r: int, p: int, label: str) -> dict:
+    """The DP kernels at a path's row shape [r, p] against their plain
+    versions (``sumsq_rows`` to rtol 1e-5, ``scale_noise_rows`` with one σ
+    a row bitwise), and their device times by :func:`device_ms` beside
+    the bytes bound."""
+    gen = torch.Generator().manual_seed(r)
+    x = (torch.randn(r, p, generator=gen) * 0.05).cuda()
+    nz = torch.randn(r, p, generator=gen).cuda()
+    sigma = (torch.rand(r, generator=gen) + 0.01).cuda()
+    sq, sq_ref = dpk.sumsq_rows(x), ref.sumsq_rows_ref(x)
+    torch.testing.assert_close(sq, sq_ref, rtol=1e-5, atol=0)
+    scale = ref.clip_scale(torch.sqrt(sq_ref), 1.0)
+    o = dpk.scale_noise_rows(x, nz, scale, sigma)
+    check(torch.equal(o, ref.scale_noise_rows_ref(x, nz, scale, sigma)),
+          f"{label}: scale_noise_rows is not bitwise its plain version at "
+          f"[{r}, {p}]")
+    err = max_abs(sq, sq_ref)
+    times = {"sumsq_rows": timed(lambda: dpk.sumsq_rows(x),
+                                 lambda: ref.sumsq_rows_ref(x),
+                                 lambda: torch.linalg.vector_norm(x, dim=1)),
+             "scale_noise_rows": timed(
+                 lambda: dpk.scale_noise_rows(x, nz, scale, sigma),
+                 lambda: ref.scale_noise_rows_ref(x, nz, scale, sigma),
+                 None)}
+    bounds = {"sumsq_rows": sumsq_bound(r, p)[0],
+              "scale_noise_rows": bound(12 * r * p + 8 * r, 3 * r * p)[0]}
+
+    def show(k):
+        t = times[k]
+        lib = ("" if t["library_ms"] is None
+               else f", library {t['library_ms'] * 1e3:.2f}")
+        return (f"{k} {t['ms'] * 1e3:.2f} us (bound {bounds[k] * 1e3:.2f}, "
+                f"plain {t['plain_ms'] * 1e3:.2f}{lib}; eager "
+                f"{t['eager_ms'] * 1e3:.2f} / {t['eager_plain_ms'] * 1e3:.2f})")
+
+    print(f"  {label} DP rows [{r}, {p}]: sumsq_rows max|err| {err:.3e}, "
+          f"scale_noise_rows (one σ a row) bitwise equal to plain; device "
+          + ", ".join(show(k) for k in times))
+    return {"shape": [r, p], "sumsq_rows_max_abs": err,
+            "ms": {k: t["ms"] for k, t in times.items()}, "times": times,
+            "bound_ms": bounds}
+
+
+def phase_plan_frontier(torch, dpk, ref, card):
+    """Phase 13: the plan frontier of ``benchmarks/bench_async.py`` at its
+    full settings through ``run_fl_sweep`` (unsw, 24 clients, 6,000
+    samples, 50 rounds, eval every 10, rate 0.4; sync, buffered_async at
+    K = 2 and 4 with staleness power 0.5, and hierarchical at E = 4, ×
+    Markov (burst 6) and straggler (slow 8) lanes × seeds 0-3: 32 lanes).
+    Checks: one runner build and warm reruns that hit; the loop under sync
+    debug mode "error"; the DP kernels once a round for all lanes; on every
+    straggler lane each async K's simulated time under sync's, and hier's
+    mean under flat's (as the bench asserts); the DP kernels at the path's
+    rows.  Prints the warm wall, each cell beside ``BENCH_async.json`` (the
+    reference, JAX on the CPU) and the async gate's Mann-Whitney p (K = 2,
+    pooled fault lanes, seeds 0-7, 40 rounds) by ``repro_torch.stats``,
+    printed, not gated."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import make_federated
+    from repro_torch.stats import mannwhitney_greater
+    from repro_torch.train import fl_driver
+
+    bench = json.loads((ROOT / "BENCH_async.json").read_text())
+    ref_cells = {(c["plan"], c["fault"]): c
+                 for c in bench["frontier"]["cells"]}
+    fed = make_federated(0, "unsw", n_samples=ASYNC_SAMPLES,
+                         n_clients=ASYNC_CLIENTS)
+    fl = async_config()
+    cells = [{**plan_kw, **fault_kw, "failure_prob": ASYNC_RATE}
+             for _, plan_kw in PLAN_VARIANTS for _, fault_kw in FAULT_LANES]
+    labels = [(pl, fa) for pl, _ in PLAN_VARIANTS for fa, _ in FAULT_LANES]
+    kw = dict(seeds=ASYNC_SEEDS, rounds=ASYNC_ROUNDS, eval_every=ASYNC_EVAL,
+              device="cuda")
+    stats0 = dict(fl_driver.RUNNER_STATS)
+    torch.cuda.synchronize()
+    dpk.reset_launches()
+    with SyncModeSpy(torch) as spy:
+        t0 = time.perf_counter()
+        res = fl_driver.run_fl_sweep(fed, fl, cells, **kw)
+        cold_s = time.perf_counter() - t0
+    launches = dict(dpk.LAUNCHES)
+    check(spy.ok(), f"the frontier loop did not run under sync debug mode "
+          f"'error': {spy.modes}")
+    check(fl_driver.RUNNER_STATS["misses"] == stats0["misses"] + 1,
+          "the plan frontier did not build exactly one runner")
+    check(all(n == ASYNC_ROUNDS for n in launches.values()),
+          f"DP kernel launches {launches}: want one a round for all lanes")
+    warm = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fl_driver.run_fl_sweep(fed, fl, cells, **kw)
+        warm.append(time.perf_counter() - t0)
+    check(fl_driver.RUNNER_STATS["misses"] == stats0["misses"] + 1 and
+          fl_driver.RUNNER_STATS["hits"] == stats0["hits"] + 2,
+          "warm frontier reruns were not cache hits")
+    by = dict(zip(labels, res))
+    for row in res:
+        check(all(math.isfinite(v) for r in row
+                  for k in ("loss", "acc", "auc", "cum_time")
+                  for v in r.history[k]), "frontier history not finite")
+    sync_s = by[("sync", "straggler")]
+    for k in ASYNC_BUFFERS:
+        asyn = by[(f"async_k{int(k)}", "straggler")]
+        check(all(a.sim_time_s < s.sim_time_s for a, s in zip(asyn, sync_s)),
+              f"K={k:.0f}: a straggler lane's K-th arrival did not undercut "
+              f"sync's slowest client")
+    hier_t = [r.sim_time_s for r in by[("hier", "straggler")]]
+    sync_t = [r.sim_time_s for r in sync_s]
+    check(np.mean(hier_t) < np.mean(sync_t),
+          "hier's two edge hops did not undercut the flat WAN hop")
+    out_cells = []
+    for (pl, fa), row in by.items():
+        c = {"plan": pl, "fault": fa,
+             "acc_mean": float(np.mean([r.accuracy for r in row])),
+             "auc_mean": float(np.mean([r.auc for r in row])),
+             "sim_time_mean": float(np.mean([r.sim_time_s for r in row]))}
+        out_cells.append(c)
+        b = ref_cells[(pl, fa)]
+        print(f"  {pl:>8s} on {fa:>9s}: acc {c['acc_mean']:.4f} AUC "
+              f"{c['auc_mean']:.4f} sim time {c['sim_time_mean']:.2f} s "
+              f"(reference, JAX on the CPU: acc {b['acc_mean']:.4f} AUC "
+              f"{b['auc_mean']:.4f} sim time {b['sim_time_mean']:.2f} s)")
+    print(f"  hier vs sync on straggler lanes, per seed: {hier_t} vs "
+          f"{sync_t}")
+
+    gate_cells = [{**fault_kw, "failure_prob": ASYNC_RATE, **arm}
+                  for _, fault_kw in FAULT_LANES
+                  for arm in ({}, {"plan": "buffered_async",
+                                   "async_buffer": GATE_K,
+                                   "async_staleness_pow": ASYNC_POW})]
+    gate = fl_driver.run_fl_sweep(fed, fl, gate_cells, seeds=GATE_SEEDS,
+                                  rounds=GATE_ROUNDS, eval_every=ASYNC_EVAL,
+                                  device="cuda")
+    t_sync = [r.sim_time_s for row in gate[0::2] for r in row]
+    t_async = [r.sim_time_s for row in gate[1::2] for r in row]
+    auc_sync = [r.auc for row in gate[0::2] for r in row]
+    auc_async = [r.auc for row in gate[1::2] for r in row]
+    u, p_time, _ = mannwhitney_greater(t_sync, t_async)
+    _, p_auc, _ = mannwhitney_greater(auc_sync, auc_async)
+    ref_gate = bench["async_gate"]
+    lanes = len(cells) * len(ASYNC_SEEDS)
+    warm_s = min(warm)
+    print(f"  {lanes} lanes x {ASYNC_ROUNDS} rounds: one runner build, "
+          f"warm reruns hit; DP launches {launches}; loop under sync debug "
+          f"mode 'error'")
+    print(f"  wall: first call {cold_s:.3f} s, warm {warm} s (min "
+          f"{warm_s:.3f} s = {1e3 * warm_s / ASYNC_ROUNDS:.2f} ms a round)  "
+          f"({card})")
+    print(f"  async gate (K=2, pooled Markov+straggler, seeds 0-7, "
+          f"{GATE_ROUNDS} rounds): sim time {np.mean(t_async):.2f} s vs sync "
+          f"{np.mean(t_sync):.2f} s, Mann-Whitney U {u}, p {p_time:.3e}; "
+          f"AUC {np.mean(auc_async):.4f} vs {np.mean(auc_sync):.4f} "
+          f"(sync-better p {p_auc:.3f}); reference p "
+          f"{ref_gate['p_value_time']:.3e}, sync-better p "
+          f"{ref_gate['p_value_auc_sync_better']:.3f} (JAX on the CPU)")
+    return {"lanes": lanes, "cold_s": cold_s, "warm_s": warm,
+            "warm_ms_per_round": 1e3 * warm_s / ASYNC_ROUNDS,
+            "launches": launches, "cells": out_cells,
+            "hier_vs_sync_straggler": [hier_t, sync_t],
+            "gate": {"u": u, "p_time": p_time, "p_auc_sync_better": p_auc,
+                     "sim_time_sync": t_sync, "sim_time_async": t_async}}
+
+
+def phase_plan_card_vs_cpu(torch, dpk):
+    """Phase 13: the lane step at plan codes 1 and 2 card vs CPU (sync,
+    buffered_async at K = 2 on stragglers, hierarchical at E = 3 on Markov
+    outages, × 2 seeds, 3 rounds, at a small size): equal ``sel_mask``,
+    state within rtol 1e-4 / atol 1e-6."""
+    import dataclasses
+
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.synthetic import make_federated
+
+    small = make_federated(0, "unsw", n_samples=2_000, n_clients=10)
+    fl = FLConfig(n_clients=10, clients_per_round=5, local_epochs=3,
+                  local_batch=32, dp_epsilon=100.0, dp_clip=5.0,
+                  failure_prob=0.3, hierarchy_edges=3)
+    cells = [fl, dataclasses.replace(fl, plan="buffered_async",
+                                     async_buffer=2.0, fault_process=3.0),
+             dataclasses.replace(fl, plan="hierarchical", fault_process=1.0)]
+    return lane_steps_card_vs_cpu(torch, dpk, small, fl, cells, 32, 3,
+                                  "plan lane step")[0]
+
+
+# phase 14: benchmarks/bench_scale.py's full settings, and a population of
+# 10^6 clients (the top of make_population's stated range)
+POP_SIZES = (1_000, 10_000, 100_000, 1_000_000)
+POP_POOL, POP_MEMBERS, POP_KMAX, POP_ROUNDS = 8_000, 32, 16, 8
+POP_SEEDS, POP_WARM = (0, 1), 3
+POP_SPANS = ("population.prepare", "population.execute",
+             "population.readback", "selection", "cohort_topk",
+             "sample_cohort_batches", "local_train", "dp_privatize",
+             "aggregate", "eval_block")
+
+
+def scale_config(n: int):
+    """``bench_scale.scale_fl``."""
+    from repro_torch.configs.base import FLConfig
+    return FLConfig(
+        n_clients=n, clients_per_round=POP_KMAX, k_max=POP_KMAX,
+        rounds=POP_ROUNDS, local_epochs=2, local_batch=32, local_lr=0.08,
+        fault_tolerance=True, failure_prob=0.05)
+
+
+def phase_population(torch, dpk, card):
+    """Phase 14: ``run_fl_population`` at ``bench_scale``'s full settings
+    (pool 8,000, 32 members, k_max = K = 16, 8 rounds, 2 local steps × 32,
+    failure 0.05, seeds 0-1, ``mlp`` at hidden 64) over 10^3, 10^4, 10^5
+    and 10^6 clients.  Per population: generation, cold and warm (min of
+    3) walls; one runner build and hits after; finite accuracy; the loop
+    under sync debug mode "error"; DP launches a round; the device busy
+    share of a warm call by ``torch.profiler``; ``core/scale.py``'s
+    predicted bytes beside ``torch.cuda.max_memory_allocated()``.  Then
+    bench_scale's sublinear gate: warm round wall(10^5)/wall(10^3) < 20."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.core import scale as scale_lib
+    from repro_torch.data.synthetic import make_population
+    from repro_torch.models.spec import get_model_spec, meta_for
+    from repro_torch.train import fl_driver
+
+    rows, stats0 = [], dict(fl_driver.RUNNER_STATS)
+    for i, n in enumerate(POP_SIZES):
+        fl = scale_config(n)
+        t0 = time.perf_counter()
+        pop = make_population(0, n_clients=n, pool_samples=POP_POOL,
+                              members_per_client=POP_MEMBERS)
+        gen_s = time.perf_counter() - t0
+        kw = dict(seeds=POP_SEEDS, rounds=POP_ROUNDS, eval_every=POP_ROUNDS,
+                  device="cuda")
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        dpk.reset_launches()
+        with SyncModeSpy(torch) as spy:
+            t0 = time.perf_counter()
+            res = fl_driver.run_fl_population(pop, fl, **kw)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+        launches = dict(dpk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() - base_bytes
+        check(spy.ok(), f"N={n}: the population loop did not run under "
+              f"sync debug mode 'error': {spy.modes}")
+        check(all(v == POP_ROUNDS for v in launches.values()),
+              f"N={n}: DP launches {launches}, want one a round")
+        warm = []
+        for _ in range(POP_WARM):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fl_driver.run_fl_population(pop, fl, **kw)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        check(fl_driver.RUNNER_STATS["misses"] == stats0["misses"] + i + 1,
+              f"N={n}: not one runner build per population shape")
+        acc = [r.accuracy for r in res[0]]
+        check(all(math.isfinite(a) for a in acc), f"N={n}: accuracy {acc}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fl_driver.run_fl_population(pop, fl, **kw)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        _, busy_ms, spans, _ = profile_summary(prof.events(), POP_SPANS)
+        model = get_model_spec(fl.model, meta_for(pop)).param_bytes()
+        lanes = len(POP_SEEDS)
+        predicted = {
+            "resident": scale_lib.population_resident_bytes(
+                n, POP_MEMBERS, lanes, model),
+            "selection_transients": lanes * scale_lib.
+            selection_transient_bytes(n),
+            "cohort_batches": lanes * scale_lib.cohort_batch_bytes(
+                POP_KMAX, 2, 32, pop.n_features)}
+        # the port's per-round buffers core/scale.py does not count: the
+        # population vectors of CohortDraws and cohort_topk's stable sort
+        # (f32 keys and int64 indices), by shape
+        draws = rounds_lib.CohortDraws.empty(lanes, n, POP_KMAX, 2, 32, 0,
+                                             "meta")
+        uncounted = {"cohort_draws": sum(t.nbytes for t in draws[:4]),
+                     "topk_sort": lanes * n * (4 + 8)}
+        chunks_card = scale_lib.auto_chunks(n, scale_lib.DEVICE_MEMORY_BYTES,
+                                            POP_MEMBERS, lanes, model)
+        row = {"n_clients": n, "gen_s": gen_s, "cold_s": cold_s,
+               "auto_chunks_whole_card": chunks_card,
+               "warm_s": warm, "warm_round_ms": 1e3 * min(warm) / POP_ROUNDS,
+               "accuracy": acc, "launches": launches,
+               "launches_per_round": {k: v / POP_ROUNDS
+                                      for k, v in launches.items()},
+               "busy_share": busy_ms / prof_ms,
+               "profiled_ms_per_round": prof_ms / POP_ROUNDS,
+               "busy_ms_per_round": busy_ms / POP_ROUNDS,
+               "span_host_ms_per_round": {k: v / POP_ROUNDS
+                                          for k, v in spans.items()},
+               "predicted_bytes": predicted, "uncounted_bytes": uncounted,
+               "peak_allocated_bytes": peak}
+        rows.append(row)
+        print(f"  N={n:>9,d}: generation {gen_s:.3f} s, cold {cold_s:.3f} s, "
+              f"warm round {row['warm_round_ms']:.2f} ms (walls {warm}); acc "
+              f"{acc}; DP launches a round {row['launches_per_round']}; "
+              f"device busy {row['busy_share']:.3f} of a profiled call "
+              f"({row['busy_ms_per_round']:.3f} ms a round); predicted "
+              f"resident {predicted['resident']:,} B + selection transients "
+              f"{predicted['selection_transients']:,} B (not counted there: "
+              f"draw buffers {uncounted['cohort_draws']:,} B, top-k sort "
+              f"{uncounted['topk_sort']:,} B), peak allocated "
+              f"{peak:,} B; selection chunks at the card's 80 GB "
+              f"{chunks_card}  ({card})")
+        print(f"    spans (host ms a round): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in row["span_host_ms_per_round"].items()))
+    check(fl_driver.RUNNER_STATS["hits"] >= stats0["hits"] +
+          len(POP_SIZES) * (POP_WARM + 1), "warm population calls missed")
+    lo = next(r for r in rows if r["n_clients"] == 1_000)
+    hi = next(r for r in rows if r["n_clients"] == 100_000)
+    ratio = hi["warm_round_ms"] / lo["warm_round_ms"]
+    check(ratio < 20.0, f"warm round wall 10^5/10^3 = {ratio:.2f}, not < 20")
+    top = rows[-1]["warm_round_ms"] / lo["warm_round_ms"]
+    print(f"  sublinear: warm round wall 10^5/10^3 = {ratio:.3f} (< 20), "
+          f"10^6/10^3 = {top:.3f}  ({card})")
+    return {"populations": rows, "wall_ratio_1e5_1e3": ratio,
+            "wall_ratio_1e6_1e3": top}
+
+
+def phase_cohort_topk(torch):
+    """Phase 14: ``cohort_topk`` on the card at 10^6 clients × 2 lanes
+    bitwise equal to ``cohort_topk_host``, unchunked and with 4 and 16
+    chunks; f32 uniforms (ties occur at 10^6) and scores quantised to 1/64
+    (ties at the top), 95 % available, k_eff 16 and 12.5."""
+    from repro_torch.core.selection import cohort_topk, cohort_topk_host
+
+    gen = torch.Generator().manual_seed(14)
+    n, k_max = 1_000_000, POP_KMAX
+    u = torch.rand(2, n, generator=gen)
+    avail = (torch.rand(2, n, generator=gen) < 0.95).float()
+    k_eff = torch.tensor([16.0, 12.5])
+    out = {}
+    for name, scores in (("uniform", u), ("quantised",
+                                          torch.floor(u * 64) / 64)):
+        h_idx, h_take = cohort_topk_host(scores.numpy(), avail.numpy(),
+                                         k_eff.numpy(), k_max)
+        ties = int((scores.numpy()[0, h_idx[0, :1]] ==
+                    scores.numpy()[0]).sum())
+        for chunks in (1, 4, 16):
+            idx, take = cohort_topk(scores.cuda(), avail.cuda(),
+                                    k_eff.cuda(), k_max, chunks=chunks)
+            check(torch.equal(idx.cpu(), torch.as_tensor(h_idx)) and
+                  torch.equal(take.cpu(), torch.as_tensor(h_take)),
+                  f"cohort_topk ({name}, chunks {chunks}) is not bitwise "
+                  f"cohort_topk_host at 10^6")
+        out[name] = {"clients_tied_with_the_top": ties}
+        print(f"  cohort_topk at [2, 10^6] ({name}; {ties} clients tie with "
+              f"lane 0's top score): card bitwise equal to the host oracle, "
+              f"chunks 1, 4 and 16")
+    return out
+
+
+def phase_cohort_card_vs_cpu(torch, dpk, rounds: int = 3):
+    """Phase 14: the cohort step card vs CPU on the same draws (10^3
+    clients, k_max 16; Markov at ε 8 and stragglers at ε 50, × 2 seeds,
+    3 rounds): equal ``cohort_idx`` and ``take``, state within rtol 1e-4 /
+    atol 1e-6, the DP kernels once each a round on the card."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.configs.base import params_lanes
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.data.synthetic import make_population
+    from repro_torch.models.spec import get_model_spec, meta_for
+    from repro_torch.tree import flatten_rows
+
+    n = 1_000
+    host = make_population(0, n_clients=n, pool_samples=2_000,
+                           members_per_client=16)
+    fl = dataclasses.replace(scale_config(n), clients_per_round=12,
+                             failure_prob=0.2, fault_process=1.0)
+    cells = [fl, dataclasses.replace(fl, fault_process=3.0, dp_epsilon=50.0)]
+    spec = get_model_spec(fl.model, meta_for(host, hidden=64))
+    pops = {dev: host.to(dev) for dev in ("cpu", "cuda")}
+    cpu_states = []
+    for seed in (0, 1):
+        gen = torch.Generator().manual_seed(seed)
+        cpu_states.append(rounds_lib.init_round_state(
+            spec.init(gen), fl, gen, n_clients=n,
+            data_size=pops["cpu"].data_size,
+            data_quality=pops["cpu"].data_quality))
+    lanes = [cpu_states[i % 2] for i in range(2 * len(cells))]
+    states = {"cpu": rounds_lib.stack_states(lanes),
+              "cuda": rounds_lib.stack_states([
+                  convert.round_state_from_jax(s.params, s.util, s.kctl,
+                                               s.fault, fl, "cuda")
+                  for s in lanes])}
+    steps = {dev: rounds_lib.make_cohort_round(spec.loss, fl, n, device=dev)
+             for dev in states}
+    prs = {dev: params_lanes(cells, 2, dev) for dev in states}
+    n_params = flatten_rows(cpu_states[0].params, 0).numel()
+    launches0 = sum(dpk.LAUNCHES.values())
+    worst = 0.0
+    for r in range(rounds):
+        gens = [torch.Generator().manual_seed(10 * r + i)
+                for i in range(len(lanes))]
+        draws = rounds_lib.draw_cohort_round(gens, n, fl.k_max,
+                                             fl.local_epochs, fl.local_batch,
+                                             n_params, fl.selection)
+        m = {}
+        for dev in states:
+            states[dev], m[dev] = steps[dev](states[dev], pops[dev],
+                                             prs[dev], draws.to(dev))
+        for name in ("cohort_idx", "take"):
+            check(torch.equal(getattr(m["cpu"], name),
+                              getattr(m["cuda"], name).cpu()),
+                  f"cohort step: {name} differs on round {r + 1}")
+        cpu, gpu = states["cpu"], states["cuda"]
+        pairs = [(flatten_rows(gpu.params), flatten_rows(cpu.params))]
+        pairs += list(zip(gpu.util, cpu.util)) + list(zip(gpu.kctl, cpu.kctl))
+        pairs += list(zip(gpu.fault, cpu.fault))
+        for a, c in pairs:
+            torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-6)
+            worst = max(worst, max_abs(a.cpu(), c))
+        print(f"  cohort step round {r + 1}: cohort_idx and take equal "
+              f"({m['cpu'].take.sum(dim=1).tolist()} trained a lane); state "
+              f"max|card-cpu| {worst:.3e}")
+    check(sum(dpk.LAUNCHES.values()) - launches0 == 2 * rounds,
+          "the card's cohort steps did not go through the DP kernels")
+    return worst
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1902,6 +2403,30 @@ def main() -> int:
     privacy = phase_privacy_frontier(torch, dpk)
     privacy["card_vs_cpu"] = phase_privacy_card_vs_cpu(torch, dpk)
 
+    print(f"== 13. plan frontier: bench_async's full settings, "
+          f"{len(PLAN_VARIANTS)} plans x {len(FAULT_LANES)} fault lanes x "
+          f"seeds 0-{ASYNC_SEEDS[-1]}, {ASYNC_ROUNDS} rounds  ({card})")
+    plans = phase_plan_frontier(torch, dpk, ref, card)
+    plans["card_vs_cpu_max_abs"] = phase_plan_card_vs_cpu(torch, dpk)
+    p_mlp = param_count("unsw", 64)
+    plans["dp_rows"] = check_dp_rows(
+        torch, dpk, ref, plans["lanes"] * ASYNC_CLIENTS, p_mlp,
+        "plan frontier")
+
+    print(f"== 14. population: bench_scale's full settings at "
+          f"{', '.join(f'{n:,}' for n in POP_SIZES)} clients, k_max "
+          f"{POP_KMAX}, seeds 0-{POP_SEEDS[-1]}, {POP_ROUNDS} rounds  ({card})")
+    population = phase_population(torch, dpk, card)
+    population["cohort_topk"] = phase_cohort_topk(torch)
+    population["card_vs_cpu_max_abs"] = phase_cohort_card_vs_cpu(torch, dpk)
+    population["dp_rows"] = check_dp_rows(
+        torch, dpk, ref, len(POP_SEEDS) * POP_KMAX, p_mlp, "population")
+    for k in kernels:
+        if k["name"] in ("sumsq_rows", "scale_noise_rows"):
+            k["launches_plan_frontier"] = plans["launches"][k["name"]]
+            k["launches_population_1e6"] = \
+                population["populations"][-1]["launches"][k["name"]]
+
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1911,8 +2436,8 @@ def main() -> int:
         "round_wall_ms_median_after_first": statistics.median(steady),
         "history": res.history, "eps_spent": res.eps_spent, "sweep": sweep,
         "serve": serve, "serve_launches": serve_launches,
-        "model_grid": grid, "privacy": privacy,
-        "total_s": time.perf_counter() - t_all,
+        "model_grid": grid, "privacy": privacy, "plan_frontier": plans,
+        "population": population, "total_s": time.perf_counter() - t_all,
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,5 +1,7 @@
 """The FL round engine — Algorithm 1 as one PyTorch round step: the port's
-copy of ``repro/core/rounds.py``'s ``client_parallel`` plan at plan code 0.
+copy of ``repro/core/rounds.py``'s ``client_parallel`` family (plan codes
+0 sync, 1 ``buffered_async``, 2 ``hierarchical``) and its
+``client_cohort`` plan.
 
 Algorithm 1 exists once, as the LANE step of :func:`make_lane_round`: it
 advances ``L`` independent runs (a sweep's seed×config lanes) together.
@@ -12,25 +14,35 @@ the functional params, the counterpart of the reference's
 are flattened to ``[L·n, P]`` rows in leaf order, privatised by the fused
 clip+noise kernel (``core/dp.py`` → ``kernels/ops.py``; the kernel takes
 one σ a row, so every lane's ε rides one launch), and aggregated as a
-masked weighted mean per lane.  :func:`make_parallel_round` is the one-run
-view of the same step (``L = 1``).  An optional ``update_gate`` (``[L]``
-0/1) withholds a lane's release (budget exhaustion under scheduled
-privacy, :func:`_gate_server_update`).  The other plan codes
-(buffered_async, hierarchical) and the ``client_serial`` plan raise: they
-are not ported yet.
+masked weighted mean per lane.  The ``plan_code`` lane picks, by
+``torch.where``, the staleness-weighted mean of ``buffered_async`` or the
+edge-then-cloud mean of ``hierarchical``; code-0 lanes are bitwise the
+synchronous plan, and no lane draws more random numbers.
+:func:`make_parallel_round` is the one-run view of the same step
+(``L = 1``).  An optional ``update_gate`` (``[L]`` 0/1) withholds a lane's
+release (budget exhaustion under scheduled privacy,
+:func:`_gate_server_update`).
+
+:func:`make_cohort_round` is the population-scale form: availability,
+scores, the cohort top-k and the failure processes run as ``[L, N]``
+vector ops, and training, DP and aggregation run on the gathered
+``[L, k_max]`` cohort only.  The ``client_serial`` plan raises: its only
+caller in the reference is the large-model launch path.
 
 Fault tolerance: failure times come from ``fault/process.py``; a client
 that fails at step f keeps ``c·⌊f/c⌋`` steps of work with checkpoints every
 ``c`` steps, or nothing without fault tolerance.
 
 Random draws: torch cannot reproduce JAX's threefry stream.  A round's
-variates form a :class:`RoundDraws` bundle, drawn from each lane's
-``torch.Generator`` on the device (:func:`draw_round`), or built by a
-caller (the parity tests rebuild the reference's own draws from its
-keys).  This is the port's counterpart of the key argument.
+variates form a :class:`RoundDraws` (or :class:`CohortDraws`) bundle, drawn
+from each lane's ``torch.Generator`` on the device (:func:`draw_round`,
+:func:`draw_cohort_round`), or built by a caller (the parity tests rebuild
+the reference's own draws from its keys).  This is the port's counterpart
+of the key argument.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -41,6 +53,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core import dp as dp_lib
 from repro_torch.core import selection as sel_lib
 from repro_torch.core.plans import get_plan
+from repro_torch.data.synthetic import Population, sample_cohort_batches
 from repro_torch.device import resolve_device
 from repro_torch.fault import process as fault_proc
 from repro_torch.optim.optimizers import AdamState, make_server_optimizer
@@ -285,8 +298,112 @@ def _rows(v, n: int):
     return v.repeat_interleave(n) if isinstance(v, torch.Tensor) else v
 
 
+def _coherence(deltas: torch.Tensor, agg_delta: torch.Tensor, mask):
+    """cos(Δ_i, Δ_agg) of each client row ``deltas [L, n, P]`` with its
+    lane's aggregate ``[L, P]``, times ``mask [L, n]``."""
+    agg_norm = torch.sqrt(torch.clamp(
+        torch.sum(agg_delta * agg_delta, dim=-1), min=1e-18))
+    nrm = torch.sqrt(torch.clamp(torch.sum(deltas * deltas, dim=-1),
+                                 min=1e-18))
+    num = torch.sum(deltas * agg_delta[:, None], dim=-1)
+    return num / (nrm * agg_norm[:, None]) * mask
+
+
+def _edge_sum(v: torch.Tensor, n_edges: int) -> torch.Tensor:
+    """Sums of ``v [L, n, ...]`` over the clients of each edge, client i
+    reporting to edge ``i % n_edges``: ``[L, n_edges, ...]``.  The client
+    axis is padded with zeros to a multiple of the edges and folded, so the
+    sums are a fixed reduction, not float atomics."""
+    lanes, n = v.shape[:2]
+    groups = -(-n // n_edges)
+    pad = groups * n_edges - n
+    if pad:
+        v = torch.cat([v, v.new_zeros((lanes, pad) + v.shape[2:])], dim=1)
+    return v.reshape(lanes, groups, n_edges, *v.shape[2:]).sum(dim=1)
+
+
+def _hier_aggregate(deltas: torch.Tensor, w_cli: torch.Tensor,
+                    n_edges: int) -> torch.Tensor:
+    """The ``hierarchical`` plan's update ``[L, P]``: each edge takes the
+    weighted mean of its clients' ``deltas [L, n, P]`` (weights ``w_cli
+    [L, n]``), and the cloud the unweighted mean over live edges (those
+    whose weight is nonzero)."""
+    edge_w = _edge_sum(w_cli, n_edges)                        # [L, E]
+    edge_live = (edge_w > 0).float()
+    n_live = torch.clamp(torch.sum(edge_live, dim=-1), min=1.0)
+    esum = _edge_sum(deltas.float() * w_cli[..., None], n_edges)
+    edelta = esum / torch.clamp(edge_w, min=1e-9)[..., None]
+    return (torch.sum(edelta * edge_live[..., None], dim=1)
+            / n_live[:, None])
+
+
+class _Release(NamedTuple):
+    """What :func:`_train_and_release` gives back for ``[L, m]`` client
+    rows."""
+
+    flat: torch.Tensor            # [L, P] released global model
+    server_state: Any
+    pre_loss: torch.Tensor        # [L, m]
+    post_loss: torch.Tensor       # [L, m]
+    norms: torch.Tensor           # [L, m] update norms (pre-clip)
+    contrib: torch.Tensor         # [L, m] selected rows with surviving work
+    coherence: Optional[torch.Tensor]   # [L, m], or None
+    global_loss: torch.Tensor     # [L]
+
+
+def _train_and_release(local_train: Callable, fl: FLConfig, pr: FLParams,
+                       server, state: RoundState, flat_params, batches,
+                       eff_steps, sel, dp_noise, aggregate: Callable,
+                       update_gate) -> _Release:
+    """Algorithm 1 from local training to the server's release, for the
+    ``[L, m]`` client rows of the lane step (``m = n``) or the cohort step
+    (``m = k_max``): local SGD, DP on the ``[L·m, P]`` rows (outside any
+    vmap: the CUDA kernels are called through ctypes), ``aggregate(deltas
+    [L, m, P], contrib [L, m]) -> [L, P]``, the server update and the
+    release gate."""
+    lanes, n_params = flat_params.shape
+    m = eff_steps.shape[-1]
+    with record_function("local_train"):
+        deltas, pre_loss, post_loss = local_train(state.params, batches,
+                                                  eff_steps, pr.local_lr)
+
+    # ---- DP: noise on updates, not on scores (lines 8-9) ----
+    with record_function("dp_privatize"):
+        if fl.dp_enabled:
+            rows, norms = dp_lib.privatize_rows(
+                deltas.reshape(lanes * m, n_params),
+                dp_noise.reshape(lanes * m, n_params),
+                mode=fl.dp_mode, clip=_rows(pr.dp_clip, m),
+                sigma=_rows(_dp_sigma(fl, pr), m))
+            deltas = rows.reshape(lanes, m, n_params)
+            norms = norms.reshape(lanes, m)
+        else:
+            norms = torch.sqrt(torch.sum(deltas * deltas, dim=-1))
+
+    # drop clients whose surviving work is zero
+    contrib = sel * (eff_steps > 0)
+
+    # ---- aggregation + server update (line 18) ----
+    with record_function("aggregate"):
+        agg_delta = aggregate(deltas, contrib)
+        new_flat, new_server_state = agg.apply_server_update(
+            server, flat_params, state.server_opt_state, agg_delta)
+        new_flat, new_server_state = _gate_server_update(
+            update_gate, new_flat, new_server_state, flat_params,
+            state.server_opt_state)
+
+    # ---- update-coherence (data-quality observable): cos(Δ_i, Δ_agg) ----
+    coherence = (_coherence(deltas, agg_delta, contrib)
+                 if fl.coherence_scoring else None)
+    sel_denom = torch.clamp(torch.sum(contrib, dim=-1), min=1.0)
+    global_loss = torch.sum(post_loss * contrib, dim=-1) / sel_denom
+    return _Release(new_flat, new_server_state, pre_loss, post_loss, norms,
+                    contrib, coherence, global_loss)
+
+
 def make_lane_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
-                    ckpt_every_steps: int = 2, device=None):
+                    ckpt_every_steps: int = 2, device=None,
+                    plan_codes: Optional[Sequence[float]] = None):
     """Build ``lane_step(state, batches, params, draws=None,
     update_gate=None) -> (state, metrics)``, Algorithm 1 for ``L`` lanes at
     once on ``device`` (``cuda`` unless ``"cpu"`` is asked).
@@ -294,22 +411,30 @@ def make_lane_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
     ``state``: the lanes' :class:`RoundState` (:func:`stack_states`).
     batches: ``{"x": [L, n, local_steps, b, d] f32, "y": [L, n,
     local_steps, b] int}``.  ``params``: :class:`FLParams` whose fields are
-    floats or ``[L]`` f32 tensors on the device; the caller has checked
-    that every lane's ``plan_code`` is 0.  ``draws``: the lanes'
-    :class:`RoundDraws`, or ``None`` to draw from ``state.rng``.
+    floats or ``[L]`` f32 tensors on the device; a lane's ``plan_code``
+    (0, 1 or 2) picks its plan within the ``client_parallel`` family.
+    ``draws``: the lanes' :class:`RoundDraws`, or ``None`` to draw from
+    ``state.rng``.
     ``update_gate``: ``[L]`` 0/1, or ``None`` (:func:`_gate_server_update`).
+    ``plan_codes``: the codes the lanes may carry (a sweep knows its
+    cells'), or ``None`` for all three; the async and hier blocks are
+    built only for a code present (on other lanes their selects are
+    identities, so leaving them out changes no bit).
     Metrics are ``[L, n]`` per client and ``[L]`` per lane.  The step
     issues no host synchronisation."""
     device = resolve_device(device)
     plan = get_plan(fl.plan)
-    if plan.family != "client_parallel" or plan.code != 0.0:
+    if plan.family != "client_parallel":
         raise NotImplementedError(
-            f"the PyTorch port builds only the synchronous client_parallel "
-            f"plan (code 0); plan {fl.plan!r} is not ported yet")
+            f"the lane step runs the client_parallel family (sync, "
+            f"buffered_async, hierarchical); plan {fl.plan!r} is of family "
+            f"{plan.family!r}")
     strategy = sel_lib.get_strategy(fl.selection)
     local_train = _local_train_fn(loss_fn)
     k_max = int(fl.k_max or n_clients)
     n = n_clients
+    n_edges = max(int(fl.hierarchy_edges), 1)
+    codes = {0.0, 1.0, 2.0} if plan_codes is None else set(plan_codes)
 
     def lane_step(state: RoundState, batches, pr: FLParams,
                   draws: Optional[RoundDraws] = None,
@@ -350,73 +475,70 @@ def make_lane_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
         eff_steps, failed = _effective_steps(
             fail_at, local_steps, ckpt_every_steps, fl.fault_tolerance)
 
-        # ---- local training, in parallel over lanes × clients (line 5) ----
-        with record_function("local_train"):
-            deltas, pre_loss, post_loss = local_train(state.params, batches,
-                                                      eff_steps, pr.local_lr)
+        code = as_f32(col.plan_code, flat_params)   # [L, 1] or 0-d
 
-        # ---- DP: noise on updates, not on scores (lines 8-9) ----
-        # on the L·n flattened rows, outside any vmap: the CUDA kernels are
-        # called through ctypes
-        with record_function("dp_privatize"):
-            if fl.dp_enabled:
-                rows, norms = dp_lib.privatize_rows(
-                    deltas.reshape(lanes * n, n_params),
-                    draws.dp_noise.reshape(lanes * n, n_params),
-                    mode=fl.dp_mode, clip=_rows(pr.dp_clip, n),
-                    sigma=_rows(_dp_sigma(fl, pr), n))
-                deltas = rows.reshape(lanes, n, n_params)
-                norms = norms.reshape(lanes, n)
-            else:
-                norms = torch.sqrt(torch.sum(deltas * deltas, dim=-1))
+        def aggregate(deltas, contrib_mask):
+            agg_mask = contrib_mask
+            if 1.0 in codes:
+                # buffered_async (code 1): every contributor's update lands
+                # this round, discounted by how many K-sized buffer flushes
+                # precede its arrival: staleness s = ⌊rank/K⌋, weight
+                # (1+s)^-pow.  Arrival order comes from the failure
+                # processes' slow factors and the compute capacities, not
+                # from new draws; on other lanes the weight is exactly 1.0
+                with record_function("async_buffer"):
+                    arrive = fault_proc.arrival_score(slow,
+                                                      state.util.compute)
+                    arrive = torch.where(contrib_mask > 0, arrive,
+                                         torch.full_like(arrive, math.inf))
+                    rank = torch.argsort(
+                        torch.argsort(arrive, dim=-1, stable=True),
+                        dim=-1, stable=True).float()
+                    stale = torch.floor(rank / torch.clamp(
+                        as_f32(col.async_buffer, rank), min=1.0))
+                    stale_w = torch.pow(
+                        1.0 + stale, -as_f32(col.async_staleness_pow, rank))
+                    agg_mask = contrib_mask * torch.where(
+                        code == 1.0, stale_w, torch.ones_like(stale_w))
+            flat = agg.aggregate_stacked(deltas, agg_mask,
+                                         state.util.data_size)
+            if 2.0 not in codes:
+                return flat
+            # hierarchical (code 2): edge FedAvg, then the cloud's mean
+            with record_function("hier_aggregate"):
+                hier = _hier_aggregate(
+                    deltas, agg_mask * state.util.data_size, n_edges)
+            return torch.where(code == 2.0, hier, flat)
 
-        # drop clients whose surviving work is zero
-        contrib_mask = sel_mask * (eff_steps > 0)
-
-        # ---- aggregation + server update (line 18) ----
-        with record_function("aggregate"):
-            agg_delta = agg.aggregate_stacked(deltas, contrib_mask,
-                                              state.util.data_size)
-            new_flat, new_server_state = agg.apply_server_update(
-                server, flat_params, state.server_opt_state, agg_delta)
-            new_flat, new_server_state = _gate_server_update(
-                update_gate, new_flat, new_server_state, flat_params,
-                state.server_opt_state)
-
-        # ---- update-coherence (data-quality observable): cos(Δ_i, Δ_agg) ----
-        if fl.coherence_scoring:
-            agg_norm = torch.sqrt(torch.clamp(
-                torch.sum(agg_delta * agg_delta, dim=-1), min=1e-18))
-            nrm = torch.sqrt(torch.clamp(torch.sum(deltas * deltas, dim=-1),
-                                         min=1e-18))
-            num = torch.sum(deltas * agg_delta[:, None], dim=-1)
-            coherence = num / (nrm * agg_norm[:, None]) * contrib_mask
-        else:
-            coherence = None
+        # ---- local training over lanes × clients (line 5) → release ----
+        rel = _train_and_release(local_train, fl, pr, server, state,
+                                 flat_params, batches, eff_steps, sel_mask,
+                                 draws.dp_noise, aggregate, update_gate)
+        contrib_mask = rel.contrib
 
         # ---- bookkeeping ----
-        sel_denom = torch.clamp(torch.sum(contrib_mask, dim=-1), min=1.0)
-        global_loss = torch.sum(post_loss * contrib_mask, dim=-1) / sel_denom
         failed_f = failed.float()
-        util = sel_lib.update_utility_state(state.util, contrib_mask, pre_loss,
-                                            post_loss, fl, coherence=coherence,
-                                            attempted=sel_mask, failed=failed_f)
-        kctl = sel_lib.update_k(state.kctl, global_loss, fl,
+        util = sel_lib.update_utility_state(
+            state.util, contrib_mask, rel.pre_loss, rel.post_loss, fl,
+            coherence=rel.coherence, attempted=sel_mask, failed=failed_f)
+        kctl = sel_lib.update_k(state.kctl, rel.global_loss, fl,
                                 tol=pr.k_tol, patience=pr.k_patience)
 
         like = tree_map(lambda a: a[0], state.params)
-        new_state = RoundState(unflatten_rows(new_flat, like),
-                               new_server_state, util, kctl,
+        new_state = RoundState(unflatten_rows(rel.flat, like),
+                               rel.server_state, util, kctl,
                                state.round_idx + 1, state.rng, new_fault)
-        metrics = RoundMetrics(sel_mask, avail, failed_f, pre_loss, post_loss,
-                               global_loss, k_eff, norms, slow)
+        metrics = RoundMetrics(sel_mask, avail, failed_f, rel.pre_loss,
+                               rel.post_loss, rel.global_loss, k_eff,
+                               rel.norms, slow)
         return new_state, metrics
 
     return lane_step
 
 
 def make_parallel_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
-                        ckpt_every_steps: int = 2, device=None):
+                        ckpt_every_steps: int = 2, device=None,
+                        plan_codes: Optional[Sequence[float]] = None):
     """Build ``round_step(state, batches, params=None, draws=None,
     update_gate=None) -> (state, metrics)`` for one run on ``device``
     (``cuda`` unless ``"cpu"`` is asked): the lane step of
@@ -426,9 +548,9 @@ def make_parallel_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
     int}`` on the device.  ``params``: runtime :class:`FLParams` (``None``
     uses ``fl``'s).  ``draws``: a :class:`RoundDraws` on the device, or
     ``None`` to draw from ``state.rng``.  ``update_gate``: a 0-d 0/1
-    tensor, or ``None``."""
+    tensor, or ``None``.  ``plan_codes``: as in :func:`make_lane_round`."""
     lane_step = make_lane_round(loss_fn, fl, n_clients, ckpt_every_steps,
-                                device)
+                                device, plan_codes)
     default_params = fl_params(fl)
 
     def round_step(state: RoundState, batches,
@@ -437,9 +559,6 @@ def make_parallel_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                    update_gate: Optional[torch.Tensor] = None
                    ) -> Tuple[RoundState, RoundMetrics]:
         pr = default_params if params is None else params
-        if float(pr.plan_code) != 0.0:
-            raise NotImplementedError(
-                f"plan_code {pr.plan_code} is not ported yet")
         lanes, metrics = lane_step(
             stack_states([state]), {k: v[None] for k, v in batches.items()},
             pr,
@@ -448,3 +567,207 @@ def make_parallel_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
         return lane_state(lanes, 0), RoundMetrics(*(t[0] for t in metrics))
 
     return round_step
+
+
+# ---------------------------------------------------------------------------
+# client_cohort plan (population scale: train the gathered cohort only)
+# ---------------------------------------------------------------------------
+
+
+class CohortMetrics(NamedTuple):
+    """Round metrics in cohort form: ``[L, k_max]`` where
+    :class:`RoundMetrics` was ``[L, n]``, plus population scalars ``[L]``."""
+
+    cohort_idx: torch.Tensor    # [L, k_max] int64 selected client ids
+    take: torch.Tensor          # [L, k_max] live-slot mask (rank < k_eff)
+    failed: torch.Tensor        # [L, k_max] failure indicator (cohort)
+    slow: torch.Tensor          # [L, k_max] straggler stretch (cohort)
+    pre_loss: torch.Tensor      # [L, k_max]
+    post_loss: torch.Tensor     # [L, k_max]
+    global_loss: torch.Tensor   # [L]
+    k_effective: torch.Tensor   # [L]
+    update_norms: torch.Tensor  # [L, k_max]
+    fail_frac: torch.Tensor     # [L] population-wide failure fraction
+
+
+class CohortDraws(NamedTuple):
+    """One cohort round's random variates for ``L`` lanes: the population
+    vectors ``avail_u``/``sel_noise [L, N]``, ``fault_u [L, 4, N]`` and
+    ``fault_steps [L, 3, N]`` as in :class:`RoundDraws`, and for the cohort
+    rows ``dp_noise [L, k_max, P]`` and ``batch_u [L, k_max, local_steps,
+    batch]`` (uniforms that become member positions).  ``batch_idx``
+    (member positions) and ``shift [L, k_max, d]`` override the sampler's
+    own, as the parity tests feed the reference's; ``None`` leaves them to
+    :func:`~repro_torch.data.synthetic.sample_cohort_batches`."""
+
+    avail_u: torch.Tensor
+    sel_noise: torch.Tensor
+    fault_u: torch.Tensor
+    fault_steps: torch.Tensor
+    dp_noise: torch.Tensor
+    batch_u: Optional[torch.Tensor] = None
+    batch_idx: Optional[torch.Tensor] = None
+    shift: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "CohortDraws":
+        return CohortDraws(*(None if t is None else t.to(device)
+                             for t in self))
+
+    @staticmethod
+    def empty(lanes: int, n: int, k_max: int, local_steps: int, batch: int,
+              n_params: int, device) -> "CohortDraws":
+        """Buffers for ``lanes`` lanes' draws (:func:`draw_cohort_round`'s
+        ``out``)."""
+        d = RoundDraws.empty(lanes, n, 0, device)
+        return CohortDraws(
+            *d[:4], dp_noise=torch.empty(lanes, k_max, n_params,
+                                         device=device),
+            batch_u=torch.empty(lanes, k_max, local_steps, batch,
+                                device=device))
+
+    @staticmethod
+    def stack(draws: Sequence["CohortDraws"]) -> "CohortDraws":
+        """One bundle a lane -> the lanes' bundle."""
+        return CohortDraws(*(None if ts[0] is None else torch.stack(ts)
+                             for ts in zip(*draws)))
+
+
+def draw_cohort_round(gens: Sequence[torch.Generator], n: int, k_max: int,
+                      local_steps: int, batch: int, n_params: int,
+                      selection: str,
+                      out: Optional[CohortDraws] = None) -> CohortDraws:
+    """Draw one cohort round's :class:`CohortDraws` for every lane from
+    ``gens``: :func:`draw_round`'s variates in its order (the DP noise for
+    the ``k_max`` cohort rows), then the batch uniforms."""
+    if out is None:
+        out = CohortDraws.empty(len(gens), n, k_max, local_steps, batch,
+                                n_params, gens[0].device)
+    d = draw_round(gens, n, local_steps, n_params, selection,
+                   out=RoundDraws(*out[:5]))
+    for u, gen in zip(out.batch_u, gens):
+        u.uniform_(generator=gen)
+    return out._replace(sel_noise=d.sel_noise)
+
+
+def make_cohort_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
+                      ckpt_every_steps: int = 2, sel_chunks: int = 1,
+                      device=None):
+    """Build the population-scale round ``cohort_step(state, pop, params,
+    draws=None, update_gate=None) -> (state, CohortMetrics)`` for ``L``
+    lanes on ``device`` (``cuda`` unless ``"cpu"`` is asked).
+
+    Algorithm 1 as :func:`make_lane_round` runs it, restructured so that a
+    round's compute is O(k_max) and only vector work touches all ``N``
+    clients:
+
+    1. availability, utility scores and the failure processes as ``[L, N]``
+       vector ops;
+    2. :func:`~repro_torch.core.selection.cohort_topk` picks each lane's
+       ``ceil(k_eff)`` cohort on the device (``sel_chunks`` chunks,
+       bitwise-neutral);
+    3. :func:`~repro_torch.data.synthetic.sample_cohort_batches` gathers
+       only the cohort's data;
+    4. local training, DP (``dp_lib.privatize_rows`` on the ``[L·k_max, P]``
+       rows: the K1a/K1b kernels, one σ a row) and aggregation run over
+       the ``k_max`` cohort slots;
+    5. the per-client carries (utility EMAs, ``fail_ema``, the fault
+       state) update at the cohort's columns by ``scatter_`` (the cohort's
+       ids are distinct, so it is deterministic).
+
+    ``pop``: a :class:`~repro_torch.data.synthetic.Population` on the
+    device.  ``fl.k_max`` must be a positive static (it sizes the cohort).
+    The step issues no host synchronisation."""
+    device = resolve_device(device)
+    score_fn = sel_lib.get_score_fn(fl.selection)
+    if not fl.k_max or int(fl.k_max) <= 0:
+        raise ValueError(
+            "the client_cohort plan needs an explicit positive FLConfig."
+            "k_max (it is the static cohort size gathered to the compute "
+            "lanes); the dense default 0 -> n_clients would train the "
+            "whole population")
+    local_train = _local_train_fn(loss_fn)
+    k_max = int(fl.k_max)
+    local_steps, batch = int(fl.local_epochs), int(fl.local_batch)
+    n = n_clients
+
+    def cohort_step(state: RoundState, pop: Population, pr: FLParams,
+                    draws: Optional[CohortDraws] = None,
+                    update_gate: Optional[torch.Tensor] = None
+                    ) -> Tuple[RoundState, CohortMetrics]:
+        flat_params = flatten_rows(state.params)
+        if flat_params.device != device:
+            raise ValueError(f"state is on {flat_params.device}, the round "
+                             f"step was built for {device}")
+        lanes, n_params = flat_params.shape
+        col = FLParams(*map(_column, pr))
+        server = make_server_optimizer(fl.server_opt, col.server_lr)
+        if draws is None:
+            draws = draw_cohort_round(state.rng, n, k_max, local_steps, batch,
+                                      n_params if fl.dp_enabled else 0,
+                                      fl.selection)
+
+        # ---- O(N) population vector phase ----
+        with record_function("selection"):
+            avail = (draws.avail_u < as_f32(col.avail_prob,
+                                            draws.avail_u)).float()
+            utility = sel_lib.compute_utility(state.util, fl,
+                                              fault_w=col.fault_util_w)
+            k_eff = (state.kctl.k if fl.adaptive_k
+                     else torch.full((lanes,), float(fl.clients_per_round),
+                                     device=device))
+            k_eff = torch.clamp(k_eff, max=float(k_max))
+            scores = score_fn(draws.sel_noise, state.util, utility, avail,
+                              col.explore_noise)
+            idx, take = sel_lib.cohort_topk(scores, avail, k_eff, k_max,
+                                            chunks=sel_chunks)
+        fail_at_full, slow_full, new_fault = fault_proc.fault_step(
+            state.fault, draws.fault_u, draws.fault_steps, col, n,
+            local_steps)
+
+        # ---- cohort gather + O(k_max) training phase ----
+        fail_at, slow = fault_proc.gather_cohort(fail_at_full, slow_full,
+                                                 idx)
+        eff_steps, failed = _effective_steps(
+            fail_at, local_steps, ckpt_every_steps, fl.fault_tolerance)
+        batches = sample_cohort_batches(pop, idx, local_steps, batch,
+                                        u=draws.batch_u,
+                                        batch_idx=draws.batch_idx,
+                                        shift=draws.shift)
+        data_size = torch.gather(state.util.data_size, -1, idx)
+        rel = _train_and_release(
+            local_train, fl, pr, server, state, flat_params, batches,
+            eff_steps, take, draws.dp_noise,
+            lambda deltas, contrib: agg.aggregate_stacked(deltas, contrib,
+                                                          data_size),
+            update_gate)
+        contrib = rel.contrib
+
+        # ---- scatter back into the [L, N] carries ----
+        def scatter(vals_c):
+            return torch.zeros_like(avail).scatter_(-1, idx, vals_c)
+
+        failed_f = failed.float()
+        util = sel_lib.update_utility_state(
+            state.util, scatter(contrib),
+            scatter(rel.pre_loss * contrib), scatter(rel.post_loss * contrib),
+            fl,
+            coherence=(None if rel.coherence is None
+                       else scatter(rel.coherence)),
+            attempted=scatter(take), failed=scatter(failed_f * take))
+        kctl = sel_lib.update_k(state.kctl, rel.global_loss, fl,
+                                tol=pr.k_tol, patience=pr.k_patience)
+
+        like = tree_map(lambda a: a[0], state.params)
+        new_state = RoundState(unflatten_rows(rel.flat, like),
+                               rel.server_state, util, kctl,
+                               state.round_idx + 1, state.rng, new_fault)
+        metrics = CohortMetrics(
+            cohort_idx=idx, take=take, failed=failed_f * take, slow=slow,
+            pre_loss=rel.pre_loss, post_loss=rel.post_loss,
+            global_loss=rel.global_loss, k_effective=k_eff,
+            update_norms=rel.norms,
+            fail_frac=torch.mean((fail_at_full < local_steps).float(),
+                                 dim=-1))
+        return new_state, metrics
+
+    return cohort_step

@@ -1,5 +1,6 @@
-"""Client selection (paper §IV-A, Algorithm 1): the port's copy of the
-dense half of ``repro/core/selection.py``.
+"""Client selection (paper §IV-A, Algorithm 1): the port's copy of
+``repro/core/selection.py``, dense strategies and the population engine's
+cohort draw (:func:`cohort_topk`).
 
 Utility scores combine performance contribution, data quality, compute
 capacity and a staleness bonus; they drive SelectTopK, and the adaptive
@@ -22,6 +23,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.base import FLConfig
 
@@ -187,6 +189,91 @@ NOISE_KIND = {
 
 def get_strategy(name: str) -> Callable:
     return _STRATEGIES[name]
+
+
+_SCORES = {
+    "adaptive_utility": score_adaptive_utility,
+    "random": score_random,
+    "acfl": score_acfl,
+    "adafl": score_adafl,
+}
+
+
+def get_score_fn(name: str) -> Callable:
+    """Score function of the population engine's cohort plan.  A strategy
+    whose selection is not one score pass (``power_of_choice``: its
+    candidate stage needs ``k_max``) has none and raises."""
+    try:
+        return _SCORES[name]
+    except KeyError:
+        raise ValueError(
+            f"selection strategy {name!r} has no score function — the "
+            f"population cohort plan supports {tuple(_SCORES)}") from None
+
+
+def cohort_strategy_names():
+    return tuple(_SCORES)
+
+
+# ---------------------------------------------------------------------------
+# On-device cohort sampling (the population engine)
+# ---------------------------------------------------------------------------
+
+
+def _topk_stable(x: torch.Tensor, k: int):
+    """``(values, indices)`` of the ``k`` largest along the last axis, ties
+    to the lower index as ``lax.top_k`` breaks them (``torch.topk`` does not
+    promise an order among equals): a stable sort of the negated values."""
+    idx = torch.argsort(-x, dim=-1, stable=True)[..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
+def cohort_topk(scores: torch.Tensor, avail: torch.Tensor, k_eff, k_max: int,
+                chunks: int = 1):
+    """Top-``k_max`` cohort of the score lanes ``[L, N]`` (or one run's
+    ``[N]``): ``(idx [L, k_max] int64, take [L, k_max] f32)``.
+
+    The index form of :func:`_topk_mask`: scattering ``take`` at ``idx``
+    gives its dense mask.  ``take`` zeroes the ranks at or above the
+    lane's ``k_eff`` (a number or ``[L]``) and any slot that fell to an
+    unavailable client.  ``chunks`` > 1 (with ``N % chunks == 0`` and
+    ``N // chunks >= k_max``) takes each chunk's top ``k_max`` and merges
+    them; the candidates stand chunk-major, then index-major, which is
+    global index order among equal values, so the merge is bitwise the
+    unchunked draw."""
+    with record_function("cohort_topk"):
+        masked = torch.where(avail > 0, scores,
+                             torch.full_like(scores, F32_MIN))
+        lead, n = masked.shape[:-1], masked.shape[-1]
+        chunks = int(chunks)
+        if chunks > 1 and n % chunks == 0 and n // chunks >= k_max:
+            per = n // chunks
+            v, i = _topk_stable(masked.reshape(*lead, chunks, per), k_max)
+            i = i + (torch.arange(chunks, device=i.device) * per)[:, None]
+            vals, j = _topk_stable(v.reshape(*lead, chunks * k_max), k_max)
+            idx = torch.gather(i.reshape(*lead, chunks * k_max), -1, j)
+        else:
+            vals, idx = _topk_stable(masked, k_max)
+        if isinstance(k_eff, torch.Tensor):
+            k_eff = k_eff[..., None]
+        ranks = torch.arange(k_max, device=masked.device)
+        take = (ranks < k_eff).float() * (vals > F32_MIN)
+        return idx, take
+
+
+def cohort_topk_host(scores, avail, k_eff, k_max: int):
+    """NumPy oracle of :func:`cohort_topk` (the reference's): a stable sort
+    (lower index first among ties) and the same availability masking, over
+    the last axis; ``k_eff`` is a number or one a row."""
+    import numpy as np
+    scores = np.asarray(scores, np.float32)
+    neg = np.finfo(np.float32).min
+    masked = np.where(np.asarray(avail) > 0, scores, neg).astype(np.float32)
+    idx = np.argsort(-masked, axis=-1, kind="stable")[..., :k_max]
+    k_eff = np.asarray(k_eff, np.float32)[..., None]
+    take = ((np.arange(k_max) < k_eff)
+            & (np.take_along_axis(masked, idx, -1) > neg)).astype(np.float32)
+    return idx.astype(np.int64), take
 
 
 # ---------------------------------------------------------------------------

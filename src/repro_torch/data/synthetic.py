@@ -18,16 +18,23 @@ The port's copy of ``repro/data/synthetic.py``.  The NumPy generators are
 the same code drawing the same NumPy generator in the same order, so a seed
 gives bitwise the same arrays in both packages.  The device-side federation
 (``StackedFederation``, ``stack_federation``, ``sample_round_batches``)
-feeds the sweep engine; the population federation of the reference is not
-ported yet.
+feeds the sweep engine; the population federation (``Population``,
+``make_population``, ``sample_cohort_batches``) feeds the population
+engine.  The one part the port cannot copy is the population's per-client
+covariate shift, which the reference draws from ``fold_in(shift_key,
+client_id)``: the port's is a stateless counter-based draw
+(:func:`cohort_shift`).
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 UNSW_N_FEATURES = 42
 UNSW_N_CLASSES = 10
@@ -377,3 +384,239 @@ def sample_round_batches(stack: StackedFederation,
     x = stack.x.reshape(n * max_n, -1).index_select(0, rows)
     y = stack.y.reshape(-1).index_select(0, rows)
     return {"x": x.reshape(*idx.shape, -1), "y": y.reshape(idx.shape)}
+
+
+# ---------------------------------------------------------------------------
+# Population-scale federation: lazy client shards over a shared sample pool,
+# consumed by the population engine in train/fl_driver.py
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Population:
+    """A 10^5–10^6-client federation without materialised shards.
+
+    * ``pool_x/pool_y`` — one shared sample pool (O(pool), not O(N));
+    * ``member_idx [N, m] i32`` — each client's shard as rows into the pool;
+    * ``member_size [N] i32`` — valid prefix per client;
+    * ``data_size``/``data_quality [N] f32`` — the utility state's inputs;
+    * the per-client covariate shift is drawn at batch-sampling time from
+      ``(shift_seed, client_id, feature)`` (:func:`cohort_shift`), so it
+      holds no ``[N, d]`` memory.
+
+    The arrays are NumPy on the host (:func:`make_population`) or tensors
+    on a device (:meth:`to`: labels become int64, torch's index type;
+    ``member_idx`` stays int32).  ``shapes()`` is the runner-cache
+    fingerprint.  Memory accounting lives in ``core/scale.py``."""
+
+    pool_x: Any          # [pool, d] f32 shared sample pool (train)
+    pool_y: Any          # [pool] i32
+    member_idx: Any      # [n_clients, m] i32 rows into the pool
+    member_size: Any     # [n_clients] i32 valid members (<= m)
+    data_size: Any       # [n_clients] f32 normalised shard size
+    data_quality: Any    # [n_clients] f32 label-entropy proxy
+    shift_seed: int      # (seed ^ 0x5CA1E) & 0xFFFFFFFF
+    test_x: Any          # [n_test, d] f32
+    test_y: Any          # [n_test] i32
+    feature_shift: float = 0.15
+    feature_shape: Optional[Tuple[int, ...]] = None
+
+    _ARRAYS = ("pool_x", "pool_y", "member_idx", "member_size", "data_size",
+               "data_quality", "test_x", "test_y")
+
+    @property
+    def n_clients(self) -> int:
+        return self.member_idx.shape[0]
+
+    @property
+    def n_features(self) -> int:
+        return self.pool_x.shape[1]
+
+    @property
+    def n_classes(self) -> int:
+        return 2
+
+    @property
+    def members_per_client(self) -> int:
+        return self.member_idx.shape[1]
+
+    def shapes(self) -> Tuple:
+        """Shape fingerprint (the population engine's runner cache key)."""
+        return (tuple((tuple(getattr(self, k).shape),
+                       str(getattr(self, k).dtype)) for k in self._ARRAYS),
+                self.feature_shift, self.feature_shape)
+
+    def to(self, device) -> "Population":
+        """The population's arrays on ``device``, in one copy each."""
+        def put(name):
+            a = torch.as_tensor(getattr(self, name), device=device)
+            return a.long() if name in ("pool_y", "test_y") else a
+        return dataclasses.replace(self, **{k: put(k) for k in self._ARRAYS})
+
+
+def make_population(
+    seed: int,
+    dataset: str = "unsw",
+    n_clients: int = 100_000,
+    pool_samples: int = 8_000,
+    members_per_client: int = 32,
+    alpha: float = 0.5,
+    test_frac: float = 0.25,
+    feature_shift: float = 0.15,
+    chunk_clients: int = 16_384,
+) -> Population:
+    """Generate a :class:`Population` lazily: the client axis is built in
+    ``chunk_clients``-sized NumPy chunks, so peak host memory is
+    O(chunk × m), never O(N × samples).
+
+    Non-IID structure matches :func:`make_federated` in kind: per-client
+    Beta(α, α) label propensity decides each client's attack share,
+    membership rows are drawn from the matching class buckets of the pool,
+    and the per-client covariate shift is deferred to batch sampling
+    (:func:`sample_cohort_batches`)."""
+    rng = np.random.default_rng(seed)
+    feature_shape = None
+    if dataset == "unsw":
+        X, _, y = unsw_nb15_like(rng, pool_samples)
+    elif dataset == "road":
+        X, y, _ = road_like(rng, pool_samples)
+    elif dataset == "road_raw":
+        window, n_signals = 64, 6
+        X, y, _ = road_like(rng, pool_samples, window=window,
+                            n_signals=n_signals, raw=True)
+        feature_shape = (window, n_signals)
+    else:
+        raise ValueError(dataset)
+    n_test = int(len(X) * test_frac)
+    perm = rng.permutation(len(X))
+    test_i, train_i = perm[:n_test], perm[n_test:]
+    Xtr, ytr = X[train_i], y[train_i]
+
+    buckets = [np.flatnonzero(ytr == c) for c in (0, 1)]
+    if any(len(b) == 0 for b in buckets):
+        raise ValueError("pool has an empty class — enlarge pool_samples")
+
+    m = int(members_per_client)
+    member_size = rng.integers(max(m // 2, 1), m + 1,
+                               n_clients).astype(np.int32)
+    member_idx = np.empty((n_clients, m), np.int32)
+    quality = np.empty((n_clients,), np.float32)
+    for lo in range(0, n_clients, chunk_clients):
+        hi = min(lo + chunk_clients, n_clients)
+        c = hi - lo
+        p1 = rng.beta(alpha, alpha, c)                    # binary Dirichlet
+        n1 = rng.binomial(m, p1)
+        cols = np.arange(m)[None, :]
+        is1 = cols < n1[:, None]                          # [c, m] class plan
+        rows = np.where(
+            is1,
+            buckets[1][rng.integers(0, len(buckets[1]), (c, m))],
+            buckets[0][rng.integers(0, len(buckets[0]), (c, m))],
+        )
+        # shuffle within each row so the member_size prefix stays a fair
+        # mix of the client's classes
+        order = rng.random((c, m)).argsort(axis=1)
+        rows = np.take_along_axis(rows, order, axis=1)
+        member_idx[lo:hi] = rows
+        lab = ytr[rows]                                   # [c, m]
+        valid = cols < member_size[lo:hi][:, None]
+        p = (lab * valid).sum(1) / np.maximum(member_size[lo:hi], 1)
+        p = np.clip(p, 1e-9, 1 - 1e-9)
+        quality[lo:hi] = -(p * np.log(p) + (1 - p) * np.log(1 - p)) / np.log(2)
+
+    sizes = member_size.astype(np.float32)
+    return Population(
+        pool_x=Xtr,
+        pool_y=ytr.astype(np.int32),
+        member_idx=member_idx,
+        member_size=member_size,
+        data_size=sizes / sizes.mean(),
+        data_quality=quality,
+        shift_seed=(int(seed) ^ 0x5CA1E) & 0xFFFFFFFF,
+        test_x=X[test_i],
+        test_y=y[test_i].astype(np.int32),
+        feature_shift=float(feature_shift),
+        feature_shape=feature_shape,
+    )
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x·c mod 2^32`` for ``x`` in [0, 2^32) (an int64 tensor or a Python
+    int) and a 32-bit constant, in two 16-bit halves of ``c`` so that no
+    product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def _hash32(x):
+    """A 32-bit integer finaliser (xor-shift-multiply, constants of
+    Wellons' ``lowbias32``) on values in [0, 2^32): int64 tensors or Python
+    ints, with the same result."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def cohort_shift(shift_seed: int, client_idx: torch.Tensor, d: int,
+                 scale: float) -> torch.Tensor:
+    """The covariate shift of the clients ``client_idx [...]``:
+    ``scale · z [..., d]`` with ``z`` standard normal, a pure function of
+    ``(shift_seed, client_id, feature)``.  A counter-based draw: two 24-bit
+    uniforms a (client, feature) from a hash of the three integers, then
+    Box–Muller.  The same client gets the same shift in every round and
+    every lane, and nothing of size ``[N, d]`` is ever held."""
+    dev = client_idx.device
+    key = _hash32(int(shift_seed) & _MASK32)   # on the host: no copy
+    client = _hash32((client_idx.long() & _MASK32) ^ key)[..., None]
+    feature = torch.arange(d, device=dev) * 2
+
+    def uniform(counter):      # (0, 1], 24 bits
+        h = _hash32(client ^ counter)
+        return ((h >> 8) + 1).float() * (1.0 / (1 << 24))
+
+    u1, u2 = uniform(feature), uniform(feature + 1)
+    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+    return scale * z
+
+
+def sample_cohort_batches(pop: Population, cohort_idx: torch.Tensor,
+                          local_steps: int, batch: int,
+                          u: Optional[torch.Tensor] = None,
+                          batch_idx: Optional[torch.Tensor] = None,
+                          shift: Optional[torch.Tensor] = None
+                          ) -> Dict[str, torch.Tensor]:
+    """The cohort gather: batches of the selected clients only, leaves
+    ``[L, k_max, local_steps, batch, ...]``, whatever the population's size.
+
+    Cohort slot ``(l, s)`` is client ``cohort_idx[l, s]``; its sample rows
+    are ``floor(u · size)`` (``u [L, k_max, local_steps, batch]`` uniforms
+    from the lane's generator, ``size`` its valid members, clamped to
+    ``size − 1``) into its membership row, and its covariate shift is
+    :func:`cohort_shift`'s.  ``batch_idx`` (member positions) and ``shift``
+    (``[L, k_max, d]``) override the drawn ones, as the parity tests feed
+    the reference's."""
+    with record_function("sample_cohort_batches"):
+        lanes, k = cohort_idx.shape
+        mem = pop.member_idx.index_select(0, cohort_idx.reshape(-1))
+        if batch_idx is None:
+            size = torch.clamp(pop.member_size.index_select(
+                0, cohort_idx.reshape(-1)).long(), min=1)
+            size = size.reshape(lanes, k, 1, 1)
+            batch_idx = torch.minimum(torch.floor(u * size).long(), size - 1)
+        rows = torch.gather(mem.long(), 1,
+                            batch_idx.reshape(lanes * k, -1)).reshape(-1)
+        d = pop.pool_x.shape[1]
+        if shift is None:
+            shift = cohort_shift(pop.shift_seed, cohort_idx, d,
+                                 pop.feature_shift)
+        x = pop.pool_x.index_select(0, rows).reshape(
+            lanes, k, local_steps, batch, d) + shift[:, :, None, None]
+        y = pop.pool_y.index_select(0, rows).reshape(lanes, k, local_steps,
+                                                     batch)
+        return {"x": x, "y": y}

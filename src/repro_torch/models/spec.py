@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels.ops import DEFAULT_ROUTE
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.mlp import cross_entropy  # noqa: F401  (re-export)
+from repro_torch.tree import tree_leaves
 
 
 class DataMeta(NamedTuple):
@@ -35,7 +36,8 @@ class DataMeta(NamedTuple):
 
 
 def meta_for(fed, hidden: int = 64) -> DataMeta:
-    """DataMeta of a :class:`repro_torch.data.synthetic.FederatedData`."""
+    """DataMeta of a :class:`repro_torch.data.synthetic.FederatedData` or a
+    :class:`~repro_torch.data.synthetic.Population`."""
     shape = getattr(fed, "feature_shape", None) or (fed.n_features,)
     return DataMeta(n_features=fed.n_features, n_classes=fed.n_classes,
                     hidden=hidden, feature_shape=tuple(int(s) for s in shape))
@@ -82,6 +84,12 @@ class ModelSpec:
     def accuracy(self, params, x, y) -> torch.Tensor:
         pred = torch.argmax(self.logits(params, x), dim=-1)
         return torch.mean((pred == y).float())
+
+    def param_bytes(self) -> int:
+        """Bytes of one replica of the parameters (``core/scale.py``'s model
+        term), from one initialisation on the CPU."""
+        params = self.init(torch.Generator().manual_seed(0))
+        return sum(t.numel() * t.element_size() for t in tree_leaves(params))
 
 
 _REGISTRY: Dict[str, Callable[[DataMeta], ModelSpec]] = {}

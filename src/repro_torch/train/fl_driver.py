@@ -14,16 +14,22 @@ accounted ε:
   computed on the device every ``eval_every`` rounds, and nothing is read
   back to the host until the loop ends.  :func:`run_fl_batch` (one cell)
   and :func:`run_fl` (one cell, one seed) are its front doors.
+* :func:`run_fl_population` — the population engine: the same lanes over
+  a 10^3–10^6-client :class:`~repro_torch.data.synthetic.Population`,
+  each round training only the on-device top-k cohort (the
+  ``client_cohort`` plan, ``core/rounds.py`` ``make_cohort_round``).
 * :func:`run_fl_legacy` — the per-round driver, kept as the oracle:
   batches are sampled on the host with the reference's NumPy sampler, so
   one seed feeds both packages the same batches, and eval is pulled to the
   host.
 
-Scheduled privacy (``dp_scheduled``, :func:`run_fl_sweep` and its front
-doors only) carries an in-loop RDP accountant and a noise scheduler per
-lane; a release that would overspend a lane's budget is withheld
-(:func:`scheduled_round`).  Not ported yet (each raises): plan codes 1 and
-2 and ``client_serial``, and the population (cohort) engine.
+The sweep engine runs the whole ``client_parallel`` family: sync,
+``buffered_async`` and ``hierarchical`` cells may share one sweep, their
+plan a runtime lane.  Scheduled privacy (``dp_scheduled``, the sweep and
+population engines) carries an in-loop RDP accountant and a noise
+scheduler per lane; a release that would overspend a lane's budget is
+withheld (:func:`scheduled_round`).  ``client_serial`` is refused, as the
+reference's registry refuses it on these engines.
 
 Methods:
   proposed        — adaptive utility selection + DP + fault tolerance (ours)
@@ -53,9 +59,11 @@ from repro_torch.configs.base import (FLConfig, FLParams, as_f32, fl_params,
 from repro_torch.core import fault as fault_lib
 from repro_torch.core import plans as plans_lib
 from repro_torch.core import rounds as rounds_lib
-from repro_torch.data.synthetic import (FederatedData, StackedFederation,
-                                        draw_batch_indices, round_batches,
-                                        sample_round_batches, stack_federation)
+from repro_torch.core import scale as scale_lib
+from repro_torch.data.synthetic import (FederatedData, Population,
+                                        StackedFederation, draw_batch_indices,
+                                        round_batches, sample_round_batches,
+                                        stack_federation)
 from repro_torch.device import resolve_device
 from repro_torch.models.mlp import auc_roc, auc_roc_torch
 from repro_torch.models.spec import (DataMeta, ModelSpec, get_model_spec,
@@ -253,7 +261,8 @@ def run_fl_legacy(
     if legacy_plan.family != "client_parallel" or legacy_plan.code != 0.0:
         raise ValueError(
             f"run_fl_legacy implements only the synchronous client_parallel "
-            f"plan; plan {fl.plan!r} is not ported yet")
+            f"plan; plan {fl.plan!r} needs the compiled engine "
+            "(run_fl / run_fl_sweep)")
     rounds = rounds or fl.rounds
     rng = np.random.default_rng(seed)
 
@@ -270,7 +279,8 @@ def run_fl_legacy(
     else:
         state = init_state
     round_step = rounds_lib.make_parallel_round(spec.loss, fl, fed.n_clients,
-                                                device=device)
+                                                device=device,
+                                                plan_codes=(0.0,))
 
     tx = torch.as_tensor(fed.test_x, device=device)
     ty = torch.as_tensor(fed.test_y, device=device)
@@ -369,11 +379,15 @@ class PrivacyState(NamedTuple):
 
 
 def init_privacy(fl: FLConfig, pr: FLParams, grid: acct_lib.OrderGrid,
-                 n_clients: int, rounds: int) -> PrivacyState:
+                 n_clients: int, rounds: int,
+                 k_cap: Optional[int] = None) -> PrivacyState:
     """An empty accountant, and each lane's scheduler calibrated to its
     ``dp_budget`` (``pr``'s fields are ``[L]`` lanes) over ``rounds`` at
-    the nominal cohort fraction."""
-    q_nom = min(fl.clients_per_round / n_clients, 1.0)
+    the nominal cohort fraction (``clients_per_round``, at most ``k_cap``
+    clients: the population engine's cohort size)."""
+    k_nom = fl.clients_per_round if k_cap is None else min(
+        fl.clients_per_round, k_cap)
+    q_nom = min(k_nom / n_clients, 1.0)
     return PrivacyState(
         acct_lib.init_accountant_state(pr.dp_budget.shape[0],
                                        grid.orders.device),
@@ -382,12 +396,15 @@ def init_privacy(fl: FLConfig, pr: FLParams, grid: acct_lib.OrderGrid,
 
 def scheduled_round(step: Callable, fl: FLConfig, state, batches,
                     pr: FLParams, draws, priv: PrivacyState,
-                    grid: acct_lib.OrderGrid, rounds: int):
-    """One round of the lane step under scheduled privacy.
+                    grid: acct_lib.OrderGrid, rounds: int,
+                    k_cap: Optional[int] = None):
+    """One round of the lane step (or, with ``batches`` a population, the
+    cohort step) under scheduled privacy.
 
     The scheduler gives each lane z_t (σ_t = z_t · clip); the accountant
     composes the release tentatively at the realised cohort fraction
-    q_t = ``realized_cohort_fraction(k_eff)``; a lane is live when the
+    q_t = ``realized_cohort_fraction(k_eff)``, K capped at ``k_cap`` (the
+    cohort step's ``k_max``) when given; a lane is live when the
     composed ε stays within its ``dp_budget``.  The step runs with σ_t and
     the live gate (a lane that is not live keeps its global params and
     server state bitwise), and the accountant commits only live lanes'
@@ -396,6 +413,8 @@ def scheduled_round(step: Callable, fl: FLConfig, state, batches,
     n = state.util.compute.shape[-1]
     k_eff = (state.kctl.k if fl.adaptive_k else
              torch.full_like(state.kctl.k, float(fl.clients_per_round)))
+    if k_cap is not None:
+        k_eff = torch.clamp(k_eff, max=float(k_cap))
     q_t = realized_cohort_fraction(k_eff, n)
     z_t = sched_lib.scheduled_multiplier(priv.sched, pr, state.round_idx,
                                          rounds)
@@ -412,8 +431,107 @@ def scheduled_round(step: Callable, fl: FLConfig, state, batches,
     return state, m, priv._replace(acct=acct), sigma_t, live
 
 
+def _round_loop(fl: FLConfig, spec: ModelSpec, step: Callable, state,
+                pr: FLParams, rounds: int, eval_every: int, test_x, test_y,
+                round_inputs: Callable, k_cap: Optional[int] = None):
+    """The engines' round loop over the lanes' ``state``: eval blocks of
+    ``eval_every`` rounds and a trailing partial block when ``rounds %
+    eval_every != 0``, test accuracy and AUC computed on the device at the
+    end of each block, nothing read back to the host.  ``round_inputs
+    (state)`` gives the round's ``(batches, draws)`` (the population, for
+    the cohort step); ``k_cap`` is the cohort step's ``k_max``, ``None``
+    for the lane step.  Returns ``(state, sim_time [L], trace)``, ``trace``
+    mapping each history column to ``[L, n_evals]``.
+
+    A scheduled-budget config (``fl.dp_scheduled``) runs each round through
+    :func:`scheduled_round` and adds the columns ``eps`` (each lane's ε
+    after the block), ``sigma`` (σ of its last round) and ``live`` (the
+    block's share of released rounds); the scheduler updates from each
+    block's AUC."""
+    n_full, rem = divmod(rounds, eval_every)
+    blocks = [eval_every] * n_full + ([rem] if rem else [])
+    scheduled = fl.dp_enabled and fl.dp_scheduled
+    device = test_x.device
+    n = state.util.compute.shape[-1]
+    cum_time = torch.zeros(len(state.rng), device=device)
+    columns = ("loss", "acc", "auc", "k", "fail", "cum_time")
+    if scheduled:
+        columns += ("eps", "sigma", "live")
+        grid = acct_lib.order_grid(fl.dp_delta, device)
+        priv = init_privacy(fl, pr, grid, n, rounds, k_cap=k_cap)
+    trace = {k: [] for k in columns}
+    with _no_host_sync(device):
+        for block in blocks:
+            lives = []
+            for _ in range(block):
+                data, d = round_inputs(state)
+                if scheduled:
+                    state, m, priv, sigma_t, live = scheduled_round(
+                        step, fl, state, data, pr, d, priv, grid, rounds,
+                        k_cap=k_cap)
+                    lives.append(live)
+                else:
+                    state, m = step(state, data, pr, d)
+                if k_cap is None:
+                    cum_time = cum_time + simulate_round_time(
+                        fl, state.util, m.sel_mask, m.failed, params=pr,
+                        slow=m.slow)
+                else:  # the cohort waits for its slowest selected client
+                    util = state.util._replace(compute=torch.gather(
+                        state.util.compute, -1, m.cohort_idx))
+                    cum_time = cum_time + simulate_round_time(
+                        fl, util, m.take, m.failed, params=pr, slow=m.slow)
+            with record_function("eval_block"):
+                acc, auc = _eval_lanes(spec, state.params, test_x, test_y)
+            fail = (torch.mean(m.failed, dim=-1) if k_cap is None
+                    else m.fail_frac)
+            for name, v in (("loss", m.global_loss), ("acc", acc),
+                            ("auc", auc), ("k", m.k_effective),
+                            ("fail", fail), ("cum_time", cum_time)):
+                trace[name].append(v)
+            if scheduled:
+                trace["eps"].append(acct_lib.epsilon_from_state(
+                    priv.acct, grid))
+                trace["sigma"].append(sigma_t)
+                trace["live"].append(torch.stack(lives).mean(dim=0))
+                priv = priv._replace(sched=sched_lib.scheduler_update(
+                    priv.sched, auc, pr))
+    return (state, cum_time,
+            {k: torch.stack(v, dim=1) for k, v in trace.items()})
+
+
+def _check_scheduled(fl: FLConfig) -> None:
+    if fl.dp_enabled and fl.dp_scheduled and fl.dp_mode != "clipped":
+        raise ValueError(
+            "dp_scheduled requires dp_mode='clipped': the accountant "
+            "composes z_t = sigma_t/dp_clip, which is only a valid "
+            "(epsilon, delta) statement when updates are clipped to "
+            "dp_clip — the paper's unclipped fixed-sigma mode has "
+            "unbounded sensitivity")
+
+
+def _init_lanes(spec: ModelSpec, fl: FLConfig, seeds: Sequence[int],
+                n_clients: int, data_size, data_quality, device):
+    """Each lane's fresh state from ``torch.Generator(device)
+    .manual_seed(seed)``: the initial params, then the utility state."""
+    states = []
+    for seed in seeds:
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        states.append(rounds_lib.init_round_state(
+            spec.init(gen), fl, gen, n_clients=n_clients,
+            data_size=data_size, data_quality=data_quality))
+    return states
+
+
+def _n_noise(fl: FLConfig, state) -> int:
+    """DP noise variates a client row draws: one per parameter."""
+    return (sum(t[0].numel() for t in tree_leaves(state.params))
+            if fl.dp_enabled else 0)
+
+
 def _build_lane_run(fl: FLConfig, rounds: int, eval_every: int,
-                    meta: DataMeta, n_clients: int, device: torch.device):
+                    meta: DataMeta, n_clients: int, device: torch.device,
+                    plan_codes: Optional[Sequence[float]] = None):
     """``lane_run(seeds, stack, data_size, data_quality, params,
     init_states=None, draws=None) -> (params [L], sim_time [L], trace)``
     for the STATIC config ``fl``: the counterpart of the reference's
@@ -426,108 +544,54 @@ def _build_lane_run(fl: FLConfig, rounds: int, eval_every: int,
     keys do.  ``init_states`` (one run's :class:`RoundState` a lane) and
     ``draws`` (a lane's list over rounds of ``(batch_idx [n, local_steps,
     batch], RoundDraws)``) replace them, as the parity tests feed the
-    reference's own.
-
-    The loop runs eval blocks of ``eval_every`` rounds and a trailing
-    partial block when ``rounds % eval_every != 0``; test accuracy and AUC
-    are computed on the device at the end of each block.  ``trace`` maps
-    each history column to ``[L, n_evals]``.  Between the lanes'
-    initialisation and the return nothing is read back to the host.
-
-    A scheduled-budget config (``fl.dp_scheduled``) runs each round through
-    :func:`scheduled_round` and adds the columns ``eps`` (each lane's ε
-    after the block), ``sigma`` (σ of its last round) and ``live`` (the
-    block's share of released rounds); the scheduler updates from each
-    block's AUC."""
-    n_full, rem = divmod(rounds, eval_every)
-    blocks = [eval_every] * n_full + ([rem] if rem else [])
-    scheduled = fl.dp_enabled and fl.dp_scheduled
-    if scheduled and fl.dp_mode != "clipped":
-        raise ValueError(
-            "dp_scheduled requires dp_mode='clipped': the accountant "
-            "composes z_t = sigma_t/dp_clip, which is only a valid "
-            "(epsilon, delta) statement when updates are clipped to "
-            "dp_clip — the paper's unclipped fixed-sigma mode has "
-            "unbounded sensitivity")
+    reference's own.  ``plan_codes``: the codes the lanes carry
+    (``make_lane_round``).  The rounds run in :func:`_round_loop`."""
+    _check_scheduled(fl)
     spec = get_model_spec(fl.model, meta)
     n = n_clients
-    step = rounds_lib.make_lane_round(spec.loss, fl, n, device=device)
+    step = rounds_lib.make_lane_round(spec.loss, fl, n, device=device,
+                                      plan_codes=plan_codes)
 
     def lane_run(seeds: Sequence[int], stack: StackedFederation, data_size,
                  data_quality, pr: FLParams, init_states=None, draws=None):
         lanes = len(seeds)
         if init_states is None:
-            init_states = []
-            for seed in seeds:
-                gen = torch.Generator(device=device).manual_seed(int(seed))
-                init_states.append(rounds_lib.init_round_state(
-                    spec.init(gen), fl, gen, n_clients=n,
-                    data_size=data_size, data_quality=data_quality))
+            init_states = _init_lanes(spec, fl, seeds, n, data_size,
+                                      data_quality, device)
         state = rounds_lib.stack_states(init_states)
-        n_noise = (sum(t[0].numel() for t in tree_leaves(state.params))
-                   if fl.dp_enabled else 0)
+        n_noise = _n_noise(fl, state)
         steps, batch = fl.local_epochs, fl.local_batch
         if draws is None:  # buffers each round's draws go into
             u_batch = torch.empty(lanes, n, steps, batch, device=device)
             draw_out = rounds_lib.RoundDraws.empty(lanes, n, n_noise, device)
-        cum_time = torch.zeros(lanes, device=device)
-        columns = ("loss", "acc", "auc", "k", "fail", "cum_time")
-        if scheduled:
-            columns += ("eps", "sigma", "live")
-            grid = acct_lib.order_grid(fl.dp_delta, device)
-            priv = init_privacy(fl, pr, grid, n, rounds)
-        trace = {k: [] for k in columns}
-        with _no_host_sync(device):
-            for block in blocks:
-                lives = []
-                for _ in range(block):
-                    r = state.round_idx
-                    if draws is None:
-                        idx = draw_batch_indices(state.rng, stack.sizes,
-                                                 steps, batch, out=u_batch)
-                        d = rounds_lib.draw_round(state.rng, n, steps,
-                                                  n_noise, fl.selection,
-                                                  out=draw_out)
-                    else:
-                        idx = torch.stack([lane[r][0] for lane in draws])
-                        d = rounds_lib.RoundDraws.stack(
-                            [lane[r][1] for lane in draws])
-                    batches = sample_round_batches(stack, idx)
-                    if scheduled:
-                        state, m, priv, sigma_t, live = scheduled_round(
-                            step, fl, state, batches, pr, d, priv, grid,
-                            rounds)
-                        lives.append(live)
-                    else:
-                        state, m = step(state, batches, pr, d)
-                    cum_time = cum_time + simulate_round_time(
-                        fl, state.util, m.sel_mask, m.failed, params=pr,
-                        slow=m.slow)
-                with record_function("eval_block"):
-                    acc, auc = _eval_lanes(spec, state.params, stack.test_x,
-                                           stack.test_y)
-                for name, v in (("loss", m.global_loss), ("acc", acc),
-                                ("auc", auc), ("k", m.k_effective),
-                                ("fail", torch.mean(m.failed, dim=-1)),
-                                ("cum_time", cum_time)):
-                    trace[name].append(v)
-                if scheduled:
-                    trace["eps"].append(acct_lib.epsilon_from_state(
-                        priv.acct, grid))
-                    trace["sigma"].append(sigma_t)
-                    trace["live"].append(torch.stack(lives).mean(dim=0))
-                    priv = priv._replace(sched=sched_lib.scheduler_update(
-                        priv.sched, auc, pr))
-        return (state.params, cum_time,
-                {k: torch.stack(v, dim=1) for k, v in trace.items()})
+
+        def round_inputs(state):
+            if draws is None:
+                idx = draw_batch_indices(state.rng, stack.sizes, steps,
+                                         batch, out=u_batch)
+                d = rounds_lib.draw_round(state.rng, n, steps, n_noise,
+                                          fl.selection, out=draw_out)
+            else:
+                r = state.round_idx
+                idx = torch.stack([lane[r][0] for lane in draws])
+                d = rounds_lib.RoundDraws.stack([lane[r][1]
+                                                 for lane in draws])
+            return sample_round_batches(stack, idx), d
+
+        state, cum_time, trace = _round_loop(
+            fl, spec, step, state, pr, rounds, eval_every, stack.test_x,
+            stack.test_y, round_inputs)
+        return state.params, cum_time, trace
 
     return lane_run
 
 
 # Lane runners keyed on (STATIC config, rounds, eval_every, DataMeta,
-# n_lanes, stack shapes, device): every runtime knob (FLParams) and the
-# federation are arguments, so one runner serves a whole ε/failure/lr grid.
-# RUNNER_STATS counts misses and hits, as the reference's does.
+# n_lanes, stack shapes, device, the cells' plan codes): every runtime knob
+# (FLParams) and the federation are arguments, so one runner serves a
+# whole ε/failure/lr/plan grid; a code-0 grid's runner leaves out the async
+# and hier blocks.  The population engine's runners share the cache under a "pop"
+# tag.  RUNNER_STATS counts misses and hits, as the reference's does.
 _RUNNER_CACHE: Dict = {}
 RUNNER_STATS = {"misses": 0, "hits": 0}
 
@@ -550,26 +614,74 @@ def _device_federation(fed: FederatedData, device: torch.device):
     return entry[1], entry[2], entry[3]
 
 
-def _get_runner(fl: FLConfig, rounds: int, eval_every: int, meta: DataMeta,
-                n_lanes: int, stack: StackedFederation, device: torch.device):
-    static = fl_static(fl)
-    cache_key = (static, rounds, eval_every, meta, n_lanes, stack.shapes(),
-                 str(device))
+def _cached_runner(cache_key, build: Callable):
+    """The runner of ``cache_key``, built by ``build()`` on a miss: one miss
+    a key (counted in ``RUNNER_STATS``), hits after."""
     runner = _RUNNER_CACHE.get(cache_key)
     if runner is None:
         RUNNER_STATS["misses"] += 1
-        runner = _build_lane_run(static, rounds, eval_every, meta,
-                                 stack.n_clients, device)
-        _RUNNER_CACHE[cache_key] = runner
+        runner = _RUNNER_CACHE[cache_key] = build()
     else:
         RUNNER_STATS["hits"] += 1
     return runner
 
 
-def _sweep_cells(fl: FLConfig, params_grid: Sequence,
-                 method: str) -> List[FLConfig]:
+def _run_lanes(tag: str, prepare: Callable):
+    """Time one engine call: ``prepare()`` gives the runner's thunk, whose
+    ``(params, sim_time, trace)`` are read back to the host, each step
+    under a ``{tag}.prepare/execute/readback`` span.  Returns ``(params,
+    sim_time [L], trace {column: [L, n_evals]}, wall s)`` as NumPy."""
+    t0 = time.perf_counter()
+    with record_function(f"{tag}.prepare"):
+        execute = prepare()
+    with record_function(f"{tag}.execute"):
+        params_b, sim_b, trace_b = execute()
+    with record_function(f"{tag}.readback"):
+        trace_np = {k: v.cpu().numpy() for k, v in trace_b.items()}
+        sim_np = sim_b.cpu().numpy()
+    return params_b, sim_np, trace_np, time.perf_counter() - t0
+
+
+def _lane_results(cells: Sequence[FLConfig], seeds: Sequence[int],
+                  method: str, dataset: str, rounds: int, eval_every: int,
+                  sim_np, trace_np, wall_per_lane: float,
+                  finish: Optional[Callable] = None) -> List[List[RunResult]]:
+    """The engines' :class:`RunResult` grid ``[cell][seed]`` from the lanes'
+    read-back columns (lane = cell_index · n_seeds + seed_index).  A fixed-σ
+    cell's ``eps_spent`` is the host accountant's closed form, a scheduled
+    cell's the lane's in-loop ε after its last round.  ``finish(lane, seed,
+    result)``, when given, returns the lane's final result."""
+    eval_idx = _eval_rounds(rounds, eval_every)
+    out: List[List[RunResult]] = []
+    for ci, cell in enumerate(cells):
+        scheduled = cell.dp_enabled and cell.dp_scheduled
+        eps_cell = None if scheduled else accounted_epsilon(cell, rounds)
+        row = []
+        for si, seed in enumerate(seeds):
+            lane = ci * len(seeds) + si
+            history = {"round": [r + 1 for r in eval_idx]}
+            for name, v in trace_np.items():
+                history[name] = [float(x) for x in v[lane]]
+            res = RunResult(
+                method=method, dataset=dataset, seed=seed,
+                accuracy=history["acc"][-1], auc=history["auc"][-1],
+                sim_time_s=float(sim_np[lane]), wall_time_s=wall_per_lane,
+                rounds=rounds,
+                eps_spent=history["eps"][-1] if scheduled else eps_cell,
+                history=history)
+            row.append(res if finish is None else finish(lane, seed, res))
+        out.append(row)
+    return out
+
+
+def _sweep_cells(fl: FLConfig, params_grid: Sequence, method: str,
+                 capability: str = "driver_capable") -> List[FLConfig]:
     """Resolve a params_grid into per-cell FLConfigs sharing ``fl``'s
-    statics, and refuse what the port's engine does not run yet."""
+    statics (for the sweep and population engines).  Each cell's plan must
+    carry ``capability`` in the ``core/plans`` registry
+    (``driver_capable`` for the dense engines, ``cohort_capable`` for the
+    population engine); plans of one family may differ across cells, their
+    plan code a runtime lane."""
     cells: List[FLConfig] = []
     for p in params_grid:
         if isinstance(p, FLConfig):
@@ -585,17 +697,15 @@ def _sweep_cells(fl: FLConfig, params_grid: Sequence,
                     plans_lib.plan_family(cell.plan), code))
         else:
             cell = dataclasses.replace(fl, **dict(p))
+        if not getattr(plans_lib.get_plan(cell.plan), capability):
+            raise ValueError(
+                f"plan {cell.plan!r} cannot run on this engine: the "
+                f"core/plans registry marks it {capability}=False")
         if fl_static(cell) != fl_static(fl):
             raise ValueError(
                 "params_grid cell differs from the base config in a STATIC "
                 "field — those gate code structure and cannot ride the "
                 f"runtime lane axis: {cell}")
-        plan = plans_lib.get_plan(cell.plan)
-        if plan.family != "client_parallel" or plan.code != 0.0:
-            raise NotImplementedError(
-                f"the port's sweep engine runs only the synchronous "
-                f"client_parallel plan (code 0); plan {cell.plan!r} is not "
-                f"ported yet")
         cells.append(cell)
     return cells
 
@@ -641,54 +751,38 @@ def run_fl_sweep(
     if not cells:
         return []
     n_lanes = len(cells) * len(seeds)
+    meta = meta_for(fed, hidden=hidden)
+    codes = tuple(sorted({plans_lib.plan_code(c.plan) for c in cells}))
 
-    t0 = time.perf_counter()
-    with record_function("sweep.prepare"):
-        meta = meta_for(fed, hidden=hidden)
+    def prepare():
         stack, data_size, data_quality = _device_federation(fed, device)
-        runner = _get_runner(fl, rounds, eval_every, meta, n_lanes, stack,
-                             device)
+        runner = _cached_runner(
+            (fl_static(fl), rounds, eval_every, meta, n_lanes, stack.shapes(),
+             str(device), codes),
+            lambda: _build_lane_run(fl_static(fl), rounds, eval_every, meta,
+                                    stack.n_clients, device, codes))
         lanes = params_lanes(cells, len(seeds), device)
-    with record_function("sweep.execute"):
-        params_b, sim_b, trace_b = runner(
-            seeds * len(cells), stack, data_size, data_quality, lanes,
-            init_states=init_states, draws=draws)
-    with record_function("sweep.readback"):
-        trace_np = {k: v.cpu().numpy() for k, v in trace_b.items()}
-        sim_np = sim_b.cpu().numpy()
-    wall_per_lane = (time.perf_counter() - t0) / n_lanes
+        return lambda: runner(seeds * len(cells), stack, data_size,
+                              data_quality, lanes, init_states=init_states,
+                              draws=draws)
 
-    eval_idx = _eval_rounds(rounds, eval_every)
-    spec = get_model_spec(fl.model, meta) if method == "fedl2p" else None
-    out: List[List[RunResult]] = []
-    for ci, cell in enumerate(cells):
-        # fixed-σ cells: the host closed form; scheduled cells: the lane's
-        # in-loop accountant
-        scheduled = cell.dp_enabled and cell.dp_scheduled
-        eps_cell = None if scheduled else accounted_epsilon(cell, rounds)
-        row = []
-        for si, seed in enumerate(seeds):
-            lane = ci * len(seeds) + si
-            history = {"round": [r + 1 for r in eval_idx]}
-            for name, v in trace_np.items():
-                history[name] = [float(x) for x in v[lane]]
-            eps = history["eps"][-1] if scheduled else eps_cell
-            sim_time = float(sim_np[lane])
-            acc, auc = history["acc"][-1], history["auc"][-1]
-            lane_params = (tree_map(lambda a: a[lane].clone(), params_b)
-                           if return_params or method == "fedl2p" else None)
+    params_b, sim_np, trace_np, wall = _run_lanes("sweep", prepare)
+    finish = None
+    if return_params or method == "fedl2p":
+        spec = get_model_spec(fl.model, meta)
+
+        def finish(lane, seed, res):
+            lane_params = tree_map(lambda a: a[lane].clone(), params_b)
             if method == "fedl2p":
                 # personalisation pass (the point of FedL2P) + its cost
                 acc, auc = _personalize(lane_params, fed, spec, seed=seed)
-                sim_time *= 1.2
-            row.append(RunResult(
-                method=method, dataset=dataset, seed=seed,
-                accuracy=acc, auc=auc,
-                sim_time_s=sim_time, wall_time_s=wall_per_lane,
-                rounds=rounds, eps_spent=eps, history=history,
-                params=lane_params if return_params else None))
-        out.append(row)
-    return out
+                res = dataclasses.replace(res, accuracy=acc, auc=auc,
+                                          sim_time_s=res.sim_time_s * 1.2)
+            return dataclasses.replace(
+                res, params=lane_params if return_params else None)
+
+    return _lane_results(cells, seeds, method, dataset, rounds, eval_every,
+                         sim_np, trace_np, wall / n_lanes, finish)
 
 
 def run_fl_batch(fed: FederatedData, fl: FLConfig, method: str = "proposed",
@@ -713,3 +807,143 @@ def run_fl(fed: FederatedData, fl: FLConfig, method: str = "proposed",
     return run_fl_batch(fed, fl, method, seeds=(seed,), rounds=rounds,
                         eval_every=eval_every, dataset=dataset, hidden=hidden,
                         return_params=return_params, device=device)[0]
+
+
+# ---------------------------------------------------------------------------
+# Population engine: cohort training over a 10^3–10^6-client population
+# ---------------------------------------------------------------------------
+
+
+def _build_population_run(fl: FLConfig, rounds: int, eval_every: int,
+                          meta: DataMeta, n_clients: int, sel_chunks: int,
+                          device: torch.device):
+    """``pop_run(seeds, pop, params, init_states=None, draws=None) ->
+    (params [L], sim_time [L], trace)`` over a device
+    :class:`~repro_torch.data.synthetic.Population`: the population-scale
+    sibling of :func:`_build_lane_run`, with the ``client_cohort`` round
+    step (``core/rounds.py`` ``make_cohort_round``).  A round's compute is
+    O(k_max); O(N) work is vector ops over the ``[L, N]`` carries, and
+    every per-round column is a lane scalar.
+
+    Each lane's generator draws the initial params, the utility state,
+    then each round's :class:`~repro_torch.core.rounds.CohortDraws`.
+    ``init_states`` and ``draws`` (a lane's list over rounds of one-lane
+    ``CohortDraws``) replace them.  The time model waits for the slowest
+    selected client (the cohort's compute capacities); scheduled privacy
+    caps K at ``k_max``."""
+    _check_scheduled(fl)
+    spec = get_model_spec(fl.model, meta)
+    k_max = int(fl.k_max)
+    step = rounds_lib.make_cohort_round(spec.loss, fl, n_clients,
+                                        sel_chunks=sel_chunks, device=device)
+
+    def pop_run(seeds: Sequence[int], pop: Population, pr: FLParams,
+                init_states=None, draws=None):
+        if init_states is None:
+            init_states = _init_lanes(spec, fl, seeds, n_clients,
+                                      pop.data_size, pop.data_quality, device)
+        state = rounds_lib.stack_states(init_states)
+        n_noise = _n_noise(fl, state)
+        if draws is None:
+            draw_out = rounds_lib.CohortDraws.empty(
+                len(seeds), n_clients, k_max, fl.local_epochs,
+                fl.local_batch, n_noise, device)
+
+        def round_inputs(state):
+            if draws is None:
+                return pop, rounds_lib.draw_cohort_round(
+                    state.rng, n_clients, k_max, fl.local_epochs,
+                    fl.local_batch, n_noise, fl.selection, out=draw_out)
+            r = state.round_idx
+            return pop, rounds_lib.CohortDraws.stack(
+                [lane[r] for lane in draws])
+
+        state, cum_time, trace = _round_loop(
+            fl, spec, step, state, pr, rounds, eval_every, pop.test_x,
+            pop.test_y, round_inputs, k_cap=k_max)
+        return state.params, cum_time, trace
+
+    return pop_run
+
+
+def run_fl_population(
+    pop: Population,
+    fl: FLConfig,
+    params_grid: Optional[Sequence] = None,
+    seeds: Sequence[int] = (0,),
+    method: str = "proposed",
+    rounds: Optional[int] = None,
+    eval_every: int = 10,
+    dataset: str = "unsw",
+    hidden: int = 64,
+    mesh_shape: Optional[tuple] = None,
+    shard: bool = True,
+    sel_chunks: Optional[int] = None,
+    memory_budget_bytes: Optional[int] = None,
+    *,
+    device=None,
+    init_states: Optional[Sequence[rounds_lib.RoundState]] = None,
+    draws: Optional[Sequence[Sequence]] = None,
+) -> List[List[RunResult]]:
+    """A sweep over a 10^3–10^6-client :class:`Population`: cells × seeds
+    lanes as :func:`run_fl_sweep` lays them out (results ``[cell][seed]``),
+    each round training only the cohort picked on the device (the
+    ``client_cohort`` plan): per-round compute and data traffic are
+    O(k_max), whatever N.  Runs on ``device`` (``cuda`` unless ``"cpu"``
+    is asked); the population's arrays go to the device once a call.
+
+    ``sel_chunks`` splits the cohort top-k (bitwise-neutral); with
+    ``memory_budget_bytes`` and no ``sel_chunks`` it comes from
+    ``core/scale.auto_chunks``.  The port runs on one card: a
+    ``mesh_shape`` of more than one device raises and ``shard`` has nothing
+    to shard.  ``init_states``/``draws``: one entry a lane (see
+    :func:`_build_population_run`).  The runner is cached on (statics,
+    rounds, cadence, lanes, population shapes, ``sel_chunks``, device) in
+    the sweep engine's cache under a "pop" tag.
+
+    ``fedl2p`` is refused: its personalisation pass is O(N) host work."""
+    device = resolve_device(device)
+    if method == "fedl2p":
+        raise ValueError(
+            "run_fl_population does not support fedl2p: its host-side "
+            "personalisation fine-tunes every client (O(N) python loop) — "
+            "use the dense engine at dense-federation scale")
+    fl = fl_for_method(fl, method)
+    if not fl.k_max or int(fl.k_max) <= 0:
+        raise ValueError(
+            "run_fl_population needs an explicit positive FLConfig.k_max "
+            "(the static cohort size gathered per round)")
+    if mesh_shape is not None and math.prod(mesh_shape) > 1:
+        raise ValueError(
+            f"run_fl_population runs on one device; mesh_shape {mesh_shape} "
+            f"asks for {math.prod(mesh_shape)}")
+    rounds = int(rounds or fl.rounds)
+    seeds = [int(s) for s in seeds]
+    cells = _sweep_cells(fl, [fl] if params_grid is None else params_grid,
+                         method, capability="cohort_capable")
+    if not cells:
+        return []
+    n_lanes = len(cells) * len(seeds)
+    meta = meta_for(pop, hidden=hidden)
+    if sel_chunks is None:
+        sel_chunks = 1 if memory_budget_bytes is None else \
+            scale_lib.auto_chunks(
+                pop.n_clients, int(memory_budget_bytes),
+                pop.members_per_client, n_lanes,
+                model_bytes=get_model_spec(fl.model, meta).param_bytes())
+
+    def prepare():
+        pop_dev = pop.to(device)
+        runner = _cached_runner(
+            ("pop", fl_static(fl), rounds, eval_every, meta, n_lanes,
+             pop.shapes(), int(sel_chunks), str(device)),
+            lambda: _build_population_run(fl_static(fl), rounds, eval_every,
+                                          meta, pop.n_clients,
+                                          int(sel_chunks), device))
+        lanes = params_lanes(cells, len(seeds), device)
+        return lambda: runner(seeds * len(cells), pop_dev, lanes,
+                              init_states=init_states, draws=draws)
+
+    _, sim_np, trace_np, wall = _run_lanes("population", prepare)
+    return _lane_results(cells, seeds, method, dataset, rounds, eval_every,
+                         sim_np, trace_np, wall / n_lanes)

@@ -11,7 +11,9 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    nvcc per source, all at once, sm_90a), print ptxas' registers and
    spills, and require no spill in ``flash_attention_kernel`` and
    ``flash_decode_lanes_kernel`` (the head dims up to 32),
-   ``rglru_scan_tiles_kernel`` and ``sumsq_rows_cluster_kernel``;
+   ``rglru_scan_tiles_kernel`` and ``sumsq_rows_cluster_kernel``, and
+   record (without a gate) those of ``flash_attention_row_kernel`` (head
+   dims 64 and 128, which spills at 128);
 3. hold the DP kernels against their plain PyTorch versions on the card, at
    the paper config's shape [40, 13890] and at ragged shapes (P ≡ 1, 2, 3
    mod 4, a base pointer one element off, rows shorter than a cluster's
@@ -106,7 +108,21 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    round wall 10^5/10^3 < 20); ``cohort_topk`` at [2, 10^6] bitwise equal
    to ``cohort_topk_host``, chunked (4, 16) and not; the cohort step card
    vs CPU (equal ``cohort_idx``/``take``, state within rtol 1e-4 / atol
-   1e-6); the DP kernels at the cohort rows [32, P].
+   1e-6); the DP kernels at the cohort rows [32, P];
+15. the dense LM serving path: granite-3-8b's ``config()`` (40 layers,
+   d_model 4096, bf16, 8.2 B params) built on the card layer by layer from
+   a seed; the prefill step ``forward(impl="flash", last_only=True)`` at
+   B = 4, S = 512 with ``flash_attention``'s count set to 0 just before it
+   and 40 launches required (one a layer), its warm wall, profile (device
+   busy share, K3's device time) and agreement with ``impl="ref"`` (bf16:
+   2e-2 relative and of max(1, max|logit|)); the serve CLI's path
+   (``prefill_scan`` of 128-token prompts, then 32 greedy tokens: tok/s)
+   with its last prefill logits against the prefill step's (the same
+   tolerance, every argmax equal); phi3-mini's prefill at [1, 512] (32
+   launches); a 2-layer f32 variant at full width, card (K3) vs CPU
+   (plain) within 1e-4; K3 at granite's [4, 512, 32 | 8, 128] and phi3's
+   [1, 512, 32 | 32, 96] (bf16, causal) against its plain version, timed
+   beside it, SDPA (GQA) and the bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -128,6 +144,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet, fp32 outside tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 SLICE_ROWS, SLICE_P = 40, 13_890
 PAPER_EPS_10_ROUNDS = 11.345620277107383  # reference accounted_epsilon(fl, 10)
 ROUNDS = 10
@@ -246,14 +263,17 @@ def scan_bound(case):
                  2 * b * l * w)
 
 
-def timed(kernel, plain, library):
-    """Device times (CUDA-graph replay) of the kernel, its plain version and
-    the library yardstick, and the same calls issued one by one."""
-    out = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
-           "library_ms": None if library is None else device_ms(library),
-           "eager_ms": eager_ms(kernel), "eager_plain_ms": eager_ms(plain)}
+def timed(kernel, plain, library, iters: int = 100):
+    """Device times (CUDA-graph replay of ``iters`` calls) of the kernel,
+    its plain version and the library yardstick, and the same calls issued
+    one by one (``2·iters`` of them)."""
+    dev = lambda fn: device_ms(fn, iters)  # noqa: E731
+    eager = lambda fn: eager_ms(fn, 2 * iters)  # noqa: E731
+    out = {"ms": dev(kernel), "plain_ms": dev(plain),
+           "library_ms": None if library is None else dev(library),
+           "eager_ms": eager(kernel), "eager_plain_ms": eager(plain)}
     if library is not None:
-        out["eager_library_ms"] = eager_ms(library)
+        out["eager_library_ms"] = eager(library)
     return out
 
 
@@ -943,8 +963,9 @@ def phase_sweep_kernels(torch, dpk, ref, launches):
 
 # (b, s, t, hq, hkv, d, causal, window): the grid of tests/test_kernels.py,
 # the attn detector's path shape, a ragged S = T = 100, a causal offset,
-# S > T (rows with no valid key), GQA at the detector's width and D = 32
-# with a window
+# S > T (rows with no valid key), GQA at the detector's width, D = 32
+# with a window, and phi3's D = 96 (padded into the row kernel's DMAX 128)
+# with a ragged last block of rows
 FA_PATH = (128, 64, 64, 2, 2, 8, True, None)
 FA_CASES = [(1, 128, 128, 4, 4, 64, True, None),
             (2, 256, 256, 8, 2, 64, True, None),
@@ -956,10 +977,14 @@ FA_CASES = [(1, 128, 128, 4, 4, 64, True, None),
             (2, 64, 128, 2, 2, 8, True, 24),
             (2, 96, 64, 2, 2, 8, True, None),
             (4, 64, 64, 4, 1, 8, True, None),
-            (2, 64, 64, 2, 2, 32, True, 16)]
-# flash_attention_kernel<T, DMAX, G> in ptxas' mangled names
+            (2, 64, 64, 2, 2, 32, True, 16),
+            (1, 200, 200, 4, 4, 96, True, None)]
+# flash_attention_kernel<T, DMAX, G> and flash_attention_row_kernel<T, DMAX>
+# in ptxas' mangled names
 FA_KERNEL_NAME = re.compile(
     r"22flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
+FA_ROW_KERNEL_NAME = re.compile(
+    r"26flash_attention_row_kernelI(f|13__nv_bfloat16)Li(\d+)EE")
 # (b, hq, hkv, d, t, length): length is one for every row or one per row.
 # The grid of PR 12 (head dims 64 and 128), the attn read-out's path shape,
 # T = 100 (a ragged last key tile), GQA at the detector's width (4 q heads
@@ -995,11 +1020,10 @@ RG_KERNEL_NAME = re.compile(r"23rglru_scan_tiles_kernelILi(\d+)EE")
 SQ_KERNEL_NAME = re.compile(r"25sumsq_rows_cluster_kernel()")
 
 
-def check_ptxas(log: str, name_re, kernel: str, n_instances: int) -> dict:
+def ptxas_report(log: str, name_re, kernel: str) -> dict:
     """Phase 2: ptxas' report (``-Xptxas -v``) of each instantiation of a
     kernel, ``"<template arguments>"`` (the name's groups; f32 or bf16 for a
-    type) -> registers and the bytes of spill stores and loads.  All
-    ``n_instances`` must be reported, without a spill."""
+    type) -> registers and the bytes of spill stores and loads, printed."""
     types = {"f": "f32", "13__nv_bfloat16": "bf16"}
     report, current = {}, None
     for line in log.splitlines():
@@ -1018,6 +1042,13 @@ def check_ptxas(log: str, name_re, kernel: str, n_instances: int) -> dict:
                 re.search(r"Used (\d+) registers", line).group(1))
     for name, info in sorted(report.items()):
         print(f"  {kernel}<{name}>: {info}" if name else f"  {kernel}: {info}")
+    return report
+
+
+def check_ptxas(log: str, name_re, kernel: str, n_instances: int) -> dict:
+    """:func:`ptxas_report`, requiring all ``n_instances`` reported and no
+    spill in any."""
+    report = ptxas_report(log, name_re, kernel)
     check(len(report) == n_instances and all(
         {"registers", "spill_stores", "spill_loads"} <= set(info)
         for info in report.values()),
@@ -2282,6 +2313,303 @@ def phase_cohort_card_vs_cpu(torch, dpk, rounds: int = 3):
 
 
 
+# phase 15: the dense LM serving path at granite-3-8b's full width and depth
+LM_ARCH, LM_PHI3 = "granite_3_8b", "phi3_mini_3p8b"
+LM_PREFILL = (4, 512)       # B, S of the prefill step
+LM_PHI3_PREFILL = (1, 512)
+LM_PROMPT, LM_NEW = 128, 32  # the serve path: prompt tokens, greedy tokens
+LM_CARD_CPU = (2, 128)      # B, S of the 2-layer f32 card-vs-CPU forward
+LM_BF16_TOL = 2e-2          # bf16: relative, and of max(1, max|logit|)
+LM_F32_TOL = 1e-4
+# (b, s, hq, hkv, d): K3 at granite's and phi3's prefill shapes, causal bf16
+LM_FA_CASES = (("flash_attention_lm_granite", (4, 512, 32, 8, 128), LM_ARCH),
+               ("flash_attention_lm_phi3", (1, 512, 32, 32, 96), LM_PHI3))
+
+
+def lm_close(torch, got, want, tol: float, what: str) -> dict:
+    """``got`` within ``tol`` of ``want`` relatively and within ``tol`` of
+    max(1, max|want|) absolutely (bf16's error reaches every element at the
+    scale of the largest); the max abs error, the relative Frobenius error
+    and the rows whose argmax agree."""
+    got, want = got.float(), want.float()
+    atol = tol * max(1.0, float(want.abs().max()))
+    err = (got - want).abs()
+    bad = int((err > atol + tol * want.abs()).sum())
+    top2 = want.topk(2, dim=-1).values
+    out = {"max_abs_err": float(err.max()), "atol": atol,
+           "rel_fro_err": float(err.norm() / want.norm()),
+           "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum()),
+           "rows": int(want[..., 0].numel()),
+           "top2_gap_min": float((top2[..., 0] - top2[..., 1]).min())}
+    print(f"  {what}: max|err| {out['max_abs_err']:.3e} (atol {atol:.3e}), "
+          f"rel fro {out['rel_fro_err']:.3e}, argmax equal "
+          f"{out['argmax_equal']}/{out['rows']} (least top-2 gap "
+          f"{out['top2_gap_min']:.3e})")
+    check(bad == 0, f"{what}: {bad} elements beyond tolerance {tol}")
+    return out
+
+
+def tree_bytes(tree) -> tuple:
+    """(elements, bytes) of a tree of dicts and lists of tensors."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        parts = [tree_bytes(t) for t in tree]
+        return sum(p[0] for p in parts), sum(p[1] for p in parts)
+    return tree.numel(), tree.numel() * tree.element_size()
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def lm_tokens(torch, cfg, b: int, s: int, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device="cuda")
+
+
+def lm_profiled(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: its host wall (ms, to a
+    synchronise), the device events, their busy ms and (calls, ms) by
+    kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device, busy_ms, _, by_kernel = profile_summary(prof.events(), ())
+    return wall, device, busy_ms, by_kernel
+
+
+def lm_prefill(torch, fak, model, params, tokens, card):
+    """The prefill step (``forward(impl="flash", last_only=True)``): the
+    main-path call with K3's count set to 0 just before it and read just
+    after; three warm calls timed by the host clock around a synchronise;
+    one profiled call (device busy share, K3's device time)."""
+    def step():
+        return model.forward(params, {"tokens": tokens}, impl="flash",
+                             last_only=True)
+
+    fak.reset_launches()
+    logits = step()
+    torch.cuda.synchronize()
+    launches = fak.LAUNCHES["flash_attention"]
+    check(launches == model.cfg.n_layers,
+          f"{launches} flash_attention launches in one prefill of "
+          f"{model.cfg.n_layers} layers")
+    check(bool(torch.isfinite(logits[..., :model.cfg.vocab_size]).all()),
+          "non-finite prefill logits")
+    walls = []
+    for _ in range(3):
+        fak.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check(fak.LAUNCHES["flash_attention"] == model.cfg.n_layers,
+              "flash_attention launches a warm prefill")
+    prof_wall, device, busy_ms, by_kernel = lm_profiled(torch, step)
+    k3 = [(n, t) for k, (n, t) in by_kernel.items()
+          if "flash_attention_row_kernel" in k]
+    k3_ms = sum(t for _, t in k3)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+    out = {"launches": launches, "warm_wall_ms": walls,
+           "warm_wall_ms_median": statistics.median(walls),
+           "profiled_wall_ms": prof_wall, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / prof_wall,
+           "device_ops": len(device),
+           "k3_calls": sum(n for n, _ in k3), "k3_device_ms": k3_ms,
+           "k3_share_of_wall": k3_ms / statistics.median(walls),
+           "k3_share_of_busy": k3_ms / busy_ms if busy_ms else None,
+           "top_kernels": [{"name": k[:80], "calls": n, "device_ms": t}
+                           for k, (n, t) in top]}
+    b, s = tokens.shape
+    print(f"  {model.cfg.name} prefill [{b}, {s}] (impl=flash, last_only): "
+          f"{launches} flash_attention launches a call; warm wall "
+          f"{out['warm_wall_ms_median']:.2f} ms ({', '.join(f'{w:.2f}' for w in walls)}); "
+          f"profiled {prof_wall:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"(share {out['device_busy_share']:.3f}, {len(device)} ops); "
+          f"K3 {out['k3_calls']} calls {k3_ms:.2f} ms device "
+          f"({100 * out['k3_share_of_wall']:.1f} % of the warm wall)  ({card})")
+    for k in out["top_kernels"]:
+        print(f"    kernel {k['name']}: {k['calls']} calls, "
+              f"{k['device_ms']:.3f} ms")
+    return logits, out
+
+
+def check_lm_kernel(torch, fak, ref, name, case, launches, ptxas):
+    """K3 at an LM prefill shape (bf16, causal): held against its plain
+    version at phase 8's bf16 bar (2e-2), timed beside the plain version,
+    SDPA (GQA, on the [B, H, S, D] layout) and the bound; a row of the
+    kernels JSON line."""
+    b, s, hq, hkv, d = case
+    gen = torch.Generator().manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
+
+    q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+    o = fak.flash_attention(q, k, v, causal=True)
+    o_ref = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2, atol=2e-2)
+    qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pairs = s * (s + 1) // 2   # causal (query, key) pairs, S = T
+    bytes_moved = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
+    flops = 4 * d * pairs * b * hq
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_bf16 = flops / BF16_FLOP_PER_S * 1e3
+    row = {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:103",
+        "shape": [b, s, s, hq, hkv, d], "dtype": "bf16", "causal": True,
+        "launches": launches, "max_abs_err": max_abs(o, o_ref),
+        "bound_ms": max(t_bytes, t_bf16),
+        "bound_by": "bytes" if t_bytes >= t_bf16 else "operations",
+        "bound_bytes_ms": t_bytes, "bound_bf16_ms": t_bf16,
+        "bound_f32_fma_ms": flops / FP32_FLOP_PER_S * 1e3,
+        "bytes": bytes_moved, "flops": flops,
+        "ptxas_row_kernel": ptxas.get("bf16, 128"),
+        **timed(lambda: fak.flash_attention(q, k, v, causal=True),
+                lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
+                iters=10),
+    }
+    print(f"  {name} {case} bf16 causal: device {row['ms'] * 1e3:.1f} us, "
+          f"eager {row['eager_ms'] * 1e3:.1f} us; bound "
+          f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; bytes "
+          f"{t_bytes * 1e3:.2f}, bf16 {t_bf16 * 1e3:.2f}, f32 FMA "
+          f"{row['bound_f32_fma_ms'] * 1e3:.1f}); plain "
+          f"{row['plain_ms'] * 1e3:.1f} us; SDPA "
+          f"{row['library_ms'] * 1e3:.1f} us; max|err| "
+          f"{row['max_abs_err']:.2e}; launches {launches} a prefill")
+    return row
+
+
+def phase_lm(torch, fak, ref, card, ptxas_rows):
+    """Phase 15: granite-3-8b at full width and depth in bf16 on the card:
+    the build, the prefill step on K3 (40 launches a call) against
+    ``impl="ref"``, the serve path (``prefill_scan`` of 128-token prompts,
+    32 greedy tokens) against the prefill step, phi3-mini's prefill (32
+    launches), a 2-layer f32 variant card vs CPU, and K3 at both prefill
+    shapes beside SDPA and its bound."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build
+
+    out = {}
+    cfg = get_arch(LM_ARCH)
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n, nbytes = tree_bytes(params)
+    out["build"] = {"seconds": time.perf_counter() - t0, "params": n,
+                    "bytes": nbytes, "param_count": cfg.param_count(),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    check(abs(n - cfg.param_count()) / n < 0.01, "granite parameter count")
+    print(f"  built {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n:,} params ({cfg.param_count():,} by "
+          f"param_count), {nbytes / 1e9:.2f} GB bf16 in "
+          f"{out['build']['seconds']:.2f} s; max allocated "
+          f"{out['build']['max_memory_allocated'] / 1e9:.2f} GB")
+
+    tokens = lm_tokens(torch, cfg, *LM_PREFILL, seed=1)
+    logits, out["prefill"] = lm_prefill(torch, fak, model, params, tokens,
+                                        card)
+    v = cfg.vocab_size
+    ref_logits = model.forward(params, {"tokens": tokens}, impl="ref",
+                               last_only=True)
+    out["prefill"]["flash_vs_ref"] = lm_close(
+        torch, logits[..., :v], ref_logits[..., :v], LM_BF16_TOL,
+        "prefill impl=flash vs impl=ref (bf16)")
+
+    prompts = lm_tokens(torch, cfg, LM_PREFILL[0], LM_PROMPT, seed=2)
+    gen = generate(model, params, prompts, LM_NEW)
+    fwd = model.forward(params, {"tokens": prompts}, impl="flash",
+                        last_only=True)
+    serve = {"batch": LM_PREFILL[0], "prompt": LM_PROMPT, "new": LM_NEW,
+             "prefill_scan_s": gen["prefill_s"], "decode_s": gen["decode_s"],
+             "tok_per_s": LM_PREFILL[0] * LM_NEW / gen["decode_s"],
+             "decode_step_ms": gen["decode_s"] / LM_NEW * 1e3,
+             "prefill_scan_step_ms": gen["prefill_s"] / LM_PROMPT * 1e3,
+             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    check(tuple(gen["tokens"].shape) == (LM_PREFILL[0], LM_NEW) and bool(
+        ((gen["tokens"] >= 0) & (gen["tokens"] < v)).all()), "greedy tokens")
+    serve["scan_vs_forward"] = lm_close(
+        torch, gen["prefill_logits"][..., :v], fwd[..., :v], LM_BF16_TOL,
+        "prefill_scan last logits vs forward(flash, last_only) (bf16)")
+    check(serve["scan_vs_forward"]["argmax_equal"] == LM_PREFILL[0],
+          "prefill_scan and forward disagree on an argmax")
+    last = LM_PROMPT + LM_NEW - 1  # rewrite the last slot: any index fits
+    wall, device, busy_ms, _ = lm_profiled(torch, lambda: model.decode_step(
+        params, gen["tokens"][:, -1:], gen["caches"], last))
+    serve["decode_profile"] = {"wall_ms": wall, "device_busy_ms": busy_ms,
+                               "device_busy_share": busy_ms / wall,
+                               "device_ops": len(device)}
+    print(f"  one profiled decode step: wall {wall:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms (share {busy_ms / wall:.3f}) over "
+          f"{len(device)} device ops")
+    out["serve"] = serve
+    print(f"  serve path: prefill_scan of {LM_PROMPT} tokens x "
+          f"{LM_PREFILL[0]} in {gen['prefill_s']:.3f} s "
+          f"({serve['prefill_scan_step_ms']:.2f} ms a step); {LM_NEW} greedy "
+          f"tokens in {gen['decode_s']:.3f} s ({serve['decode_step_ms']:.2f} "
+          f"ms a step, {serve['tok_per_s']:.1f} tok/s); max allocated "
+          f"{serve['max_memory_allocated'] / 1e9:.2f} GB  ({card})")
+    del params, logits, ref_logits, gen, fwd
+    torch.cuda.empty_cache()
+
+    phi3 = build(get_arch(LM_PHI3))
+    params = phi3.init(0, device="cuda")
+    phi3_tokens = lm_tokens(torch, phi3.cfg, *LM_PHI3_PREFILL, seed=3)
+    _, out["phi3_prefill"] = lm_prefill(torch, fak, phi3, params, phi3_tokens,
+                                        card)
+    del params
+    torch.cuda.empty_cache()
+
+    small = build(dataclasses.replace(cfg, n_layers=2, dtype="float32"))
+    params = small.init(0, device="cuda")
+    toks = lm_tokens(torch, cfg, *LM_CARD_CPU, seed=4)
+    on_card = small.forward(params, {"tokens": toks}, impl="flash",
+                            last_only=True).cpu()
+    on_cpu = small.forward(tree_to(params, "cpu"), {"tokens": toks.cpu()},
+                           impl="flash", last_only=True)
+    err = max_abs(on_card[..., :v], on_cpu[..., :v])
+    out["card_vs_cpu_2layer_f32_max_abs"] = err
+    print(f"  2-layer full-width f32 [{LM_CARD_CPU[0]}, {LM_CARD_CPU[1]}]: "
+          f"card (K3) vs CPU (plain) last logits max|err| {err:.2e} "
+          f"(tolerance {LM_F32_TOL})")
+    check(err <= LM_F32_TOL, f"2-layer f32 card vs CPU: {err}")
+    del params
+    torch.cuda.empty_cache()
+
+    launches = {LM_ARCH: out["prefill"]["launches"],
+                LM_PHI3: out["phi3_prefill"]["launches"]}
+    rows = [check_lm_kernel(torch, fak, ref, name, case, launches[arch],
+                            ptxas_rows)
+            for name, case, arch in LM_FA_CASES]
+    for row in rows:
+        row["sdpa_ratio"] = row["ms"] / row["library_ms"]
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2320,7 +2648,11 @@ def main() -> int:
         "flash_attention": check_fa_ptxas(builds["flash_attention"]["log"]),
         "flash_decode": check_fd_ptxas(builds["flash_decode"]["log"]),
         "rglru_scan": check_rg_ptxas(builds["rglru_scan"]["log"]),
-        "sumsq_rows": check_sq_ptxas(builds["dp_clip_noise"]["log"])}
+        "sumsq_rows": check_sq_ptxas(builds["dp_clip_noise"]["log"]),
+        # recorded, not gated: the row kernel is known to spill at DMAX 128
+        "flash_attention_row": ptxas_report(builds["flash_attention"]["log"],
+                                            FA_ROW_KERNEL_NAME,
+                                            "flash_attention_row_kernel")}
 
     print("== 3. DP kernels vs plain versions on the card")
     errs = phase_kernels_vs_plain(torch, dpk, ref, ops)
@@ -2427,6 +2759,14 @@ def main() -> int:
             k["launches_population_1e6"] = \
                 population["populations"][-1]["launches"][k["name"]]
 
+    print(f"== 15. LM serving path: {LM_ARCH} at full width and depth (bf16), "
+          f"prefill {LM_PREFILL} on flash_attention, prefill_scan + "
+          f"{LM_NEW} greedy tokens  ({card})")
+    with torch.no_grad():
+        lm, lm_rows = phase_lm(torch, fak, ref, card,
+                               ptxas["flash_attention_row"])
+    kernels += lm_rows
+
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2437,7 +2777,8 @@ def main() -> int:
         "history": res.history, "eps_spent": res.eps_spent, "sweep": sweep,
         "serve": serve, "serve_launches": serve_launches,
         "model_grid": grid, "privacy": privacy, "plan_frontier": plans,
-        "population": population, "total_s": time.perf_counter() - t_all,
+        "population": population, "lm": lm,
+        "total_s": time.perf_counter() - t_all,
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

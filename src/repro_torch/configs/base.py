@@ -1,22 +1,257 @@
-"""Federated-learning configuration: the port's copy of the FL half of
-``repro/configs/base.py`` (``FLConfig``, ``FLParams``, ``RUNTIME_FIELDS``,
-``fl_params``, ``fl_static``) and the sweep engine's ``params_lanes``.  The
-language-model ``ModelConfig`` and the mesh configs are not ported yet.
+"""Configuration: the port's copy of ``repro/configs/base.py``.
 
-Field names, defaults and the static/runtime split are the reference's, so
-one config reads the same in both packages.  STATIC fields shape the code
-path (plan, strategy, booleans); RUNTIME fields are the scalar knobs the
-round step reads from an :class:`FLParams` argument.  A field of an
-``FLParams`` is a Python float (one run) or a ``[L]`` f32 tensor with one
-value per lane of a sweep (``params_lanes``).
+Two halves.  The language-model half: ``ModelConfig`` (the architecture
+description every assigned family shares), ``ShapeConfig`` and
+``INPUT_SHAPES``, and the registry (``ARCH_IDS``, ``ARCH_ALIASES``,
+``get_arch``, ``get_shape``); an architecture module lives in
+``repro_torch/configs/<id>.py`` with ``config()`` and ``smoke_config()``.
+``MeshConfig`` and ``RunConfig`` wait for the sharding slice.
+
+The federated-learning half: ``FLConfig``, ``FLParams``,
+``RUNTIME_FIELDS``, ``fl_params``, ``fl_static`` and the sweep engine's
+``params_lanes``.  Field names, defaults and the static/runtime split are
+the reference's, so one config reads the same in both packages.  STATIC
+fields shape the code path (plan, strategy, booleans); RUNTIME fields are
+the scalar knobs the round step reads from an :class:`FLParams` argument.
+A field of an ``FLParams`` is a Python float (one run) or a ``[L]`` f32
+tensor with one value per lane of a sweep (``params_lanes``).
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from dataclasses import dataclass
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+# ---------------------------------------------------------------------------
+# Model configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description covering every assigned family."""
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+
+    # --- attention ---
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None  # None = full causal attention
+    mrope_sections: Optional[Tuple[int, int, int]] = None  # VLM M-RoPE (t,h,w)
+
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+    ssm_expand: int = 2
+    conv_width: int = 4
+
+    # --- hybrid (RecurrentGemma / Griffin) ---
+    # pattern of block kinds, tiled (with truncation) to n_layers
+    block_pattern: Optional[Tuple[str, ...]] = None
+    lru_width: int = 0  # RG-LRU recurrent width (0 -> d_model)
+
+    # --- encoder-decoder (audio) ---
+    enc_layers: int = 0  # 0 => decoder-only
+    enc_seq: int = 1024  # stub frontend: number of frame embeddings
+
+    # --- multimodal frontend stubs ---
+    frontend: str = "none"  # none | vision | audio
+    frontend_tokens: int = 0  # patch/frame embeddings prepended to the prompt
+
+    # --- misc ---
+    act: str = "swiglu"  # swiglu | geglu | gelu
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    long_context_variant: Optional[str] = None  # e.g. "swa-4096" for long_500k
+    source: str = ""  # citation for the spec
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    def pattern(self) -> Tuple[str, ...]:
+        """Per-layer block kinds of length n_layers: ``block_pattern``
+        tiled, else the family's default."""
+        if self.block_pattern:
+            reps = -(-self.n_layers // len(self.block_pattern))
+            return (self.block_pattern * reps)[: self.n_layers]
+        if self.family == "ssm":
+            return ("ssd",) * self.n_layers
+        if self.family == "moe":
+            return ("moe",) * self.n_layers
+        return ("attn",) * self.n_layers
+
+    def segments(self) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
+        """pattern() as (super-block, repeats) segments: the repeating unit,
+        then the trailing remainder as its own segment.  Each segment's
+        params are stacked along a leading "layers" axis."""
+        pat = self.pattern()
+        if self.block_pattern:
+            unit = self.block_pattern
+            n_full = self.n_layers // len(unit)
+            segs = []
+            if n_full:
+                segs.append((tuple(unit), n_full))
+            rem = self.n_layers - n_full * len(unit)
+            if rem:
+                segs.append((tuple(pat[-rem:]), 1))
+            return tuple(segs)
+        return (((pat[0],), self.n_layers),)
+
+    def supports_long_context(self) -> bool:
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.long_context_variant is not None
+
+    def param_count(self) -> int:
+        """Approximate parameter count (reported, not load-bearing)."""
+        d, dff, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) + (self.n_heads * hd) * d
+        mlp_mult = 3 if self.act in ("swiglu", "geglu") else 2
+        mlp = mlp_mult * d * dff
+        per_layer = 0
+        for kind in self.pattern():
+            if kind == "attn":
+                per_layer += attn + mlp
+            elif kind == "moe":
+                per_layer += attn + self.n_experts * mlp
+            elif kind == "ssd":
+                din = self.ssm_expand * d
+                per_layer += d * (2 * din + 2 * self.ssm_state) + din * d
+            elif kind == "rec":
+                w = self.lru_width or d
+                per_layer += 2 * d * w + w * d + 3 * w + mlp
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        enc = self.enc_layers * (attn + mlp) if self.enc_layers else 0
+        return per_layer + emb + enc
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only routed experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, dff = self.d_model, self.d_ff
+        mlp_mult = 3 if self.act in ("swiglu", "geglu") else 2
+        full = self.param_count()
+        unused = (self.n_experts - self.experts_per_token) * mlp_mult * d * dff
+        n_moe_layers = sum(1 for k in self.pattern() if k == "moe")
+        return full - n_moe_layers * unused
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+ARCH_IDS = (
+    "phi3p5_moe_42b",
+    "llama4_maverick_400b",
+    "recurrentgemma_9b",
+    "mamba2_130m",
+    "seamless_m4t_large_v2",
+    "mistral_large_123b",
+    "qwen2_vl_72b",
+    "qwen2p5_32b",
+    "granite_3_8b",
+    "phi3_mini_3p8b",
+)
+
+# user-facing aliases (--arch accepts either)
+ARCH_ALIASES = {
+    "phi3.5-moe-42b-a6.6b": "phi3p5_moe_42b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "mamba2-130m": "mamba2_130m",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "mistral-large-123b": "mistral_large_123b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "qwen2.5-32b": "qwen2p5_32b",
+    "granite-3-8b": "granite_3_8b",
+    "phi3-mini-3.8b": "phi3_mini_3p8b",
+    "paper-mlp": "paper_mlp",
+}
+
+# architectures whose config module the port does not have yet, and the
+# slice of the port each waits for
+WAITING = {
+    "phi3p5_moe_42b": "the mixture-of-experts slice (models/moe.py)",
+    "llama4_maverick_400b": "the mixture-of-experts slice (models/moe.py) "
+                            "and the sharding slice (400B over several cards)",
+    "recurrentgemma_9b": "the hybrid slice (the rec block, flash_attention "
+                         "at head dim 256, rglru_scan in prefill)",
+    "mamba2_130m": "the SSD slice (ssd blocks and their decode step)",
+    "seamless_m4t_large_v2": "the encoder-decoder slice (models/encdec.py)",
+    "mistral_large_123b": "the sharding slice (123B over several cards)",
+    "qwen2_vl_72b": "the VLM slice (M-RoPE frontend) and the sharding slice "
+                    "(72B over several cards)",
+    "qwen2p5_32b": "the sharding slice (65 GB of bf16 weights)",
+}
+
+
+def get_arch(arch: str, smoke: bool = False):
+    """``config()`` (or ``smoke_config()``) of repro_torch.configs.<arch>;
+    an architecture the port has no module for yet raises, naming the
+    slice it waits for."""
+    arch = ARCH_ALIASES.get(arch, arch)
+    if arch in WAITING:
+        raise NotImplementedError(
+            f"architecture {arch!r} is not ported yet: it waits for "
+            f"{WAITING[arch]}")
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    return mod.smoke_config() if smoke else mod.config()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Federated-learning configuration
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

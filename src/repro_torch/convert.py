@@ -3,8 +3,10 @@
 The inputs are NumPy values (``np.asarray`` of the JAX arrays, or anything
 ``np.asarray`` takes, such as CPU tensors): the MLP params as a nested dict
 ``{"l1": {"w", "b"}, ...}`` and the ``UtilityState`` / ``KControllerState``
-/ ``FaultState`` NamedTuples (or mappings of their fields).  The layouts
-are the reference's, so nothing is transposed.
+/ ``FaultState`` NamedTuples (or mappings of their fields), cast to f32;
+the language model's params and KV caches (nested dicts and lists), each
+leaf in its own dtype.  The layouts are the reference's, so nothing is
+transposed.
 """
 from __future__ import annotations
 
@@ -27,6 +29,29 @@ def _fields(obj: Any) -> Mapping[str, Any]:
 
 def _tensor(value, device) -> torch.Tensor:
     return torch.as_tensor(np.array(value, dtype=np.float32), device=device)
+
+
+def _leaf(value, device) -> torch.Tensor:
+    """One array as a tensor of the same dtype.  A bf16 array (NumPy's
+    ``bfloat16`` extension type) goes across by its bits."""
+    arr = np.asarray(value)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(arr).view(np.uint16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def lm_params_from_jax(tree, device):
+    """The LM's param tree (or any tree of dicts and lists of arrays) ->
+    the same tree of tensors on ``device``, each leaf keeping its dtype."""
+    if isinstance(tree, Mapping):
+        return {k: lm_params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params_from_jax(v, device) for v in tree]
+    return _leaf(tree, device)
+
+
+lm_caches_from_jax = lm_params_from_jax  # caches are trees of arrays too
 
 
 def params_from_jax(tree: Mapping[str, Any], device) -> dict:

@@ -61,9 +61,11 @@
 //
 // Head dims 64 and 128: flash_attention_row_kernel, the first port's design,
 // unchanged: one block per 64 query rows of one (batch, head), one thread
-// per row walking the keys with a per-key online softmax.  No port path
-// launches these head dims; their redesign (bf16 tensor cores, and the
-// spill at D = 128) belongs with the first path that does.
+// per row walking the keys with a per-key online softmax.  The LM prefill
+// (models/attention.py attention(impl="flash")) launches it once a layer:
+// granite-3-8b at D = 128 (GQA group 4) and phi3-mini at D = 96, padded
+// into DMAX 128, both bf16.  It spills at DMAX 128; its redesign (bf16
+// tensor cores) is a later PR's, against the times that path measures.
 //
 // Plain C interface, loaded with ctypes: the entry point launches on the
 // caller's stream, allocates nothing, and returns cudaGetLastError(), or

@@ -71,8 +71,10 @@ def launch_plan(b: int, s: int, t: int, hq: int, hkv: int, d: int,
     than one tile) fit in :data:`MAX_SMEM`.  Copies move 16 bytes when
     every pointer is 16-byte aligned (``ptrs_aligned``) and a row of
     ``d`` elements is a multiple of 16 bytes, else one element.  Head
-    dims 64 and 128 take the row kernel: 64 rows of one head per block,
-    a thread per row."""
+    dims above 32 take the row kernel (DMAX 64 or 128): 64 rows of one
+    head per block, a thread per row, ``grid.x`` = ⌈s / 64⌉.  The LM
+    prefill launches it at D = 128 (granite-3-8b) and D = 96 (phi3-mini,
+    padded into DMAX 128)."""
     esize = 2 if dtype == torch.bfloat16 else 4
     if d > 32:
         dmax = 64 if d <= 64 else 128

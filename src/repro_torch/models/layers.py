@@ -1,26 +1,68 @@
-"""Initializers and normalisation shared by the port's detectors (the part
-of ``repro/models/layers.py`` they use).  Params are plain f32 tensors;
-the reference's sharding metadata is not ported."""
+"""Core layers: the port's copy of ``repro/models/layers.py``.
+
+Initializers draw f32 normals from a ``torch.Generator`` on its device and
+cast to the config's dtype, as the reference's ``normal_init`` draws f32
+and casts.  A ``gen`` of ``None`` builds only the shapes, on the ``meta``
+device: nothing is drawn or allocated (``Model.param_shapes``).  Every
+``init_*`` of the language model returns a tree of
+:class:`~repro_torch.models.sharding.ParamMeta` (value + logical axes);
+``split_meta`` separates them.  Apply functions take the value tree.  The
+detectors use ``normal_init``, ``fan_in_init`` and ``rmsnorm`` with f32
+params, as before.
+"""
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.models.sharding import pm
 
 
-def normal_init(gen: torch.Generator, shape: Sequence[int],
-                stddev: float) -> torch.Tensor:
-    """``stddev · N(0, 1)`` in f32, drawn from ``gen`` on its device."""
-    return stddev * torch.randn(tuple(shape), generator=gen,
-                                device=gen.device)
+def dtype_of(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
 
 
-def fan_in_init(gen: torch.Generator, shape: Sequence[int],
-                fan_in: Optional[int] = None) -> torch.Tensor:
+def device_of(gen: Optional[torch.Generator]) -> torch.device:
+    """Where an init with ``gen`` builds its tensors: ``gen``'s device, or
+    ``meta`` for a shapes-only build (``gen`` None)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def normal_init(gen: Optional[torch.Generator], shape: Sequence[int],
+                stddev: float, dtype: torch.dtype = torch.float32
+                ) -> torch.Tensor:
+    """``stddev · N(0, 1)`` drawn in f32 from ``gen`` on its device, cast
+    to ``dtype``."""
+    if gen is None:
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
+    x = stddev * torch.randn(tuple(shape), generator=gen, device=gen.device)
+    return x if dtype == torch.float32 else x.to(dtype)
+
+
+def fan_in_init(gen: Optional[torch.Generator], shape: Sequence[int],
+                fan_in: Optional[int] = None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """N(0, 1/fan_in); ``fan_in`` defaults to ``shape[0]``."""
     fan_in = fan_in if fan_in is not None else shape[0]
-    return normal_init(gen, shape, 1.0 / math.sqrt(max(fan_in, 1)))
+    return normal_init(gen, shape, 1.0 / math.sqrt(max(fan_in, 1)), dtype)
+
+
+# ---------------------------------------------------------------------------
+# Normalisation
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(gen, d: int, cfg):
+    return {"scale": pm(torch.ones(d, dtype=dtype_of(cfg),
+                                   device=device_of(gen)), "embed")}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -28,3 +70,129 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(gen, d: int, cfg):
+    dt, dev = dtype_of(cfg), device_of(gen)
+    return {"scale": pm(torch.ones(d, dtype=dt, device=dev), "embed"),
+            "bias": pm(torch.zeros(d, dtype=dt, device=dev), "embed")}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear / embedding
+# ---------------------------------------------------------------------------
+
+
+def init_dense(gen, d_in: int, d_out: int, cfg, axes=("embed", "mlp"),
+               bias: bool = False):
+    dt = dtype_of(cfg)
+    p = {"w": pm(fan_in_init(gen, (d_in, d_out), dtype=dt), *axes)}
+    if bias:
+        p["b"] = pm(torch.zeros(d_out, dtype=dt, device=device_of(gen)),
+                    axes[1])
+    return p
+
+
+def dense(params, x: torch.Tensor) -> torch.Tensor:
+    y = torch.matmul(x, params["w"])
+    if "b" in params:
+        y = y + params["b"]
+    return y
+
+
+def init_embedding(gen, vocab: int, d: int, cfg):
+    return {"table": pm(normal_init(gen, (vocab, d), 0.02, dtype_of(cfg)),
+                        "vocab", "embed")}
+
+
+def embed(params, ids: torch.Tensor) -> torch.Tensor:
+    return F.embedding(ids, params["table"])
+
+
+def unembed(params, x: torch.Tensor) -> torch.Tensor:
+    """Project hidden states to logits with the (tied or separate) table,
+    in f32."""
+    return torch.matmul(x.float(), params["table"].float().t())
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (standard + M-RoPE)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)  # [head_dim//2]
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x [..., seq, heads, hd] rotated by ``angles [..., seq, hd/2]`` in
+    f32, cast back to x's dtype."""
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: [..., seq, heads, head_dim]; positions: [..., seq] (int)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
+                sections: Tuple[int, int, int],
+                theta: float = 10_000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  positions_3d: [..., seq, 3] (temporal,
+    height, width ids); ``sections`` splits the head_dim//2 frequency bands
+    between them."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    sec_ids = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(sections, device=x.device))  # [half] in {0, 1, 2}
+    pos = positions_3d.float()[..., sec_ids]  # [..., seq, half]
+    return _rotate(x, pos * freqs)
+
+
+# ---------------------------------------------------------------------------
+# MLP blocks
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen, cfg, d_model: Optional[int] = None,
+             d_ff: Optional[int] = None):
+    d = d_model or cfg.d_model
+    f = d_ff or cfg.d_ff
+    p = {"wi": init_dense(gen, d, f, cfg, axes=("embed", "mlp"))}
+    if cfg.act in ("swiglu", "geglu"):
+        p["wg"] = init_dense(gen, d, f, cfg, axes=("embed", "mlp"))
+    p["wo"] = init_dense(gen, f, d, cfg, axes=("mlp", "embed"))
+    return p
+
+
+def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """``jax.nn.gelu`` is the tanh approximation by default, so is this."""
+    h = dense(params["wi"], x)
+    if act == "swiglu":
+        h = F.silu(dense(params["wg"], x)) * h
+    elif act == "geglu":
+        h = F.gelu(dense(params["wg"], x), approximate="tanh") * h
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        h = F.relu(h)
+    return dense(params["wo"], h)

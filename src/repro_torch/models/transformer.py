@@ -1,0 +1,261 @@
+"""Decoder-only transformer stack: the port's copy of
+``repro/models/transformer.py`` for the ``attn`` block kind.
+
+Layers are stacked per *segment* (``ModelConfig.segments``): a segment is
+a super-block of block kinds repeated N times, and its params are stacked
+along a leading "layers" axis, as the reference stacks them for its
+``lax.scan``, so weights carry across as a tree map.  Here the segment
+runs as a Python loop over its repeats, each indexing views of the stacked
+params (and of the stacked caches in decode).  The block kinds ``moe``,
+``rec`` and ``ssd`` wait for their slices; the ``train`` mode, remat and
+``remat_group`` wait for the training slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers as L
+from repro_torch.models.sharding import (ParamMeta, add_axis, map_meta, pm,
+                                         split_meta)
+
+VOCAB_PAD_TO = 256
+NEG_INF = attn_lib.NEG_INF
+
+# block kinds the port does not have yet, and the slice each waits for
+WAITING_KINDS = {
+    "moe": "the mixture-of-experts slice (models/moe.py)",
+    "rec": "the hybrid slice (rglru decode step and cache)",
+    "ssd": "the SSD slice (ssd blocks and their decode step)",
+}
+MODES = ("prefill", "decode")
+
+
+def padded_vocab(cfg) -> int:
+    return -(-cfg.vocab_size // VOCAB_PAD_TO) * VOCAB_PAD_TO
+
+
+def _check_kind(kind: str) -> None:
+    if kind in WAITING_KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported yet: it waits for "
+            f"{WAITING_KINDS[kind]}")
+    if kind != "attn":
+        raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def init_block(gen, cfg, kind: str):
+    _check_kind(kind)
+    d = cfg.d_model
+    return {
+        "ln1": L.init_rmsnorm(gen, d, cfg),
+        "attn": attn_lib.init_attention(gen, cfg),
+        "ln2": L.init_rmsnorm(gen, d, cfg),
+        "mlp": L.init_mlp(gen, cfg),
+    }
+
+
+def _attn_window(cfg, window_override):
+    if window_override is not None:
+        return window_override
+    return cfg.sliding_window
+
+
+def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
+                cache=None, index: Optional[int] = None,
+                window_override=None, impl: str = "ref"):
+    """Returns (x, new_cache).  In decode ``cache`` is written in place
+    (``attention.decode_attention``)."""
+    _check_kind(kind)
+    new_cache = cache
+    h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
+    w = _attn_window(cfg, window_override)
+    if mode == "decode":
+        a, new_cache = attn_lib.decode_attention(
+            params["attn"], h, cache, index, positions, cfg, window=w)
+    else:
+        a = attn_lib.attention(params["attn"], h, positions, cfg, window=w,
+                               impl=impl)
+    x = x + a
+    h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
+    x = x + L.mlp(params["mlp"], h, cfg.act)
+    return x, new_cache
+
+
+def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
+                     window_override=None, device=None):
+    _check_kind(kind)
+    w = _attn_window(cfg, window_override)
+    clen = min(cache_len, w) if w else cache_len
+    return attn_lib.init_cache(cfg, batch, clen, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Segmented stack
+# ---------------------------------------------------------------------------
+
+
+def init_stack(gen, cfg):
+    """Per-segment stacked param trees (with ParamMeta).  Layers are drawn
+    one at a time and copied into the stacked tensors, so no f32 draw of a
+    whole stacked leaf is ever held."""
+    out = []
+    for kinds, reps in cfg.segments():
+        stacked = None
+        for r in range(reps):
+            one = {f"b{i}": init_block(gen, cfg, kind)
+                   for i, kind in enumerate(kinds)}
+            if stacked is None:
+                stacked = add_axis(map_meta(lambda m: ParamMeta(
+                    m.value.new_empty((reps,) + tuple(m.value.shape)),
+                    m.axes), one), "layers")
+            vals = split_meta(one)[0]
+            _copy_into(split_meta(stacked)[0], vals, r)
+        out.append(stacked)
+    return out
+
+
+def _copy_into(stacked, layer, r: int) -> None:
+    if isinstance(stacked, dict):
+        for k in stacked:
+            _copy_into(stacked[k], layer[k], r)
+    elif stacked.device.type != "meta":
+        stacked[r].copy_(layer)
+
+
+def _index(tree, r: int):
+    """Views of repeat ``r`` of a stacked tree of dicts."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def stack_cache(cfg, batch: int, cache_len: int, window_override=None,
+                device=None):
+    """Caches mirroring the segment structure (stacked over repeats)."""
+    out = []
+    for kinds, reps in cfg.segments():
+        seg = {}
+        for i, kind in enumerate(kinds):
+            one = init_block_cache(cfg, kind, batch, cache_len,
+                                   window_override, device=device)
+            seg[f"b{i}"] = {k: v.new_zeros((reps,) + tuple(v.shape))
+                            for k, v in one.items()}
+        out.append(seg)
+    return out
+
+
+def apply_stack(stack_params, cfg, x, positions, *, mode: str, caches=None,
+                index: Optional[int] = None, window_override=None,
+                impl: str = "ref"):
+    """Run all segments.  Returns (x, caches): in decode the stacked
+    caches, written in place; else None."""
+    if mode not in MODES:
+        raise NotImplementedError(
+            f"mode {mode!r}: the port runs {MODES}; 'train' (remat, "
+            "remat_group) waits for the training slice")
+    for si, (kinds, reps) in enumerate(cfg.segments()):
+        for r in range(reps):
+            pl = _index(stack_params[si], r)
+            cl = _index(caches[si], r) if mode == "decode" else None
+            for i, kind in enumerate(kinds):
+                x, _ = apply_block(
+                    pl[f"b{i}"], kind, x, positions, cfg, mode=mode,
+                    cache=cl[f"b{i}"] if cl is not None else None,
+                    index=index, window_override=window_override, impl=impl)
+    return x, (caches if mode == "decode" else None)
+
+
+# ---------------------------------------------------------------------------
+# Full decoder-only model
+# ---------------------------------------------------------------------------
+
+
+def init_lm_meta(gen, cfg) -> Dict[str, Any]:
+    """Full LM parameter tree as ParamMeta (value + logical axes); ``gen``
+    None builds the shapes on the meta device."""
+    pv = padded_vocab(cfg)
+    dt = L.dtype_of(cfg)
+    meta: Dict[str, Any] = {
+        "embed": {"table": pm(L.normal_init(gen, (pv, cfg.d_model), 0.02, dt),
+                              "vocab", "embed")},
+        "final_ln": L.init_rmsnorm(gen, cfg.d_model, cfg),
+        "stack": init_stack(gen, cfg),
+    }
+    if not cfg.tie_embeddings:
+        meta["head"] = {"w": pm(L.normal_init(gen, (cfg.d_model, pv), 0.02, dt),
+                                "embed", "vocab")}
+    return meta
+
+
+def init_lm(gen, cfg):
+    """Returns (params values, logical axes) for the decoder-only LM."""
+    return split_meta(init_lm_meta(gen, cfg))
+
+
+def lm_logits(params, cfg, x) -> torch.Tensor:
+    """f32 logits over the padded vocab; the padding is masked to −1e30."""
+    x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
+    if "head" in params:
+        logits = torch.matmul(x.float(), params["head"]["w"].float())
+    else:
+        logits = L.unembed(params["embed"], x)
+    if logits.shape[-1] != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = NEG_INF
+    return logits
+
+
+def _positions(cfg, pos: torch.Tensor) -> torch.Tensor:
+    if cfg.mrope_sections is not None:
+        return pos[..., None].expand(pos.shape + (3,))
+    return pos
+
+
+def lm_forward(params, cfg, tokens, positions=None, *, window_override=None,
+               impl: str = "ref", last_only: bool = False) -> torch.Tensor:
+    """Prefill forward.  tokens: [B,S] int.  ``last_only``: logits for the
+    final position only (the serving prefill).  Returns logits [B,S,V] or
+    [B,1,V] (the reference also returns an aux loss, zero without MoE)."""
+    x = L.embed(params["embed"], tokens)
+    if positions is None:
+        b, s = tokens.shape
+        positions = _positions(cfg, torch.arange(
+            s, dtype=torch.int32, device=tokens.device).expand(b, s))
+    x, _ = apply_stack(params["stack"], cfg, x, positions, mode="prefill",
+                       window_override=window_override, impl=impl)
+    if last_only:
+        x = x[:, -1:]
+    return lm_logits(params, cfg, x)
+
+
+def lm_decode_step(params, cfg, token, caches, index: int, positions=None,
+                   *, window_override=None):
+    """One-token decode.  token: [B,1] int; ``index`` a host int.  Returns
+    (logits [B,1,V], caches), the caches written in place."""
+    x = L.embed(params["embed"], token)
+    if positions is None:
+        positions = _positions(cfg, torch.full(
+            token.shape, index, dtype=torch.int32, device=token.device))
+    x, caches = apply_stack(params["stack"], cfg, x, positions, mode="decode",
+                            caches=caches, index=index,
+                            window_override=window_override)
+    return lm_logits(params, cfg, x), caches
+
+
+def lm_axes(cfg):
+    """Logical axes tree matching init_lm's output, built on the meta
+    device (nothing allocated)."""
+    return init_lm(None, cfg)[1]
+
+
+def lm_param_shapes(cfg):
+    """The LM's parameter tree as meta tensors (shapes and dtypes, no
+    allocation)."""
+    return init_lm(None, cfg)[0]

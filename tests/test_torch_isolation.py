@@ -10,7 +10,10 @@ import torch
 from repro_torch.configs.base import FLConfig, fl_params
 from repro_torch.core import rounds as t_rounds
 from repro_torch.data.synthetic import make_federated, make_population
+from repro_torch.configs.base import get_arch
 from repro_torch.device import resolve_device
+from repro_torch.launch import serve as t_serve
+from repro_torch.models.model import build as build_lm
 from repro_torch.models import mlp as t_mlp
 from repro_torch.train.fl_driver import (run_fl, run_fl_legacy,
                                          run_fl_population, run_fl_sweep)
@@ -79,6 +82,26 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_lm_entry_points_default_to_cuda():
+    """``Model.init``, ``Model.init_cache`` without params and the LM serve
+    CLI (``repro_torch.launch.serve.main``) go to CUDA unless given the
+    CPU: without a card they raise."""
+    model = build_lm(get_arch("granite_3_8b", smoke=True))
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_serve.main(["--arch", "granite_3_8b", "--batch", "1",
+                      "--prompt-len", "2", "--new-tokens", "1"])
+    params = model.init(0, device="cpu")
+    assert params["embed"]["table"].device.type == "cpu"
+    assert model.init_cache(1, 4, params=params)[0]["b0"]["k"].device.type \
+        == "cpu"
 
 
 def test_round_step_rejects_unported_plans_and_foreign_state():

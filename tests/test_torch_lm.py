@@ -1,0 +1,488 @@
+"""The port's decoder-only LM serving path against the JAX reference.
+
+Configs, layers, attention (``impl="ref"`` and ``impl="flash"``), decode
+against full and rolling caches, the granite and phi3 smoke LMs
+(``forward``, ``decode_step``, ``prefill_scan``), a 2-layer model at
+granite's head layout (32 | 8 heads of 128), the full configs' param
+shapes and axes, and the serve CLI.  Weights go across with
+``convert.lm_params_from_jax``; inputs come from a NumPy seed.  On the CPU
+``impl="flash"`` runs the kernel's plain version; the JAX ``"flash"`` route
+runs its Pallas kernel in interpret mode.
+
+Tolerances: f32 at 1e-5.  bf16 at 2e-2, the reference's own bar for bf16
+(``tests/test_arch_smoke.py``, ``tests/test_kernels.py``), relative and
+absolute, with the absolute part scaled by the compared tensor's largest
+magnitude where that exceeds 1: XLA and torch round bf16 products and
+activations at different places, and a one-ulp flip (2^-8 of the value)
+in a layer's input reaches every element of its next product at the
+scale of that input, small elements too.
+"""
+import dataclasses
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import base as j_base
+from repro.launch.serve import prefill_scan as j_prefill_scan
+from repro.models import attention as j_attn
+from repro.models import layers as j_layers
+from repro.models import model as j_model
+from repro.models import transformer as j_tr
+from repro.models.sharding import split_meta as j_split_meta
+
+from repro_torch import convert
+from repro_torch.configs import base as t_base
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.launch import serve as t_serve
+from repro_torch.models import attention as t_attn
+from repro_torch.models import layers as t_layers
+from repro_torch.models import model as t_model
+from repro_torch.models import transformer as t_tr
+
+torch.set_num_threads(1)
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ARCHS = ("granite_3_8b", "phi3_mini_3p8b")
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _close(got, want, dtype: str):
+    got, want = _np(got), _np(want)
+    atol = TOL[dtype]
+    if dtype == "bfloat16":
+        atol *= max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=atol)
+
+
+def _both(a: np.ndarray, dtype: str = "float32"):
+    """The same values in each package's ``dtype``."""
+    return (jnp.asarray(a).astype(dtype),
+            torch.as_tensor(a).to(getattr(torch, dtype)))
+
+
+def _to_torch(tree):
+    return convert.lm_params_from_jax(jax.tree.map(np.asarray, tree), "cpu")
+
+
+def _cfgs(arch: str, dtype: str, **kw):
+    jc = dataclasses.replace(j_base.get_arch(arch, smoke=True), dtype=dtype,
+                             **kw)
+    return jc, t_base.ModelConfig(**dataclasses.asdict(jc))
+
+
+@functools.lru_cache(maxsize=None)
+def _lm(arch: str, dtype: str, **kw):
+    """(JAX model, its params, port model, the same params as tensors)."""
+    jc, tc = _cfgs(arch, dtype, **kw)
+    jm = j_model.build(jc)
+    jp = jm.init(jax.random.key(0))
+    return jm, jp, t_model.build(tc), _to_torch(jp)
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+
+def test_configs_match_the_reference():
+    """Every architecture's ModelConfig methods (pattern, segments, counts)
+    agree with the reference's; the ported configs equal the reference's,
+    full and smoke; the others raise, naming the slice they wait for."""
+    assert t_base.ARCH_IDS == j_base.ARCH_IDS
+    assert t_base.ARCH_ALIASES == j_base.ARCH_ALIASES
+    assert t_base.INPUT_SHAPES == {
+        k: t_base.ShapeConfig(*dataclasses.astuple(v))
+        for k, v in j_base.INPUT_SHAPES.items()}
+    assert t_base.get_shape("long_500k").seq_len == 524_288
+    for arch in j_base.ARCH_IDS:
+        for smoke in (False, True):
+            jc = j_base.get_arch(arch, smoke=smoke)
+            tc = t_base.ModelConfig(**dataclasses.asdict(jc))
+            assert tc.pattern() == jc.pattern()
+            assert tc.segments() == jc.segments()
+            assert tc.param_count() == jc.param_count()
+            assert tc.active_param_count() == jc.active_param_count()
+            assert tc.resolved_head_dim == jc.resolved_head_dim
+            assert tc.supports_long_context() == jc.supports_long_context()
+            for shape in j_base.INPUT_SHAPES.values():
+                assert t_model.effective_window(
+                    tc, t_base.ShapeConfig(*dataclasses.astuple(shape))) == \
+                    j_model.effective_window(jc, shape)
+            if arch in ARCHS:
+                assert dataclasses.asdict(t_base.get_arch(arch, smoke)) == \
+                    dataclasses.asdict(jc)
+            else:
+                with pytest.raises(NotImplementedError, match="waits for"):
+                    t_base.get_arch(arch, smoke)
+    assert t_base.get_arch("granite-3-8b").n_layers == 40
+    assert t_base.get_arch("paper-mlp").hidden == 128
+    assert t_model.parse_long_variant(t_base.get_arch("granite_3_8b")) == 4096
+    assert 8.1e9 < t_base.get_arch("granite_3_8b").param_count() < 8.2e9
+
+
+def test_unported_kinds_modes_and_models_raise():
+    _, tc = _cfgs("granite_3_8b", "float32")
+    for kind in ("moe", "rec", "ssd"):
+        with pytest.raises(NotImplementedError, match="waits for"):
+            t_tr.init_block(None, tc, kind)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        t_tr.apply_stack([], tc, torch.zeros(1, 1, 128), None, mode="train")
+    for arch in ("seamless_m4t_large_v2", "qwen2_vl_72b"):
+        jc = j_base.get_arch(arch, smoke=True)
+        with pytest.raises(NotImplementedError, match="slice"):
+            t_model.build(t_base.ModelConfig(**dataclasses.asdict(jc)))
+    with pytest.raises(ValueError, match="impl"):
+        t_attn.attention(None, None, None, tc, impl="pallas")
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layers_match_jax(dtype):
+    """rmsnorm, layernorm, dense (with bias), embed, unembed, rope_freqs,
+    apply_rope, apply_mrope and mlp (swiglu, geglu, gelu, relu) on the same
+    inputs."""
+    rng = np.random.default_rng(1)
+    d, f = 64, 96
+    jx, tx = _both(rng.standard_normal((2, 8, d)).astype(np.float32), dtype)
+    scale = rng.standard_normal(d).astype(np.float32)
+    bias = rng.standard_normal(d).astype(np.float32)
+    (js, ts), (jb, tb) = _both(scale, dtype), _both(bias, dtype)
+    _close(t_layers.rmsnorm({"scale": ts}, tx, 1e-6),
+           j_layers.rmsnorm({"scale": js}, jx, 1e-6), dtype)
+    _close(t_layers.layernorm({"scale": ts, "bias": tb}, tx),
+           j_layers.layernorm({"scale": js, "bias": jb}, jx), dtype)
+    jw, tw = _both(rng.standard_normal((d, f)).astype(np.float32) / 8, dtype)
+    jbo, tbo = _both(rng.standard_normal(f).astype(np.float32), dtype)
+    _close(t_layers.dense({"w": tw, "b": tbo}, tx),
+           j_layers.dense({"w": jw, "b": jbo}, jx), dtype)
+    jt, tt = _both(rng.standard_normal((50, d)).astype(np.float32), dtype)
+    ids = rng.integers(0, 50, (2, 8))
+    te = t_layers.embed({"table": tt}, torch.as_tensor(ids))
+    assert te.dtype == tt.dtype
+    np.testing.assert_array_equal(
+        _np(te), _np(j_layers.embed({"table": jt}, jnp.asarray(ids))))
+    tu = t_layers.unembed({"table": tt}, tx)
+    assert tu.dtype == torch.float32
+    _close(tu, j_layers.unembed({"table": jt}, jx), "float32")
+    for hd in (32, 96, 128):
+        np.testing.assert_allclose(
+            _np(t_layers.rope_freqs(hd, 10_000.0)),
+            _np(j_layers.rope_freqs(hd, 10_000.0)), rtol=1e-6)
+    pos = rng.integers(0, 300, (2, 8)).astype(np.int32)
+    jq, tq = _both(rng.standard_normal((2, 8, 4, 32)).astype(np.float32),
+                   dtype)
+    tr = t_layers.apply_rope(tq, torch.as_tensor(pos), 10_000.0)
+    assert tr.dtype == tq.dtype
+    _close(tr, j_layers.apply_rope(jq, jnp.asarray(pos), 10_000.0), dtype)
+    pos3 = rng.integers(0, 40, (2, 8, 3)).astype(np.int32)
+    _close(t_layers.apply_mrope(tq, torch.as_tensor(pos3), (4, 6, 6)),
+           j_layers.apply_mrope(jq, jnp.asarray(pos3), (4, 6, 6)), dtype)
+    mats = {k: _both(rng.standard_normal(s).astype(np.float32) / 8, dtype)
+            for k, s in (("wi", (d, f)), ("wg", (d, f)), ("wo", (f, d)))}
+    jp = {k: {"w": v[0]} for k, v in mats.items()}
+    tp = {k: {"w": v[1]} for k, v in mats.items()}
+    for act in ("swiglu", "geglu", "gelu", "relu"):
+        _close(t_layers.mlp(tp, tx, act), j_layers.mlp(jp, jx, act), dtype)
+
+
+def _meta_tree(tree):
+    """{path: (shape, dtype name, axes)} of a JAX or port ParamMeta tree."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (i,))
+        else:
+            out[path] = (tuple(node.value.shape),
+                         str(node.value.dtype).replace("torch.", ""),
+                         node.axes)
+    walk(tree, ())
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_initializers_match_jax_in_shape_dtype_axes(dtype):
+    """The init_* functions build the reference's trees (shapes, dtypes,
+    logical axes); a bf16 draw is the f32 draw cast, as the reference's;
+    an f32 draw is unchanged for the detectors."""
+    jc, tc = _cfgs("granite_3_8b", dtype, qkv_bias=True)
+    key, gen = jax.random.key(0), torch.Generator().manual_seed(0)
+    pairs = [
+        (j_layers.init_rmsnorm(key, 64, jc), t_layers.init_rmsnorm(gen, 64, tc)),
+        (j_layers.init_layernorm(key, 64, jc),
+         t_layers.init_layernorm(gen, 64, tc)),
+        (j_layers.init_dense(key, 64, 32, jc, bias=True),
+         t_layers.init_dense(gen, 64, 32, tc, bias=True)),
+        (j_layers.init_embedding(key, 50, 64, jc),
+         t_layers.init_embedding(gen, 50, 64, tc)),
+        (j_layers.init_mlp(key, jc), t_layers.init_mlp(gen, tc)),
+        (j_attn.init_attention(key, jc), t_attn.init_attention(gen, tc)),
+        (j_tr.init_block(key, jc, "attn"), t_tr.init_block(gen, tc, "attn")),
+    ]
+    for jt, tt in pairs:
+        assert _meta_tree(tt) == _meta_tree(jt)
+    assert set(t_layers.init_mlp(gen, dataclasses.replace(tc, act="gelu"))) \
+        == set(j_layers.init_mlp(key, dataclasses.replace(jc, act="gelu")))
+    a = t_layers.normal_init(torch.Generator().manual_seed(3), (40, 30), 0.5,
+                             torch.bfloat16)
+    b = t_layers.normal_init(torch.Generator().manual_seed(3), (40, 30), 0.5)
+    assert a.dtype == torch.bfloat16 and torch.equal(a, b.to(torch.bfloat16))
+    c = 0.5 * torch.randn((40, 30), generator=torch.Generator().manual_seed(3))
+    assert b.dtype == torch.float32 and torch.equal(b, c)
+    w = t_layers.fan_in_init(torch.Generator().manual_seed(3), (40, 30))
+    assert torch.equal(w, (1.0 / math.sqrt(40)) * (c / 0.5))
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def _attn_cfgs(d: int, hq: int, hkv: int, window=None):
+    jc = j_base.ModelConfig(name="attn-test", family="dense", n_layers=1,
+                            d_model=64, n_heads=hq, n_kv_heads=hkv, d_ff=64,
+                            vocab_size=64, head_dim=d, dtype="float32",
+                            sliding_window=window)
+    return jc, t_base.ModelConfig(**dataclasses.asdict(jc))
+
+
+@pytest.mark.parametrize("d,hq,hkv,window", [
+    (32, 4, 2, None), (64, 4, 1, 16), (96, 4, 4, None), (128, 8, 2, 24)])
+def test_attention_matches_jax(d, hq, hkv, window):
+    """``attention`` with ``impl="ref"`` against the reference's jnp path,
+    and ``impl="flash"`` (the kernel's plain version here) against the
+    Pallas kernel in interpret mode, at D = 32, 64, 96, 128 with GQA and a
+    window; f32 at 1e-5."""
+    jc, tc = _attn_cfgs(d, hq, hkv)
+    jp = j_attn.init_attention(jax.random.key(d), jc)
+    jv, _ = j_split_meta(jp)
+    tp = _to_torch(jv)
+    rng = np.random.default_rng(d)
+    jx, tx = _both(rng.standard_normal((2, 64, 64)).astype(np.float32))
+    pos = np.broadcast_to(np.arange(64, dtype=np.int32), (2, 64))
+    jpos, tpos = jnp.asarray(pos), torch.as_tensor(pos.copy())
+    for impl in ("ref", "flash"):
+        got = t_attn.attention(tp, tx, tpos, tc, window=window, impl=impl)
+        want = j_attn.attention(jv, jx, jpos, jc, window=window, impl=impl)
+        _close(got, want, "float32")
+
+
+def _decode_run(window, cache_len: int, steps: int, dtype: str):
+    """Decode ``steps`` tokens one at a time in both packages, comparing
+    the output and the caches after every step (the port writes its cache
+    in place)."""
+    jc, tc = _attn_cfgs(32, 4, 2)
+    jc, tc = (dataclasses.replace(c, dtype=dtype) for c in (jc, tc))
+    jv, _ = j_split_meta(j_attn.init_attention(jax.random.key(1), jc))
+    tp = _to_torch(jv)
+    jcache = j_attn.init_cache(jc, 2, cache_len)
+    tcache = t_attn.init_cache(tc, 2, cache_len)
+    assert tcache["k"].dtype == torch.bfloat16
+    rng = np.random.default_rng(cache_len)
+    for t in range(steps):
+        jx, tx = _both(rng.standard_normal((2, 1, 64)).astype(np.float32),
+                       dtype)
+        pos = np.full((2, 1), t, np.int32)
+        jo, jcache = j_attn.decode_attention(
+            jv, jx, jcache, jnp.asarray(t), jnp.asarray(pos), jc,
+            window=window)
+        to, tcache2 = t_attn.decode_attention(
+            tp, tx, tcache, t, torch.as_tensor(pos), tc, window=window)
+        assert tcache2 is tcache
+        _close(to, jo, dtype)
+        for name in ("k", "v"):
+            _close(tcache[name], jcache[name], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_full_cache(dtype):
+    _decode_run(None, 12, 12, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_rolling_cache_before_and_after_wrap(dtype):
+    """A rolling cache of 8 slots over 13 steps: 8 before the wrap, 5
+    after it (slots overwritten at index % 8, every slot valid)."""
+    _decode_run(8, 8, 13, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the smoke LMs
+# ---------------------------------------------------------------------------
+
+
+def _tokens(cfg, b: int, s: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_lm_forward_matches_jax(arch, dtype):
+    """Full and ``last_only`` logits, on both impls, against the
+    reference's ``Model.forward``; the padded vocab is exactly −1e30."""
+    jm, jp, tm, tp = _lm(arch, dtype)
+    toks = _tokens(tm.cfg, 2, 32)
+    jt, tt = jnp.asarray(toks), torch.as_tensor(toks)
+    want = jm.forward(jp, {"tokens": jt})
+    got = tm.forward(tp, {"tokens": tt})
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == (2, 32, t_tr.padded_vocab(tm.cfg))
+    v = tm.cfg.vocab_size
+    _close(got[..., :v], np.asarray(want)[..., :v], dtype)
+    assert bool((got[..., v:] == -1e30).all())
+    last = tm.forward(tp, {"tokens": tt}, impl="flash", last_only=True)
+    want_last = jm.forward(jp, {"tokens": jt}, impl="flash", last_only=True)
+    assert tuple(last.shape) == (2, 1, t_tr.padded_vocab(tm.cfg))
+    _close(last[..., :v], np.asarray(want_last)[..., :v], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_lm_decode_and_prefill_scan_match_jax(arch, dtype):
+    """A sequence of ``decode_step``s against the reference's, logits and
+    every cache after each step; ``prefill_scan`` bitwise the port's own
+    decode loop, and against the reference's ``prefill_scan``."""
+    jm, jp, tm, tp = _lm(arch, dtype)
+    toks = _tokens(tm.cfg, 2, 10, seed=1)
+    v = tm.cfg.vocab_size
+    jcaches = jm.init_cache(2, 16)
+    tcaches = tm.init_cache(2, 16, params=tp)
+    assert jax.tree.structure(jcaches) == jax.tree.structure(
+        jax.tree.map(lambda x: 0, tcaches))
+    loop = []
+    for t in range(toks.shape[1]):
+        jl, jcaches = jm.decode_step(jp, jnp.asarray(toks[:, t:t + 1]),
+                                     jcaches, jnp.asarray(t))
+        tl, tcaches = tm.decode_step(tp, torch.as_tensor(toks[:, t:t + 1]),
+                                     tcaches, t)
+        loop.append(tl)
+        _close(tl[..., :v], np.asarray(jl)[..., :v], dtype)
+        for jc_, tc_ in zip(jax.tree.leaves(jcaches),
+                            jax.tree.leaves(tcaches)):
+            _close(tc_, jc_, dtype)
+    scan_caches = tm.init_cache(2, 16, params=tp)
+    last, scan_caches = t_serve.prefill_scan(tm, tp, torch.as_tensor(toks),
+                                             scan_caches)
+    assert torch.equal(last, loop[-1])
+    for a, b in zip(jax.tree.leaves(scan_caches), jax.tree.leaves(tcaches)):
+        assert torch.equal(a, b)
+    j_last, _ = j_prefill_scan(jm, jp, jnp.asarray(toks), jm.init_cache(2, 16))
+    _close(last[..., :v], np.asarray(j_last)[..., :v], dtype)
+
+
+def test_granite_head_layout_through_flash_matches_jax_interpret():
+    """Two layers at granite's head layout (32 q heads | 8 kv heads of 128)
+    through ``impl="flash"`` against the Pallas kernel in interpret mode,
+    f32 at 1e-5."""
+    jc = dataclasses.replace(j_base.get_arch("granite_3_8b", smoke=True),
+                             d_model=256, n_heads=32, n_kv_heads=8,
+                             head_dim=128, d_ff=512, dtype="float32")
+    tc = t_base.ModelConfig(**dataclasses.asdict(jc))
+    jm, tm = j_model.build(jc), t_model.build(tc)
+    jp = jm.init(jax.random.key(2))
+    tp = _to_torch(jp)
+    toks = _tokens(tc, 1, 64, seed=2)
+    want = jm.forward(jp, {"tokens": jnp.asarray(toks)}, impl="flash",
+                      last_only=True)
+    got = tm.forward(tp, {"tokens": torch.as_tensor(toks)}, impl="flash",
+                     last_only=True)
+    v = tc.vocab_size
+    _close(got[..., :v], np.asarray(want)[..., :v], "float32")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_config_param_shapes_and_axes_equal_jax(arch):
+    """``param_shapes()`` and ``axes()`` of the FULL config equal the
+    reference's ``lm_param_shapes``/``lm_axes``, built on the meta device:
+    nothing is allocated."""
+    jc = j_base.get_arch(arch)
+    tm = t_model.build(t_base.get_arch(arch))
+    jshapes, jaxes = j_tr.lm_param_shapes(jc), j_tr.lm_axes(jc)
+    tshapes, taxes = tm.param_shapes(), tm.axes()
+    tl, jl = jax.tree.leaves(tshapes), jax.tree.leaves(jshapes)
+    assert jax.tree.structure(jax.tree.map(lambda x: 0, tshapes)) == \
+        jax.tree.structure(jax.tree.map(lambda x: 0, jshapes))
+    assert all(t.device.type == "meta" for t in tl)
+    assert [(tuple(t.shape), str(t.dtype)[6:]) for t in tl] == \
+        [(tuple(j.shape), str(j.dtype)) for j in jl]
+    is_axes = lambda x: isinstance(x, tuple)  # noqa: E731
+    assert jax.tree.leaves(taxes, is_leaf=is_axes) == \
+        jax.tree.leaves(jaxes, is_leaf=is_axes)
+    n = sum(t.numel() for t in tl)
+    assert abs(n - tm.cfg.param_count()) / n < 0.01
+    if arch == "granite_3_8b":
+        assert tl[-1].shape[0] == 40  # the stacked "layers" axis
+
+
+def test_flash_launch_plan_takes_the_lm_shapes():
+    """The row kernel's plan for the LM prefill: D = 128 at GQA group 4
+    and D = 96 (phi3, padded into DMAX 128), bf16, S = T up to 4,096 with
+    grid.x = ceil(S / 64)."""
+    for hq, hkv, d in ((32, 8, 128), (32, 32, 96)):
+        for s in (1, 128, 512, 1000, 4096):
+            plan = t_fa.launch_plan(4, s, s, hq, hkv, d, torch.bfloat16, True)
+            assert (plan.dmax, plan.rows, plan.heads, plan.lanes) == \
+                (128, 64, 1, 1)
+            assert plan.grid == (-(-s // 64), hq, 4)
+            assert plan.threads == 64 and plan.key_tile == 32
+            assert plan.smem_bytes == 2 * 32 * 128 * 4 <= t_fa.MAX_SMEM
+
+
+def test_convert_keeps_dtypes_bitwise():
+    jm, jp, _, tp = _lm("granite_3_8b", "bfloat16")
+    for j, t in zip(jax.tree.leaves(jp), jax.tree.leaves(tp)):
+        assert t.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_np(t), np.asarray(j, np.float32))
+    caches = convert.lm_caches_from_jax(jm.init_cache(2, 4), "cpu")
+    assert caches[0]["b0"]["k"].dtype == torch.bfloat16
+    assert tuple(caches[0]["b0"]["k"].shape) == (2, 2, 4, 2, 32)
+
+
+def test_model_init_draws_layer_by_layer_into_stacked_params():
+    """``Model.init`` on the CPU: the reference's tree, bf16 leaves, a seed
+    repeats bitwise and a generator given is used; two layers differ."""
+    tm = t_model.build(t_base.get_arch("granite_3_8b", smoke=True))
+    p1 = tm.init(0, device="cpu")
+    p2 = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    for a, b in zip(jax.tree.leaves(p1), jax.tree.leaves(p2)):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+    wq = p1["stack"][0]["b0"]["attn"]["wq"]["w"]
+    assert wq.shape == (2, 128, 128) and not torch.equal(wq[0], wq[1])
+    assert float(wq.float().std()) == pytest.approx(128 ** -0.5, rel=0.05)
+
+
+def test_serve_cli_on_the_cpu():
+    """The serve CLI at smoke size: greedy tokens in the vocab, the first
+    equal to the argmax of the prefill's last logits, and a sampled run."""
+    out = t_serve.main(["--arch", "granite_3_8b", "--device", "cpu",
+                        "--batch", "2", "--prompt-len", "5",
+                        "--new-tokens", "3"])
+    toks = out["tokens"]
+    assert tuple(toks.shape) == (2, 3)
+    assert bool(((toks >= 0) & (toks < 512)).all())
+    first = out["prefill_logits"][:, 0, :512].argmax(-1)
+    assert torch.equal(toks[:, 0], first)
+    assert out["tok_per_s"] > 0
+    sampled = t_serve.main(["--arch", "phi3_mini_3p8b", "--device", "cpu",
+                            "--batch", "1", "--prompt-len", "3",
+                            "--new-tokens", "2", "--temperature", "1.0"])
+    assert tuple(sampled["tokens"].shape) == (1, 2)

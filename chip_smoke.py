@@ -11,9 +11,11 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    nvcc per source, all at once, sm_90a), print ptxas' registers and
    spills, and require no spill in ``flash_attention_kernel`` and
    ``flash_decode_lanes_kernel`` (the head dims up to 32),
-   ``rglru_scan_tiles_kernel`` and ``sumsq_rows_cluster_kernel``, and
-   record (without a gate) those of ``flash_attention_row_kernel`` (head
-   dims 64 and 128, which spills at 128);
+   ``flash_attention_mma_kernel`` (bf16 at DMAX 64, 96, 128, 256),
+   ``rglru_scan_tiles_kernel`` and
+   ``sumsq_rows_cluster_kernel``, and record (without a gate) those of
+   ``flash_attention_row_kernel`` (f32 at head dims 64 and 128, which
+   spills at 128);
 3. hold the DP kernels against their plain PyTorch versions on the card, at
    the paper config's shape [40, 13890] and at ragged shapes (P ≡ 1, 2, 3
    mod 4, a base pointer one element off, rows shorter than a cluster's
@@ -41,7 +43,13 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    ``sel_mask``, state within rtol 1e-4 / atol 1e-6); profile 3 warm
    sweep rounds; hold the DP kernels at [1600, 13890] against their plain
    versions (``scale_noise_rows`` with one σ a row bitwise) and time them;
-8. hold ``flash_attention`` (and require two calls to agree bitwise),
+8. hold ``flash_attention`` (and require two calls to agree bitwise; f32
+   at D = 256 refused; the bf16 cases at D > 32 are chosen to reach every
+   branch of the tensor-core kernel: a cut staged range, a warp skipping a
+   tile, ragged rows and keys, rows with no valid key, the prefix offset,
+   non-causal, a window shorter than a key tile, GQA and MQA, D padded and
+   copied 2 bytes at a time, each DMAX; ``tests/test_torch_fa_mma.py``
+   checks that on a Python copy of the kernel's walk),
    ``flash_decode`` (q, k and v dense, q broadcast or strided, or all
    three off 16-byte alignment, so that every staging branch runs; two
    calls bitwise equal, rows of length 0, its shard partials and their
@@ -114,15 +122,21 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    a seed; the prefill step ``forward(impl="flash", last_only=True)`` at
    B = 4, S = 512 with ``flash_attention``'s count set to 0 just before it
    and 40 launches required (one a layer), its warm wall, profile (device
-   busy share, K3's device time) and agreement with ``impl="ref"`` (bf16:
-   2e-2 relative and of max(1, max|logit|)); the serve CLI's path
+   busy share, K3's device time: 40 calls of ``flash_attention_mma_kernel``
+   required) and agreement with ``impl="ref"`` (bf16: 2e-2 relative and of
+   max(1, max|logit|)); the same step at [1, 4096]; the serve CLI's path
    (``prefill_scan`` of 128-token prompts, then 32 greedy tokens: tok/s)
    with its last prefill logits against the prefill step's (the same
-   tolerance, every argmax equal); phi3-mini's prefill at [1, 512] (32
-   launches); a 2-layer f32 variant at full width, card (K3) vs CPU
-   (plain) within 1e-4; K3 at granite's [4, 512, 32 | 8, 128] and phi3's
-   [1, 512, 32 | 32, 96] (bf16, causal) against its plain version, timed
-   beside it, SDPA (GQA) and the bound.
+   tolerance counts the elements beyond it: no more than the scan has
+   against the plain prefill, ``impl="ref"``, that pair's own floor; every
+   argmax of both equal); phi3-mini's prefill at [1, 512] (32 launches,
+   32 kernel calls); a 2-layer f32 variant at full
+   width, card (K3's f32 row kernel) vs CPU (plain) within 1e-4; K3 at
+   granite's [4, 512, 32 | 8, 128], phi3's [1, 512, 32 | 32, 96],
+   granite's long [1, 4096, 32 | 8, 128] and recurrentgemma's local
+   attention [1, 4096, 16 | 1, 256] with window 2048 (bf16, causal)
+   against its plain version (2e-2, bitwise repeat), timed beside it,
+   SDPA (GQA; a boolean mask for the window) and the bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -964,8 +978,12 @@ def phase_sweep_kernels(torch, dpk, ref, launches):
 # (b, s, t, hq, hkv, d, causal, window): the grid of tests/test_kernels.py,
 # the attn detector's path shape, a ragged S = T = 100, a causal offset,
 # S > T (rows with no valid key), GQA at the detector's width, D = 32
-# with a window, and phi3's D = 96 (padded into the row kernel's DMAX 128)
-# with a ragged last block of rows
+# with a window, and phi3's D = 96 with a ragged last block of rows.  Then
+# the tensor-core kernel's cases (bf16 at D > 32; f32 there runs the row
+# kernel, and is refused at D = 256): S > T, T > S (the prefix offset), S
+# and T not multiples of the tiles, a window shorter than a key tile,
+# non-causal, GQA 4 and MQA, D = 256 (recurrentgemma's local attention),
+# and D = 36 (padded into DMAX 64, copied 2 bytes at a time)
 FA_PATH = (128, 64, 64, 2, 2, 8, True, None)
 FA_CASES = [(1, 128, 128, 4, 4, 64, True, None),
             (2, 256, 256, 8, 2, 64, True, None),
@@ -978,13 +996,28 @@ FA_CASES = [(1, 128, 128, 4, 4, 64, True, None),
             (2, 96, 64, 2, 2, 8, True, None),
             (4, 64, 64, 4, 1, 8, True, None),
             (2, 64, 64, 2, 2, 32, True, 16),
-            (1, 200, 200, 4, 4, 96, True, None)]
+            (1, 200, 200, 4, 4, 96, True, None),
+            (1, 96, 64, 4, 1, 128, True, None),
+            (2, 64, 192, 8, 2, 96, True, None),
+            (1, 200, 200, 8, 2, 128, True, None),
+            (1, 256, 256, 4, 2, 128, True, 16),
+            (2, 100, 130, 4, 4, 64, False, None),
+            (1, 64, 200, 4, 4, 96, True, 40),
+            (8, 256, 256, 16, 4, 64, True, None),
+            (1, 300, 300, 16, 1, 256, True, 64),
+            (1, 130, 130, 8, 2, 256, False, None),
+            (1, 96, 64, 16, 1, 256, True, None),
+            (1, 70, 90, 2, 2, 36, True, 20)]
 # flash_attention_kernel<T, DMAX, G> and flash_attention_row_kernel<T, DMAX>
 # in ptxas' mangled names
 FA_KERNEL_NAME = re.compile(
     r"22flash_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E")
 FA_ROW_KERNEL_NAME = re.compile(
     r"26flash_attention_row_kernelI(f|13__nv_bfloat16)Li(\d+)EE")
+# flash_attention_mma_kernel<DMAX>, and the name the profiler reports its
+# launches under
+FA_MMA_KERNEL_NAME = re.compile(r"26flash_attention_mma_kernelILi(\d+)EEEv")
+FA_MMA_KERNEL = "flash_attention_mma_kernel"
 # (b, hq, hkv, d, t, length): length is one for every row or one per row.
 # The grid of PR 12 (head dims 64 and 128), the attn read-out's path shape,
 # T = 100 (a ragged last key tile), GQA at the detector's width (4 q heads
@@ -1065,6 +1098,11 @@ def check_fa_ptxas(log: str) -> dict:
     return check_ptxas(log, FA_KERNEL_NAME, "flash_attention_kernel", 6)
 
 
+def check_fa_mma_ptxas(log: str) -> dict:
+    """``flash_attention_mma_kernel``: DMAX 64, 96, 128, 256."""
+    return check_ptxas(log, FA_MMA_KERNEL_NAME, FA_MMA_KERNEL, 4)
+
+
 def check_fd_ptxas(log: str) -> dict:
     """``flash_decode_lanes_kernel``: f32 and bf16 at DMAX 8, 16, 32
     (G = 32)."""
@@ -1084,7 +1122,8 @@ def check_sq_ptxas(log: str) -> dict:
 def check_flash_attention(torch, fak, ref, randn) -> float:
     """Phase 8 for ``flash_attention``: every case of :data:`FA_CASES` in
     f32 (2e-5) and bf16 (2e-2) against the plain version, and two calls
-    bitwise equal.  Returns the f32 max abs error at :data:`FA_PATH`."""
+    bitwise equal (f32 at D > 128 must be refused).  Returns the f32 max
+    abs error at :data:`FA_PATH`."""
     err = None
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for case in FA_CASES:
@@ -1092,6 +1131,13 @@ def check_flash_attention(torch, fak, ref, randn) -> float:
             q, k, v = (randn(b, s, hq, d, dtype=dtype),
                        randn(b, t, hkv, d, dtype=dtype),
                        randn(b, t, hkv, d, dtype=dtype))
+            if dtype == torch.float32 and d > fak.MAX_HEAD_DIM_F32:
+                try:
+                    fak.flash_attention(q, k, v, causal=causal, window=window)
+                except ValueError as e:
+                    print(f"  flash_attention float32 {case}: refused ({e})")
+                    continue
+                raise AssertionError(f"f32 at D = {d} was not refused")
             o = fak.flash_attention(q, k, v, causal=causal, window=window)
             o_ref = ref.flash_attention_ref(q, k, v, causal=causal,
                                             window=window)
@@ -2317,35 +2363,47 @@ def phase_cohort_card_vs_cpu(torch, dpk, rounds: int = 3):
 LM_ARCH, LM_PHI3 = "granite_3_8b", "phi3_mini_3p8b"
 LM_PREFILL = (4, 512)       # B, S of the prefill step
 LM_PHI3_PREFILL = (1, 512)
+LM_LONG_PREFILL = (1, 4096)  # granite at a long prompt
 LM_PROMPT, LM_NEW = 128, 32  # the serve path: prompt tokens, greedy tokens
 LM_CARD_CPU = (2, 128)      # B, S of the 2-layer f32 card-vs-CPU forward
 LM_BF16_TOL = 2e-2          # bf16: relative, and of max(1, max|logit|)
 LM_F32_TOL = 1e-4
-# (b, s, hq, hkv, d): K3 at granite's and phi3's prefill shapes, causal bf16
-LM_FA_CASES = (("flash_attention_lm_granite", (4, 512, 32, 8, 128), LM_ARCH),
-               ("flash_attention_lm_phi3", (1, 512, 32, 32, 96), LM_PHI3))
+# (name, (b, s, hq, hkv, d), window, the prefill whose launches count): K3
+# at granite's and phi3's prefill shapes and granite's long prefill, and at
+# recurrentgemma-9b's local attention (16 | 1 heads of 256, window 2048:
+# on no path yet, its rec model waits for a later slice), causal bf16
+LM_FA_CASES = (
+    ("flash_attention_lm_granite", (4, 512, 32, 8, 128), None, "prefill"),
+    ("flash_attention_lm_phi3", (1, 512, 32, 32, 96), None, "phi3_prefill"),
+    ("flash_attention_lm_granite_long", (1, 4096, 32, 8, 128), None,
+     "long_prefill"),
+    ("flash_attention_recurrentgemma_local", (1, 4096, 16, 1, 256), 2048,
+     None))
 
 
-def lm_close(torch, got, want, tol: float, what: str) -> dict:
+def lm_close(torch, got, want, tol: float, what: str,
+             gate: bool = True) -> dict:
     """``got`` within ``tol`` of ``want`` relatively and within ``tol`` of
     max(1, max|want|) absolutely (bf16's error reaches every element at the
-    scale of the largest); the max abs error, the relative Frobenius error
-    and the rows whose argmax agree."""
+    scale of the largest); the max abs error, the elements beyond the
+    tolerance, the relative Frobenius error and the rows whose argmax
+    agree.  With ``gate`` False the caller checks the result."""
     got, want = got.float(), want.float()
     atol = tol * max(1.0, float(want.abs().max()))
     err = (got - want).abs()
     bad = int((err > atol + tol * want.abs()).sum())
     top2 = want.topk(2, dim=-1).values
-    out = {"max_abs_err": float(err.max()), "atol": atol,
+    out = {"max_abs_err": float(err.max()), "atol": atol, "beyond": bad,
            "rel_fro_err": float(err.norm() / want.norm()),
            "argmax_equal": int((got.argmax(-1) == want.argmax(-1)).sum()),
            "rows": int(want[..., 0].numel()),
            "top2_gap_min": float((top2[..., 0] - top2[..., 1]).min())}
     print(f"  {what}: max|err| {out['max_abs_err']:.3e} (atol {atol:.3e}), "
-          f"rel fro {out['rel_fro_err']:.3e}, argmax equal "
+          f"{bad} beyond, rel fro {out['rel_fro_err']:.3e}, argmax equal "
           f"{out['argmax_equal']}/{out['rows']} (least top-2 gap "
           f"{out['top2_gap_min']:.3e})")
-    check(bad == 0, f"{what}: {bad} elements beyond tolerance {tol}")
+    if gate:
+        check(bad == 0, f"{what}: {bad} elements beyond tolerance {tol}")
     return out
 
 
@@ -2420,8 +2478,11 @@ def lm_prefill(torch, fak, model, params, tokens, card):
               "flash_attention launches a warm prefill")
     prof_wall, device, busy_ms, by_kernel = lm_profiled(torch, step)
     k3 = [(n, t) for k, (n, t) in by_kernel.items()
-          if "flash_attention_row_kernel" in k]
+          if FA_MMA_KERNEL in k]
     k3_ms = sum(t for _, t in k3)
+    check(sum(n for n, _ in k3) == model.cfg.n_layers,
+          f"{sum(n for n, _ in k3)} {FA_MMA_KERNEL} calls in a profiled "
+          f"prefill of {model.cfg.n_layers} layers")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:6]
     out = {"launches": launches, "warm_wall_ms": walls,
            "warm_wall_ms_median": statistics.median(walls),
@@ -2447,11 +2508,11 @@ def lm_prefill(torch, fak, model, params, tokens, card):
     return logits, out
 
 
-def check_lm_kernel(torch, fak, ref, name, case, launches, ptxas):
-    """K3 at an LM prefill shape (bf16, causal): held against its plain
-    version at phase 8's bf16 bar (2e-2), timed beside the plain version,
-    SDPA (GQA, on the [B, H, S, D] layout) and the bound; a row of the
-    kernels JSON line."""
+def check_lm_kernel(torch, fak, ref, name, case, window, launches, ptxas):
+    """K3 at an LM shape (bf16, causal, S = T, optional window): held
+    against its plain version at phase 8's bf16 bar (2e-2), timed beside the
+    plain version, SDPA (GQA, on the [B, H, S, D] layout; with a window, a
+    boolean mask) and the bound; a row of the kernels JSON line."""
     b, s, hq, hkv, d = case
     gen = torch.Generator().manual_seed(11)
 
@@ -2459,36 +2520,54 @@ def check_lm_kernel(torch, fak, ref, name, case, launches, ptxas):
         return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
 
     q, k, v = randn(b, s, hq, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
-    o = fak.flash_attention(q, k, v, causal=True)
-    o_ref = ref.flash_attention_ref(q, k, v, causal=True)
+    o = fak.flash_attention(q, k, v, causal=True, window=window)
+    o_ref = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     torch.testing.assert_close(o.float(), o_ref.float(), rtol=2e-2, atol=2e-2)
+    check(torch.equal(o, fak.flash_attention(q, k, v, causal=True,
+                                              window=window)),
+          f"{name}: flash_attention not bitwise repeatable")
     qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    pairs = s * (s + 1) // 2   # causal (query, key) pairs, S = T
+    if window is None:
+        def library():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        i = torch.arange(s, device="cuda")[:, None]
+        j = torch.arange(s, device="cuda")[None, :]
+        mask = (j <= i) & (j > i - window)
+
+        def library():
+            return sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    # the (query, key) pairs the mask keeps, S = T
+    pairs = sum(min(r + 1, window or s) for r in range(s))
     bytes_moved = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d)
     flops = 4 * d * pairs * b * hq
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_bf16 = flops / BF16_FLOP_PER_S * 1e3
+    plan = fak.launch_plan(b, s, s, hq, hkv, d, torch.bfloat16, True)
     row = {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:103",
         "shape": [b, s, s, hq, hkv, d], "dtype": "bf16", "causal": True,
-        "launches": launches, "max_abs_err": max_abs(o, o_ref),
+        "window": window, "launches": launches,
+        "on_path": launches > 0, "max_abs_err": max_abs(o, o_ref),
         "bound_ms": max(t_bytes, t_bf16),
         "bound_by": "bytes" if t_bytes >= t_bf16 else "operations",
         "bound_bytes_ms": t_bytes, "bound_bf16_ms": t_bf16,
         "bound_f32_fma_ms": flops / FP32_FLOP_PER_S * 1e3,
         "bytes": bytes_moved, "flops": flops,
-        "ptxas_row_kernel": ptxas.get("bf16, 128"),
-        **timed(lambda: fak.flash_attention(q, k, v, causal=True),
-                lambda: ref.flash_attention_ref(q, k, v, causal=True),
-                lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
-                iters=10),
+        "plan": plan._asdict(),
+        "ptxas": ptxas.get(str(plan.dmax)),
+        **timed(lambda: fak.flash_attention(q, k, v, causal=True,
+                                            window=window),
+                lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                window=window),
+                library, iters=10),
     }
-    print(f"  {name} {case} bf16 causal: device {row['ms'] * 1e3:.1f} us, "
-          f"eager {row['eager_ms'] * 1e3:.1f} us; bound "
-          f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; bytes "
+    print(f"  {name} {case} window {window} bf16 causal: device "
+          f"{row['ms'] * 1e3:.1f} us, eager {row['eager_ms'] * 1e3:.1f} us; "
+          f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; bytes "
           f"{t_bytes * 1e3:.2f}, bf16 {t_bf16 * 1e3:.2f}, f32 FMA "
           f"{row['bound_f32_fma_ms'] * 1e3:.1f}); plain "
           f"{row['plain_ms'] * 1e3:.1f} us; SDPA "
@@ -2501,9 +2580,11 @@ def phase_lm(torch, fak, ref, card, ptxas_rows):
     """Phase 15: granite-3-8b at full width and depth in bf16 on the card:
     the build, the prefill step on K3 (40 launches a call) against
     ``impl="ref"``, the serve path (``prefill_scan`` of 128-token prompts,
-    32 greedy tokens) against the prefill step, phi3-mini's prefill (32
+    32 greedy tokens) against the prefill step, at the floor of the plain
+    prefill's agreement with it, phi3-mini's prefill (32
     launches), a 2-layer f32 variant card vs CPU, and K3 at both prefill
-    shapes beside SDPA and its bound."""
+    shapes, granite's long prefill and recurrentgemma's local attention
+    beside SDPA and its bound."""
     import dataclasses
 
     from repro_torch.configs.base import get_arch
@@ -2538,6 +2619,9 @@ def phase_lm(torch, fak, ref, card, ptxas_rows):
     out["prefill"]["flash_vs_ref"] = lm_close(
         torch, logits[..., :v], ref_logits[..., :v], LM_BF16_TOL,
         "prefill impl=flash vs impl=ref (bf16)")
+    long_tokens = lm_tokens(torch, cfg, *LM_LONG_PREFILL, seed=5)
+    _, out["long_prefill"] = lm_prefill(torch, fak, model, params,
+                                        long_tokens, card)
 
     prompts = lm_tokens(torch, cfg, LM_PREFILL[0], LM_PROMPT, seed=2)
     gen = generate(model, params, prompts, LM_NEW)
@@ -2551,11 +2635,27 @@ def phase_lm(torch, fak, ref, card, ptxas_rows):
              "max_memory_allocated": torch.cuda.max_memory_allocated()}
     check(tuple(gen["tokens"].shape) == (LM_PREFILL[0], LM_NEW) and bool(
         ((gen["tokens"] >= 0) & (gen["tokens"] < v)).all()), "greedy tokens")
-    serve["scan_vs_forward"] = lm_close(
-        torch, gen["prefill_logits"][..., :v], fwd[..., :v], LM_BF16_TOL,
-        "prefill_scan last logits vs forward(flash, last_only) (bf16)")
-    check(serve["scan_vs_forward"]["argmax_equal"] == LM_PREFILL[0],
-          "prefill_scan and forward disagree on an argmax")
+    # The scan (decode steps over bf16 caches; no K3) against the prefill
+    # step on K3 and against the plain prefill (impl="ref"): across 40 bf16
+    # layers two paths that round apart differ past LM_BF16_TOL in a few
+    # logits, the plain pair too (PERF.md §6).  So K3's bar is that floor:
+    # no more elements beyond the tolerance than the plain prefill has, and
+    # every argmax of both equal.
+    plain = model.forward(params, {"tokens": prompts}, impl="ref",
+                          last_only=True)
+    for key, want, what in (("scan_vs_forward_ref", plain, "ref"),
+                            ("scan_vs_forward", fwd, "flash")):
+        serve[key] = lm_close(
+            torch, gen["prefill_logits"][..., :v], want[..., :v],
+            LM_BF16_TOL, f"prefill_scan last logits vs forward({what}, "
+            f"last_only) (bf16)", gate=False)
+        check(serve[key]["argmax_equal"] == LM_PREFILL[0],
+              f"prefill_scan and forward({what}) disagree on an argmax")
+    beyond = serve["scan_vs_forward"]["beyond"]
+    floor = serve["scan_vs_forward_ref"]["beyond"]
+    check(beyond <= floor,
+          f"prefill_scan vs forward(flash): {beyond} elements beyond "
+          f"{LM_BF16_TOL}, more than the plain prefill's {floor}")
     last = LM_PROMPT + LM_NEW - 1  # rewrite the last slot: any index fits
     wall, device, busy_ms, _ = lm_profiled(torch, lambda: model.decode_step(
         params, gen["tokens"][:, -1:], gen["caches"], last))
@@ -2599,11 +2699,9 @@ def phase_lm(torch, fak, ref, card, ptxas_rows):
     del params
     torch.cuda.empty_cache()
 
-    launches = {LM_ARCH: out["prefill"]["launches"],
-                LM_PHI3: out["phi3_prefill"]["launches"]}
-    rows = [check_lm_kernel(torch, fak, ref, name, case, launches[arch],
-                            ptxas_rows)
-            for name, case, arch in LM_FA_CASES]
+    rows = [check_lm_kernel(torch, fak, ref, name, case, window,
+                            out[key]["launches"] if key else 0, ptxas_rows)
+            for name, case, window, key in LM_FA_CASES]
     for row in rows:
         row["sdpa_ratio"] = row["ms"] / row["library_ms"]
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -2646,10 +2744,13 @@ def main() -> int:
                 print(f"    {line.strip()}")
     ptxas = {
         "flash_attention": check_fa_ptxas(builds["flash_attention"]["log"]),
+        "flash_attention_mma": check_fa_mma_ptxas(
+            builds["flash_attention"]["log"]),
         "flash_decode": check_fd_ptxas(builds["flash_decode"]["log"]),
         "rglru_scan": check_rg_ptxas(builds["rglru_scan"]["log"]),
         "sumsq_rows": check_sq_ptxas(builds["dp_clip_noise"]["log"]),
-        # recorded, not gated: the row kernel is known to spill at DMAX 128
+        # recorded, not gated: the f32 row kernel is known to spill at
+        # DMAX 128 (no timed path runs it)
         "flash_attention_row": ptxas_report(builds["flash_attention"]["log"],
                                             FA_ROW_KERNEL_NAME,
                                             "flash_attention_row_kernel")}
@@ -2764,7 +2865,7 @@ def main() -> int:
           f"{LM_NEW} greedy tokens  ({card})")
     with torch.no_grad():
         lm, lm_rows = phase_lm(torch, fak, ref, card,
-                               ptxas["flash_attention_row"])
+                               ptxas["flash_attention_mma"])
     kernels += lm_rows
 
     steady = walls[1:]

@@ -2,8 +2,9 @@
 
 Each source has a plain C interface.  It is compiled with ``nvcc`` for
 ``sm_90a`` at first use into ``_build/lib<name>_<hash>.so`` (named by a hash
-of the source, so an edit rebuilds) and loaded with ``ctypes``: a file
-without PyTorch's headers builds in seconds rather than minutes.
+of the source and of the headers beside it, such as ``attn_common.cuh``, so
+an edit of either rebuilds) and loaded with ``ctypes``: a file without
+PyTorch's headers builds in seconds rather than minutes.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them together.  Every entry point launches on the caller's stream and
 returns ``cudaGetLastError()``; :func:`raise_on` turns that into an error.
@@ -46,8 +47,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Named by a hash of the source and of every header beside it, so an
+    edit of either rebuilds."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> Dict[str, dict]:

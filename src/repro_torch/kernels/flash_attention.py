@@ -3,14 +3,21 @@
 Replaces the Pallas TPU kernel of ``repro/kernels/flash_attention.py``
 (``flash_attention``, ``_kernel``): causal (offset T−S), sliding-window,
 non-causal and GQA attention with an online softmax over K/V tiles held in
-shared memory, f32 accumulation, f32 or bf16 operands, output in q's dtype.
-The source is ``csrc/flash_attention.cu``, built and loaded by
-``_nvcc.py``; it says how the kernel is laid out and what bounds it.  It
-takes any S and T (blocks mask their own ragged edge) and head dims up to
-128.  :func:`launch_plan` chooses the launch (rows and heads per block,
-lanes per row, key tile, shared memory, copy width) in plain Python, so
-that the CPU tests can hold it to the card's limits; the C entry point
-checks the plan it is given.
+shared memory, f32 sums, f32 or bf16 operands, output in q's dtype.  The
+source is ``csrc/flash_attention.cu``, built and loaded by ``_nvcc.py``; it
+says how each kernel is laid out and what bounds it.  It takes any S and T
+(blocks mask their own ragged edge).  Three kernels, by dtype and head dim:
+
+* D ≤ 32: the lanes kernel (f32 or bf16), the attn detector's path;
+* bf16 at 32 < D ≤ 256: the tensor-core kernel (``mma.sync``), the LM
+  prefill's (granite-3-8b at D = 128, phi3-mini at 96, recurrentgemma's
+  local attention at 256);
+* f32 at 32 < D ≤ 128: the row kernel (TF32 stays off, so f32 has no
+  tensor cores); f32 above 128 raises.
+
+:func:`launch_plan` chooses the launch in plain Python, so that the CPU
+tests can hold it to the card's limits; the C entry point checks the plan
+it is given and refuses any other.
 
 A CPU tensor runs the plain version (``ref.flash_attention_ref``); a CUDA
 tensor launches the kernel or raises.  Nothing falls back.  ``LAUNCHES``
@@ -27,23 +34,34 @@ import torch
 from repro_torch.kernels import _nvcc, ref
 
 LAUNCHES = {"flash_attention": 0}
-MAX_HEAD_DIM = 128
-MAX_GRID_YZ = 65535  # gridDim.y (heads) and gridDim.z (batch)
+MAX_HEAD_DIM = 256   # bf16; f32 stops at MAX_HEAD_DIM_F32
+MAX_HEAD_DIM_F32 = 128
+MAX_GRID_YZ = 65535  # gridDim.y and gridDim.z
 DTYPES = (torch.float32, torch.bfloat16)
 
-MAX_SMEM = 48 * 1024  # static shared memory; the plan never asks for more
+MAX_SMEM = 48 * 1024  # static shared memory: the lanes kernel's limit
+MAX_SMEM_OPTIN = 232_448  # dynamic shared memory a block after the opt-in
 MIN_BLOCKS = 256  # two blocks for each of the H100's 132 SMs, about
 
+# the tensor-core kernel: head dims it is built for, and the query
+# positions of one head a block (4 warps of 16)
+MMA_DMAX = (64, 96, 128, 256)
+MMA_ROWS = 64
+
+KERNELS = ("lanes", "row", "mma")  # the C entry point's kernel codes 0, 1, 2
+
 _SIGNATURES = {"fa_flash_attention": (_nvcc.PTR,) * 4 + (_nvcc.I32,) * 6
-               + (_nvcc.F32,) + (_nvcc.I32,) * 9 + (_nvcc.PTR,)}
+               + (_nvcc.F32,) + (_nvcc.I32,) * 10 + (_nvcc.PTR,)}
 
 
 class LaunchPlan(NamedTuple):
-    """How ``fa_flash_attention`` launches: ``dmax`` is the head-dim bound
-    it is built for, ``lanes`` the threads that split one (row, head)'s
-    keys, ``rows`` × ``heads`` the (query row, q head) pairs of a block,
-    ``kv_heads`` the kv heads it stages, ``key_tile`` the keys of one
-    staged tile, ``copy_width`` the bytes of one copy unit."""
+    """How ``fa_flash_attention`` launches: ``kernel`` one of
+    :data:`KERNELS`, ``dmax`` the head-dim bound it is built for, ``lanes``
+    the threads that split one (row, head)'s keys, ``rows`` query positions
+    × ``heads`` q heads a block, ``kv_heads`` the kv heads it stages,
+    ``key_tile`` the keys of one staged tile, ``copy_width`` the bytes of
+    one copy unit."""
+    kernel: str
     dmax: int
     lanes: int
     rows: int
@@ -54,6 +72,17 @@ class LaunchPlan(NamedTuple):
     grid: Tuple[int, int, int]
     smem_bytes: int
     copy_width: int
+
+
+def mma_key_tile(dmax: int) -> int:
+    """Keys of one staged K/V tile of the tensor-core kernel."""
+    return 32 if dmax >= 256 else 64
+
+
+def mma_smem_bytes(dmax: int) -> int:
+    """The tensor-core kernel's shared memory: the q tile and two buffers
+    of K and V tiles, bf16 rows padded by 8 elements."""
+    return (MMA_ROWS + 4 * mma_key_tile(dmax)) * (dmax + 8) * 2
 
 
 @functools.lru_cache(maxsize=256)
@@ -70,16 +99,34 @@ def launch_plan(b: int, s: int, t: int, hq: int, hkv: int, d: int,
     whose q tile and K/V tiles (two buffers each when ``t`` spans more
     than one tile) fit in :data:`MAX_SMEM`.  Copies move 16 bytes when
     every pointer is 16-byte aligned (``ptrs_aligned``) and a row of
-    ``d`` elements is a multiple of 16 bytes, else one element.  Head
-    dims above 32 take the row kernel (DMAX 64 or 128): 64 rows of one
-    head per block, a thread per row, ``grid.x`` = ⌈s / 64⌉.  The LM
-    prefill launches it at D = 128 (granite-3-8b) and D = 96 (phi3-mini,
-    padded into DMAX 128)."""
+    ``d`` elements is a multiple of 16 bytes, else one element.  bf16 at
+    32 < D ≤ 256 takes the tensor-core kernel: :data:`MMA_ROWS` positions
+    of one head a block (4 warps), grid (heads, batch, position tiles),
+    shared memory :func:`mma_smem_bytes` within :data:`MAX_SMEM_OPTIN`,
+    16-byte copies when every pointer is 16-byte aligned and D is a
+    multiple of 8, else 2.  f32 at 32 < D ≤ 128 takes the row kernel (DMAX
+    64 or 128): 64 rows of one head per block, a thread per row,
+    ``grid.x`` = ⌈s / 64⌉."""
     esize = 2 if dtype == torch.bfloat16 else 4
+    if d > 32 and dtype == torch.bfloat16:
+        dmax = next(x for x in MMA_DMAX if d <= x)
+        grid = (hq, b, -(-s // MMA_ROWS))
+        if max(grid[1:]) > MAX_GRID_YZ:
+            raise ValueError(f"flash_attention: grid {grid} exceeds "
+                             f"{MAX_GRID_YZ} in y or z")
+        width = 16 if ptrs_aligned and d % 8 == 0 else 2
+        return LaunchPlan("mma", dmax, 1, MMA_ROWS, 1, 1, mma_key_tile(dmax),
+                          2 * MMA_ROWS, grid, mma_smem_bytes(dmax), width)
     if d > 32:
+        if d > MAX_HEAD_DIM_F32:
+            raise ValueError(
+                f"flash_attention: f32 at D = {d} has no kernel: the "
+                f"tensor-core kernel takes bf16, and the f32 row kernel "
+                f"keeps a row of D floats a thread (D <= "
+                f"{MAX_HEAD_DIM_F32})")
         dmax = 64 if d <= 64 else 128
         key_tile = 32 if dmax >= 128 else 64
-        return LaunchPlan(dmax, 1, 64, 1, 1, key_tile, 64,
+        return LaunchPlan("row", dmax, 1, 64, 1, 1, key_tile, 64,
                           (-(-s // 64), hq, b), 2 * key_tile * dmax * 4,
                           esize)
     dmax = 8 if d <= 8 else 16 if d <= 16 else 32
@@ -106,7 +153,7 @@ def launch_plan(b: int, s: int, t: int, hq: int, hkv: int, d: int,
                 * dmax * esize
             if smem <= MAX_SMEM:
                 return LaunchPlan(
-                    dmax, lanes, rows, heads, kv_heads, key_tile,
+                    "lanes", dmax, lanes, rows, heads, kv_heads, key_tile,
                     rows * heads * lanes,
                     (-(-s // rows), hq // heads, b), smem, width)
     raise ValueError(f"flash_attention: no launch fits q [{b}, {s}, {hq}, "
@@ -118,10 +165,10 @@ def reset_launches() -> None:
 
 
 def check_qkv(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              q_dims: int) -> None:
+              q_dims: int, max_head_dim: int = MAX_HEAD_DIM) -> None:
     """Operands on one CUDA device, one dtype of :data:`DTYPES`, k and v
-    [B, T, HKV, D] with HQ a multiple of HKV and D ≤ 128; q has
-    ``q_dims`` dims (4: [B,S,HQ,D], 3: [B,HQ,D])."""
+    [B, T, HKV, D] with HQ a multiple of HKV and D ≤ ``max_head_dim``; q
+    has ``q_dims`` dims (4: [B,S,HQ,D], 3: [B,HQ,D])."""
     if q.device.type != "cuda":
         raise ValueError(f"{kernel} takes CPU or CUDA tensors, got {q.device}")
     if q.dim() != q_dims or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
@@ -133,8 +180,8 @@ def check_qkv(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             min(q.shape) < 1 or k.shape[1] < 1:
         raise ValueError(f"{kernel}: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}")
-    if d > MAX_HEAD_DIM or b > MAX_GRID_YZ or hq > MAX_GRID_YZ:
-        raise ValueError(f"{kernel} takes D <= {MAX_HEAD_DIM} and B, HQ <= "
+    if d > max_head_dim or b > MAX_GRID_YZ or hq > MAX_GRID_YZ:
+        raise ValueError(f"{kernel} takes D <= {max_head_dim} and B, HQ <= "
                          f"{MAX_GRID_YZ}, got {tuple(q.shape)}")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
@@ -154,18 +201,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     check_qkv("flash_attention", q, k, v, q_dims=4)
-    b, s, hq, d = q.shape
-    t, hkv = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    plan = launch_plan(b, s, t, hq, hkv, d, q.dtype,
-                       all(p % 16 == 0 for p in ptrs))
+    b, s, hq, d = q.shape
+    aligned = all(x.data_ptr() % 16 == 0 for x in (q, k, v, o))
+    plan = launch_plan(b, s, k.shape[1], hq, k.shape[2], d, q.dtype, aligned)
     lib = _nvcc.load("flash_attention", _SIGNATURES)
     _nvcc.raise_on(lib.fa_flash_attention(
-        *ptrs, b, s, t, hq, hkv, d, 1.0 / math.sqrt(d), int(causal),
-        window or 0, int(q.dtype == torch.bfloat16), plan.rows, plan.heads,
-        plan.lanes, plan.key_tile, plan.smem_bytes, plan.copy_width,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
+        k.shape[1], hq, k.shape[2], d, 1.0 / math.sqrt(d), int(causal),
+        window or 0, int(q.dtype == torch.bfloat16),
+        KERNELS.index(plan.kernel), plan.rows, plan.heads, plan.lanes,
+        plan.key_tile, plan.smem_bytes, plan.copy_width,
         _nvcc.stream_of(q)), "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o

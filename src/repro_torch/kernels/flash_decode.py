@@ -28,6 +28,7 @@ from repro_torch.kernels import _nvcc, ref
 from repro_torch.kernels.flash_attention import MAX_SMEM, check_qkv
 
 LAUNCHES = {"flash_decode": 0}
+MAX_HEAD_DIM = 128  # the lanes kernel to 32, the thread-per-key kernel above
 
 LANES = 32      # G: lanes per (row, q head) of the lanes kernel (kLanes)
 KEY_TILE = 64   # keys of one staged tile (kKeyTile)
@@ -120,7 +121,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length,
     if q.device.type == "cpu":
         return ref.flash_decode_ref(q, k, v, length,
                                     return_partials=return_partials)
-    check_qkv("flash_decode", q, k, v, q_dims=3)
+    check_qkv("flash_decode", q, k, v, q_dims=3, max_head_dim=MAX_HEAD_DIM)
     b, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     length = _kernel_length(length, b, q.device)

@@ -216,23 +216,44 @@ FA_CASES, FA_PATH = _chip_smoke_fa_cases()
 ], ids=str)
 def test_flash_attention_launch_plan_fits_the_card(case, dtype, aligned):
     """Every launch ``chip_smoke.py`` makes (and a few edge shapes) stays
-    within 1,024 threads and 48 KB of static shared memory a block and
-    65,535 blocks in grid y and z; the lanes split a warp evenly, each
-    lane's chain is at most 16 keys a tile, and the grid covers every
-    (row, head)."""
+    within 1,024 threads a block in whole warps, 48 KB of static shared
+    memory (the lanes and row kernels) or the 227 KB opt-in (the
+    tensor-core kernel), and 65,535 blocks in grid y and z; the grid covers
+    every (row, head).  The lanes split a warp evenly and each lane's chain
+    is at most 16 keys a tile; bf16 above D = 32 takes the tensor-core
+    kernel, f32 the row kernel up to D = 128 and is refused above."""
     b, s, t, hq, hkv, d, _, _ = case
-    plan = t_fa.launch_plan(b, s, t, hq, hkv, d, dtype, aligned)
     esize = 2 if dtype == torch.bfloat16 else 4
+    if dtype == torch.float32 and d > t_fa.MAX_HEAD_DIM_F32:
+        with pytest.raises(ValueError, match="f32"):
+            t_fa.launch_plan(b, s, t, hq, hkv, d, dtype, aligned)
+        return
+    plan = t_fa.launch_plan(b, s, t, hq, hkv, d, dtype, aligned)
     assert plan.threads <= 1024 and plan.threads % 32 == 0
+    assert 32 % plan.lanes == 0
+    if d > 32 and dtype == torch.bfloat16:
+        # (heads, batch, position tiles); 64 positions of one head a block,
+        # 16 a warp
+        assert plan.kernel == "mma" and plan.dmax >= d
+        assert plan.smem_bytes <= t_fa.MAX_SMEM_OPTIN
+        assert plan.grid[1] == b and max(plan.grid[1:]) <= 65535
+        assert plan.grid[2] * plan.rows >= s > (plan.grid[2] - 1) * plan.rows
+        assert plan.grid[0] == hq and plan.heads == 1
+        assert plan.threads == 2 * plan.rows == 128
+        assert plan.smem_bytes == (plan.rows + 4 * plan.key_tile) * \
+            (plan.dmax + 8) * 2
+        assert plan.copy_width == (16 if aligned and d % 8 == 0 else 2)
+        return
     assert plan.smem_bytes <= 48 * 1024
     assert max(plan.grid[1:]) <= 65535 and plan.grid[2] == b
-    assert 32 % plan.lanes == 0
     assert plan.grid[0] * plan.rows >= s > (plan.grid[0] - 1) * plan.rows
     assert plan.grid[1] * plan.heads == hq
-    if d > 32:  # the row kernel: 64 rows of one head, a thread per row
-        assert (plan.dmax, plan.rows, plan.heads, plan.lanes,
-                plan.threads) == (64 if d <= 64 else 128, 64, 1, 1, 64)
+    if d > 32:  # f32: the row kernel, 64 rows of one head, a thread a row
+        assert (plan.kernel, plan.dmax, plan.rows, plan.heads, plan.lanes,
+                plan.threads) == ("row", 64 if d <= 64 else 128, 64, 1, 1,
+                                  64)
         return
+    assert plan.kernel == "lanes"
     assert plan.dmax >= d and \
         plan.threads == plan.rows * plan.heads * plan.lanes
     assert plan.key_tile % plan.lanes == 0 and \

@@ -136,7 +136,31 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    granite's long [1, 4096, 32 | 8, 128] and recurrentgemma's local
    attention [1, 4096, 16 | 1, 256] with window 2048 (bf16, causal)
    against its plain version (2e-2, bitwise repeat), timed beside it,
-   SDPA (GQA; a boolean mask for the window) and the bound.
+   SDPA (GQA; a boolean mask for the window) and the bound;
+16. the FL operations layer at the FL CLI's defaults (``python -m
+   repro_torch.launch.fl_train``: unsw, 40 clients, ``mlp`` at hidden 64,
+   clipped DP at ε 50, 100 rounds; nothing cut): the CLI in-process with
+   ``--json-out`` and the tracer streaming JSONL into the output directory
+   (the DP kernels 100 launches each, counted from 0 just before; the
+   loop under sync debug mode "error"; ``eps_spent`` equal to the host
+   accountant; one ``compile.runner_miss``, one ``runner.build`` and one
+   of each ``sweep.*`` span in the JSONL), its warm round wall and the
+   card's busy share of 10 profiled rounds; ``run_fl_batch`` at 4 lanes ×
+   20 rounds with the tracer off and on, bitwise equal (histories and
+   params) under sync debug mode "error", the walls recorded; the per-round
+   driver at the same config saving the CUDA params every round through
+   ``Checkpointer(keep=3)`` (3 kept, ``restore_latest`` onto CUDA bitwise),
+   with ``fit_weibull`` over the run's failure gaps and
+   ``optimal_checkpoint_interval`` printed; ``export_personalized`` of the
+   CLI's params served by ``ServeEngine(heads=...)``, clients 0 and 39
+   bitwise their ``personalized_client_params``' scores; the own-RNG
+   check: ``run_fl_batch`` on the card's generators at seeds 0-9 against
+   ``tests/golden/torch_rng_reference.json`` (the reference's finals),
+   two-sided Mann-Whitney p >= 0.01 on final accuracy and ε within 1e-9,
+   the α = 0.05 verdict and the AUC and mean-K tests printed; the DP
+   kernels at the CLI's rows [40, 4,898] and the check's [400, 4,898]
+   against their plain versions, timed beside ``vector_norm`` and the
+   bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -154,6 +178,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"   # the run's record, traces and checkpoints
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -1372,7 +1397,7 @@ def phase_serve(torch, name, fed, seq_kernels):
     print(f"  trained {name} for {SERVE_ROUNDS} rounds in {train_s:.1f} s: "
           f"acc={res.accuracy:.4f} auc={res.auc:.4f}")
     path = save_serving_checkpoint(
-        str(ROOT / "chiprun_out" / "serve_ckpt" / f"serve_{name}_road_raw"),
+        str(OUT_DIR / "serve_ckpt" / f"serve_{name}_road_raw"),
         res.params, name, meta_for(fed, hidden=64))
     eng = ServeEngine.from_checkpoint(path, buckets=SERVE_BUCKETS)
     eng.warmup()
@@ -2708,6 +2733,384 @@ def phase_lm(torch, fak, ref, card, ptxas_rows):
     return out, rows
 
 
+# phase 16: the FL operations layer at the FL CLI's defaults
+# (python -m repro_torch.launch.fl_train: unsw, 12,000 samples, 40 clients,
+# α 0.5, mlp at hidden 64, K₀ 8 adaptive, 5 local steps × 32, clipped DP at
+# ε 50 and clip 5, iid failures 0.05 with checkpoint recovery, 100 rounds,
+# eval every 5): nothing cut
+CLI_SPANS = ("runner.build", "sweep.prepare", "sweep.execute",
+             "sweep.readback")
+CLI_PROFILE_ROUNDS = 10
+NEUTRAL_SEEDS, NEUTRAL_ROUNDS = (0, 1, 2, 3), 20
+CKPT_KEEP = 3
+CKPT_WRITE_S = 0.08     # simulate_round_time's ckpt_write: one write
+RNG_GOLDEN = ROOT / "tests" / "golden" / "torch_rng_reference.json"
+RNG_P_GATE, RNG_EPS_TOL = 0.01, 1e-9
+
+
+def cli_setup():
+    """The FL CLI's defaults: ``(args, fed, FLConfig, eval_every)``."""
+    from repro_torch.launch import fl_train
+    args = fl_train.parse_args([])
+    return (args, *fl_train.cli_config(args))
+
+
+def jsonl_names(path) -> dict:
+    """Counts of each span and event name in a tracer JSONL file."""
+    counts = {}
+    for line in Path(path).read_text().splitlines():
+        name = json.loads(line)["name"]
+        counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def phase_fl_cli(torch, dpk, card):
+    """Phase 16a: ``repro_torch.launch.fl_train.main`` in-process at its
+    defaults with ``--json-out``, the tracer on and streaming JSONL into
+    the output directory: K1a and K1b once a round (100 each, counts set to 0
+    just before), the loop under sync debug mode "error", ``eps_spent``
+    equal to the host accountant, one runner miss, one build span and one
+    of each ``sweep.*`` span in the JSONL; then the warm round wall (the
+    same config again, a cache hit) and the card's busy share of a
+    profiled warm call of 10 rounds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import fl_train
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.privacy.accountant import accounted_epsilon
+    from repro_torch.train import fl_driver
+
+    args, fed, fl, eval_every = cli_setup()
+    OUT_DIR.mkdir(exist_ok=True)
+    jsonl, json_out = OUT_DIR / "fl_cli_trace.jsonl", OUT_DIR / "fl_cli.json"
+    jsonl.unlink(missing_ok=True)
+    stats0 = dict(fl_driver.RUNNER_STATS)
+    obs_trace.TRACER.enable(str(jsonl))
+    try:
+        torch.cuda.synchronize()
+        dpk.reset_launches()
+        with SyncModeSpy(torch) as spy:
+            t0 = time.perf_counter()
+            res = fl_train.main(["--json-out", str(json_out)])
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+        launches = dict(dpk.LAUNCHES)
+    finally:
+        obs_trace.TRACER.disable()
+        obs_trace.TRACER.clear()
+    names = jsonl_names(jsonl)
+    print(f"  CLI: launches {launches}; JSONL {names}; cold "
+          f"{cold_s:.2f} s  ({card})")
+    check(spy.ok() and len(spy.modes) == 2, f"the CLI's round loop did not "
+          f"run under sync debug mode 'error': {spy.modes}")
+    check(launches == {"sumsq_rows": args.rounds,
+                       "scale_noise_rows": args.rounds},
+          f"the CLI did not go through the DP kernels once a round: "
+          f"{launches}")
+    check(fl_driver.RUNNER_STATS["misses"] == stats0["misses"] + 1,
+          "the CLI did not build exactly one runner")
+    want = {"compile.runner_miss": 1, **{n: 1 for n in CLI_SPANS}}
+    check(names == want, f"the CLI's JSONL holds {names}, want {want}")
+    eps_host = accounted_epsilon(fl_driver.fl_for_method(fl, args.method),
+                                 args.rounds)
+    check(res.eps_spent == eps_host, f"CLI eps_spent {res.eps_spent!r} != "
+          f"the host accountant's {eps_host!r}")
+    saved = json.loads(json_out.read_text())
+    check(saved["eps_spent"] == res.eps_spent and saved["params"] is None
+          and saved["history"]["round"] == list(range(eval_every,
+                                                     args.rounds + 1,
+                                                     eval_every)),
+          "the CLI's --json-out differs from its result")
+    h = res.history
+    check(all(math.isfinite(v) for k in ("loss", "acc", "auc", "k", "fail",
+                                        "cum_time") for v in h[k]),
+          "the CLI's history has non-finite values")
+    from repro_torch.tree import tree_leaves
+    check(all(l.is_cuda and bool(torch.isfinite(l).all())
+              for l in tree_leaves(res.params)),
+          "the CLI's params are not finite CUDA tensors")
+
+    kw = dict(seed=args.seed, eval_every=eval_every, dataset=args.dataset,
+              device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = fl_driver.run_fl(fed, fl, args.method, rounds=args.rounds, **kw)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3 / args.rounds
+    check(again.history == res.history,
+          "a warm rerun of the CLI's config differs from the CLI's run")
+    fl_driver.run_fl(fed, fl, args.method, rounds=CLI_PROFILE_ROUNDS, **kw)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fl_driver.run_fl(fed, fl, args.method, rounds=CLI_PROFILE_ROUNDS,
+                         **kw)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    device, busy_ms, spans, by_kernel = profile_summary(prof.events(),
+                                                        SWEEP_SPANS)
+    for name in ("sweep.prepare", "sweep.execute", "sweep.readback"):
+        check(name in spans, f"span {name} missing from the profile")
+    dp_calls = {k: n for k, (n, _) in by_kernel.items()
+                if re.search(r"sumsq_rows|scale_noise_rows", k)}
+    check(sum(dp_calls.values()) == 2 * CLI_PROFILE_ROUNDS,
+          f"profiled DP kernel calls {dp_calls}, want 2 a round")
+    out = {"launches": launches, "cold_s": cold_s,
+           "warm_round_ms": warm_ms, "eps_spent": res.eps_spent,
+           "accuracy": res.accuracy, "auc": res.auc,
+           "sim_time_s": res.sim_time_s, "jsonl": names,
+           "profile": {"rounds": CLI_PROFILE_ROUNDS,
+                       "wall_ms_per_round": prof_ms / CLI_PROFILE_ROUNDS,
+                       "device_busy_ms_per_round":
+                           busy_ms / CLI_PROFILE_ROUNDS,
+                       "device_busy_share": busy_ms / prof_ms,
+                       "device_ops_per_round":
+                           len(device) / CLI_PROFILE_ROUNDS,
+                       "span_host_ms": spans, "dp_kernel_calls": dp_calls}}
+    print(f"  CLI at its defaults: acc={res.accuracy:.4f} auc={res.auc:.4f} "
+          f"eps_spent={res.eps_spent!r} (host {eps_host!r}); warm round "
+          f"wall {warm_ms:.2f} ms; profiled {CLI_PROFILE_ROUNDS} warm "
+          f"rounds: {prof_ms / CLI_PROFILE_ROUNDS:.2f} ms a round, device "
+          f"busy {busy_ms / CLI_PROFILE_ROUNDS:.3f} ms a round (share "
+          f"{busy_ms / prof_ms:.4f}), "
+          f"{len(device) / CLI_PROFILE_ROUNDS:.0f} device ops a round  "
+          f"({card})")
+    return out, res, fed, fl
+
+
+def phase_tracer_neutral(torch, fed, fl, card):
+    """Phase 16b: ``run_fl_batch`` with 4 lanes × 20 rounds, tracer off
+    then on (streaming JSONL): histories and final params bitwise equal,
+    each loop under sync debug mode "error"; the walls (a warm call first,
+    then off, on, on, off), recorded, not gated."""
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.train import fl_driver
+    from repro_torch.tree import tree_leaves
+
+    kw = dict(seeds=NEUTRAL_SEEDS, rounds=NEUTRAL_ROUNDS, eval_every=5,
+              return_params=True, device="cuda")
+    jsonl = OUT_DIR / "neutral_trace.jsonl"
+    jsonl.unlink(missing_ok=True)
+
+    def go(traced: bool):
+        if traced:
+            obs_trace.TRACER.enable(str(jsonl))
+        try:
+            with SyncModeSpy(torch) as spy:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fl_driver.run_fl_batch(fed, fl, "proposed", **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            obs_trace.TRACER.disable()
+            obs_trace.TRACER.clear()
+        check(spy.ok() and len(spy.modes) == 2, f"tracer {traced}: the loop "
+              f"did not run under sync debug mode 'error': {spy.modes}")
+        return res, wall
+
+    go(False)                                # builds the runner
+    walls = {False: [], True: []}
+    runs = {}
+    for traced in (False, True, True, False):
+        runs[traced], wall = go(traced)
+        walls[traced].append(wall)
+    off, on = runs[False], runs[True]
+    for a, b in zip(off, on):
+        check(a.history == b.history and a.sim_time_s == b.sim_time_s,
+              "the tracer changed a lane's history")
+        check(all(torch.equal(x, y) for x, y in zip(tree_leaves(a.params),
+                                                    tree_leaves(b.params))),
+              "the tracer changed a lane's final params")
+    names = jsonl_names(jsonl)
+    check(names.get("sweep.execute") == 2 and "compile.runner_miss" not in
+          names, f"the traced calls' JSONL holds {names}")
+    ratio = min(walls[True]) / min(walls[False])
+    print(f"  tracer on/off: {len(NEUTRAL_SEEDS)} lanes x {NEUTRAL_ROUNDS} "
+          f"rounds bitwise equal (histories, params) under sync debug mode "
+          f"'error'; walls off {walls[False]} s, on {walls[True]} s; min "
+          f"on/off {ratio:.4f}  ({card})")
+    return {"walls_off_s": walls[False], "walls_on_s": walls[True],
+            "min_on_over_off": ratio, "jsonl": names}
+
+
+def failure_gaps(failed_rounds) -> list:
+    """Each client's gaps in rounds between failures (from round 0), from
+    the per-round ``[n]`` failure masks."""
+    import numpy as np
+    f = np.stack(failed_rounds) > 0
+    gaps = []
+    for c in range(f.shape[1]):
+        at = np.flatnonzero(f[:, c]) + 1
+        gaps.extend(np.diff(np.concatenate([[0], at])).tolist())
+    return gaps
+
+
+def phase_checkpointer(torch, fed, fl, card):
+    """Phase 16c: the per-round driver (``run_fl_legacy``, which reads each
+    round back; the sweep engine reads nothing back inside its loop) at
+    the CLI's config on the card, saving the CUDA params every round
+    through ``Checkpointer(keep=3)``: 3 checkpoints remain, and
+    ``restore_latest(like=the CUDA params)`` returns CUDA tensors bitwise
+    equal to the final params.  Then the paper's host-side analysis,
+    printed only: ``fit_weibull`` over the run's per-client failure gaps
+    (rounds × the mean simulated round time) and
+    ``optimal_checkpoint_interval`` with the renewal form."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import Checkpointer
+    from repro_torch.core import fault as fault_lib
+    from repro_torch.train import fl_driver
+    from repro_torch.tree import tree_leaves
+
+    args, _, _, eval_every = cli_setup()
+    ckpt_dir = OUT_DIR / "fl_cli_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ck = Checkpointer(str(ckpt_dir), keep=CKPT_KEEP, interval_rounds=1)
+    failed = []
+
+    def on_round(r, state, m):
+        ck.maybe_save(r, state.params)
+        failed.append(m.failed.cpu().numpy())
+
+    t0 = time.perf_counter()
+    res = fl_driver.run_fl_legacy(fed, fl, args.method, seed=args.seed,
+                                  rounds=args.rounds, eval_every=eval_every,
+                                  device="cuda", on_round=on_round)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    files = sorted(p.name for p in ckpt_dir.iterdir())
+    check(ck.saves == args.rounds and len(files) == 2 * CKPT_KEEP,
+          f"{ck.saves} saves left {files}")
+    rnd, restored = ck.restore_latest(res.params)
+    check(rnd == args.rounds - 1, f"latest checkpoint is round {rnd}")
+    pairs = list(zip(tree_leaves(restored), tree_leaves(res.params)))
+    check(all(a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+              for a, b in pairs),
+          "restore_latest onto CUDA params is not bitwise equal on the card")
+    round_s = res.sim_time_s / args.rounds
+    gaps = failure_gaps(failed)
+    lam, k = fault_lib.fit_weibull([g * round_s for g in gaps])
+    t_c = fault_lib.optimal_checkpoint_interval(
+        res.sim_time_s, fl.recovery_time, lam, k, write_cost=CKPT_WRITE_S)
+    out = {"saves": ck.saves, "files": files, "latest_round": rnd,
+           "legacy_wall_s": wall_s, "sim_time_s": res.sim_time_s,
+           "n_gaps": len(gaps), "weibull_lam_s": lam, "weibull_k": k,
+           "t_c_s": t_c, "t_c_rounds": t_c / round_s}
+    print(f"  Checkpointer: {ck.saves} saves of the CUDA params (one a "
+          f"round), {len(files) // 2} kept {files[::2]}, restore_latest "
+          f"bitwise onto CUDA; run_fl_legacy {wall_s:.2f} s with the saves  "
+          f"({card})")
+    print(f"  fault model: fit_weibull over {len(gaps)} failure gaps -> "
+          f"lambda {lam:.2f} s, k {k:.4f}; t_c* (renewal, w = "
+          f"{CKPT_WRITE_S} s, t_r = {fl.recovery_time} s, T = "
+          f"{res.sim_time_s:.1f} s) = {t_c:.2f} s = "
+          f"{t_c / round_s:.2f} rounds (printed, not gated)")
+    return out
+
+
+def phase_personalized(torch, fed, params, card):
+    """Phase 16d: ``export_personalized`` of the CLI's params, served by
+    ``ServeEngine(..., heads=...)`` on the card: ``score(x, client=i)``
+    of the first and last client bitwise equal to the scorer on that
+    client's ``personalized_client_params`` over the same bucket
+    batches."""
+    import numpy as np
+
+    from repro_torch.models.spec import get_model_spec, meta_for
+    from repro_torch.serve import ServeEngine, batches_of
+    from repro_torch.serve.engine import _get_scorer
+    from repro_torch.train import fl_driver
+
+    meta = meta_for(fed, hidden=64)
+    spec = get_model_spec("mlp", meta)
+    heads = fl_driver.export_personalized(params, fed, spec)
+    per_client = fl_driver.personalized_client_params(params, fed, spec)
+    eng = ServeEngine(spec, meta, params, heads=heads,
+                      buckets=SERVE_BUCKETS, device="cuda")
+    check(eng.n_personalized == fed.n_clients, "heads' client axis")
+    x = np.asarray(fed.test_x, np.float32)
+    for ci in (0, fed.n_clients - 1):
+        got = eng.score(x, client=ci)
+        want = np.concatenate([
+            _get_scorer(spec, meta, xb.shape[0], eng.route)(
+                per_client[ci], torch.as_tensor(xb, device="cuda")
+            )[:n].cpu().numpy() for xb, n in batches_of([x], eng.buckets)])
+        check(np.array_equal(got, want), f"client {ci}: served personalised "
+              f"scores differ from its personalized_client_params'")
+    print(f"  personalised heads: {eng.n_personalized} clients exported, "
+          f"clients 0 and {fed.n_clients - 1} served bitwise on "
+          f"{x.shape[0]} windows  ({card})")
+    return {"n_clients": eng.n_personalized, "windows": int(x.shape[0])}
+
+
+def phase_rng_check(torch, dpk, ref, fed, fl, card):
+    """Phase 16e: the own-RNG distribution check (ROADMAP Queue 1 item 2):
+    ``run_fl_batch`` on the card's own generators at seeds 0-9 (one lane a
+    seed, DP rows [400, 4,898]) against the reference's per-seed finals in
+    ``tests/golden/torch_rng_reference.json``: two-sided Mann-Whitney p >=
+    0.01 on final accuracy and ε within 1e-9 (gates); the paper's α = 0.05
+    verdict, AUC and mean-K tests printed.  Then K1 at the CLI's rows [40,
+    4,898] and this check's [400, 4,898] against its plain versions, timed
+    beside ``vector_norm`` and the bounds."""
+    import numpy as np
+
+    from repro_torch.stats import compare_finals
+    from repro_torch.train import fl_driver
+
+    golden = json.loads(RNG_GOLDEN.read_text())
+    args, _, _, eval_every = cli_setup()
+    cfg = golden["config"]
+    check((cfg["rounds"], cfg["eval_every"], cfg["n_clients"],
+           cfg["n_samples"]) == (args.rounds, eval_every, args.clients,
+                                 args.samples) and
+          all(cfg["fl"][k] == getattr(fl, k) for k in cfg["fl"]),
+          "the golden file's config is not the CLI's")
+    seeds = cfg["seeds"]
+    dpk.reset_launches()
+    t0 = time.perf_counter()
+    res = fl_driver.run_fl_batch(fed, fl, args.method, seeds=seeds,
+                                 rounds=args.rounds, eval_every=eval_every,
+                                 dataset=args.dataset, device="cuda")
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(dpk.LAUNCHES)
+    check(launches == {"sumsq_rows": args.rounds,
+                       "scale_noise_rows": args.rounds},
+          f"the check's lanes did not share one DP launch a round: "
+          f"{launches}")
+    rows = [{"accuracy": r.accuracy, "auc": r.auc,
+             "mean_k": float(np.mean(r.history["k"])),
+             "eps_spent": r.eps_spent} for r in res]
+    ref_rows = golden["rows"]
+    finals = compare_finals(rows, ref_rows)
+    med = {k: v[:2] for k, v in finals.items()}
+    p = {k: v[2] for k, v in finals.items()}
+    eps_err = max(abs(a["eps_spent"] - b["eps_spent"])
+                  for a, b in zip(rows, ref_rows))
+    print(f"  own-RNG check, seeds {seeds[0]}-{seeds[-1]}, {wall_s:.2f} s: "
+          f"medians card/reference {med}; two-sided Mann-Whitney p "
+          f"accuracy {p['accuracy']:.4f} (gate >= {RNG_P_GATE}), auc "
+          f"{p['auc']:.4f}, mean K {p['mean_k']:.4f}; paper's alpha 0.05 "
+          f"verdict on accuracy: "
+          f"{'differ' if p['accuracy'] < 0.05 else 'no difference'}; "
+          f"eps max|err| {eps_err:.3e}  ({card})")
+    check(eps_err <= RNG_EPS_TOL, f"eps_spent differs from the reference's "
+          f"by {eps_err:.3e}")
+    check(p["accuracy"] >= RNG_P_GATE, f"own-RNG final accuracy differs "
+          f"from the reference's: two-sided p {p['accuracy']:.4f}")
+    p_mlp = param_count(args.dataset, 64)
+    dp_rows = {"cli": check_dp_rows(torch, dpk, ref, args.clients, p_mlp,
+                                    "FL CLI"),
+               "rng_check": check_dp_rows(torch, dpk, ref,
+                                          len(seeds) * args.clients, p_mlp,
+                                          "own-RNG check")}
+    return {"seeds": seeds, "wall_s": wall_s, "launches": launches,
+            "p": p, "medians": med, "eps_max_abs": eps_err,
+            "rows": rows, "dp_rows": dp_rows}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2868,6 +3271,22 @@ def main() -> int:
                                ptxas["flash_attention_mma"])
     kernels += lm_rows
 
+    print(f"== 16. FL operations: the FL CLI at its defaults (traced), "
+          f"tracer neutrality, Checkpointer, personalised heads, the own-RNG "
+          f"check  ({card})")
+    fl_ops, cli_res, cli_fed, cli_fl = phase_fl_cli(torch, dpk, card)
+    fl_ops["tracer"] = phase_tracer_neutral(torch, cli_fed, cli_fl, card)
+    fl_ops["checkpointer"] = phase_checkpointer(torch, cli_fed, cli_fl, card)
+    fl_ops["personalized"] = phase_personalized(torch, cli_fed,
+                                                cli_res.params, card)
+    fl_ops["rng_check"] = phase_rng_check(torch, dpk, ref, cli_fed, cli_fl,
+                                          card)
+    for k in kernels:
+        if k["name"] in ("sumsq_rows", "scale_noise_rows"):
+            k["launches_fl_cli"] = fl_ops["launches"][k["name"]]
+            k["launches_rng_check"] = \
+                fl_ops["rng_check"]["launches"][k["name"]]
+
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2878,12 +3297,11 @@ def main() -> int:
         "history": res.history, "eps_spent": res.eps_spent, "sweep": sweep,
         "serve": serve, "serve_launches": serve_launches,
         "model_grid": grid, "privacy": privacy, "plan_frontier": plans,
-        "population": population, "lm": lm,
+        "population": population, "lm": lm, "fl_ops": fl_ops,
         "total_s": time.perf_counter() - t_all,
     }
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"  FL per-round wall (rounds 2-{ROUNDS}, median): "
           f"{record['round_wall_ms_median_after_first']:.2f} ms; "
           f"total {record['total_s']:.1f} s")

@@ -6,8 +6,9 @@ The file format is the reference's: one ``<path>.npz`` whose keys are the
 '/'-joined key paths of the leaves in sorted-key order
 (``params/mix/A_log``, ``heads/...``), written by an atomic rename, and a
 sidecar ``<path>.npz.json`` manifest (keys, time, bytes, the caller's
-metadata).  So each package reads the other's files.  The rotating
-``Checkpointer`` is not ported yet.
+metadata).  So each package reads the other's files, and a directory
+that either package's rotating :class:`Checkpointer` wrote
+(``ckpt_%08d.npz`` plus manifest) is restored by the other's.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import os
 import shutil
 import tempfile
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,3 +90,58 @@ def restore_pytree(path: str, like) -> dict:
         node[p[-1]] = torch.from_numpy(np.ascontiguousarray(arr)).to(
             device=leaf.device, dtype=leaf.dtype)
     return out
+
+
+class Checkpointer:
+    """Rotating checkpoint directory with restore-latest.
+
+    ``interval_rounds`` usually comes from
+    ``core.fault.optimal_checkpoint_interval`` divided by the measured
+    per-round wall time.  Saves copy the tree to the host (a
+    synchronisation on the card); :meth:`restore_latest` returns it on
+    ``like``'s device and dtypes."""
+
+    def __init__(self, directory: str, keep: int = 3, interval_rounds: int = 1):
+        self.dir = directory
+        self.keep = keep
+        self.interval = max(int(interval_rounds), 1)
+        self.saves = 0
+        os.makedirs(directory, exist_ok=True)
+
+    def maybe_save(self, round_idx: int, tree, metadata=None) -> Optional[str]:
+        if round_idx % self.interval:
+            return None
+        path = os.path.join(self.dir, f"ckpt_{round_idx:08d}")
+        out = save_pytree(path, tree, {"round": round_idx, **(metadata or {})})
+        self.saves += 1
+        self._gc()
+        return out
+
+    def _gc(self):
+        ckpts = sorted(self._list())
+        for r, p in ckpts[: -self.keep]:
+            for ext in ("", ".json"):
+                try:
+                    os.remove(p + ext)
+                except OSError:
+                    pass
+
+    def _list(self) -> List[Tuple[int, str]]:
+        out = []
+        for f in os.listdir(self.dir):
+            if f.startswith("ckpt_") and f.endswith(".npz"):
+                out.append((int(f[5:13]), os.path.join(self.dir, f)))
+        return out
+
+    def latest(self) -> Optional[Tuple[int, str]]:
+        ckpts = sorted(self._list())
+        return ckpts[-1] if ckpts else None
+
+    def restore_latest(self, like):
+        """``(round, tree)`` of the newest checkpoint, restored into
+        ``like``'s structure, device and dtypes; ``(None, None)`` when the
+        directory holds none."""
+        latest = self.latest()
+        if latest is None:
+            return None, None
+        return latest[0], restore_pytree(latest[1], like)

@@ -26,6 +26,13 @@ import torch
 
 from repro_torch.configs.base import as_f32
 
+PROCESSES = ("iid", "markov", "weibull", "straggler")
+
+
+def process_code(name: str) -> float:
+    """Runtime lane value for a failure-process name."""
+    return float(PROCESSES.index(name))
+
 
 class FaultState(NamedTuple):
     """Per-client failure-process state, carried across rounds ([n] f32,

@@ -1,2 +1,3 @@
 """Counterpart of the reference package's launch subpackage: ``serve``
-(``prefill_scan`` and the batched decode CLI)."""
+(``prefill_scan`` and the batched decode CLI) and ``fl_train`` (the
+paper's FL CLI over ``run_fl``)."""

@@ -20,12 +20,11 @@ import contextlib
 import os
 
 import numpy as np
-import torch
-from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.data.synthetic import make_federated
 from repro_torch.models.spec import meta_for
+from repro_torch.obs import profile_trace
 from repro_torch.serve.engine import ServeEngine, save_serving_checkpoint
 from repro_torch.train.fl_driver import run_fl
 
@@ -45,19 +44,6 @@ def _train_checkpoint(args) -> str:
           f"auc={res.auc:.3f}")
     return save_serving_checkpoint(args.ckpt, res.params, args.model,
                                    meta_for(fed, hidden=args.hidden))
-
-
-@contextlib.contextmanager
-def _profile(logdir: str):
-    """A ``torch.profiler`` trace of the block, written as a Chrome trace to
-    ``logdir/trace.json`` when it exits."""
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield
-    os.makedirs(logdir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def main(argv=None):
@@ -116,7 +102,7 @@ def main(argv=None):
             for i in range(0, windows.shape[0], args.chunk):
                 yield windows[i:i + args.chunk]
 
-    prof = (_profile(args.profile) if args.profile
+    prof = (profile_trace(args.profile) if args.profile
             else contextlib.nullcontext())
     with prof:
         report = eng.score_stream(stream(), client=args.client)

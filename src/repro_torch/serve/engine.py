@@ -7,7 +7,10 @@ of CAN/NetFlow windows:
 
 * **padded bucket batching** (``serve/batching.py``) — windows are cut into
   a few static batch shapes; ``_get_scorer`` keeps one scorer per (model,
-  DataMeta, bucket, route) and ``SERVE_STATS`` counts misses and hits.
+  DataMeta, bucket, route) and ``SERVE_STATS`` (a ``repro_torch.obs``
+  registry view) counts misses and hits; a miss is a
+  ``compile.scorer_miss`` event, and the stream and each dispatch are
+  ``serve.score_stream`` / ``serve.dispatch`` spans.
 * **double-buffered host→device feed** (``serve/feed.py``) — batch N+1's
   upload is issued before batch N is dispatched, and the engine blocks on
   batch N−1 only after dispatching N.  Each batch's scores come back by a
@@ -35,12 +38,13 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ops import DEFAULT_ROUTE
 from repro_torch.models.spec import DataMeta, ModelSpec, get_model_spec
+from repro_torch.obs import stats as obs_stats
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve import batching, feed
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -48,7 +52,7 @@ from repro_torch.tree import tree_leaves, tree_map
 # are deterministic in the DataMeta, so engines serving the same
 # architecture share one.
 _SCORER_CACHE: Dict = {}
-SERVE_STATS = {"misses": 0, "hits": 0}
+SERVE_STATS = obs_stats.STATS.counters("serve", misses=0, hits=0)
 
 
 def _get_scorer(spec: ModelSpec, meta: DataMeta, bucket: int,
@@ -59,6 +63,9 @@ def _get_scorer(spec: ModelSpec, meta: DataMeta, bucket: int,
     scorer = _SCORER_CACHE.get(cache_key)
     if scorer is None:
         SERVE_STATS["misses"] += 1
+        obs_trace.event("compile.scorer_miss", model=spec.name,
+                        bucket=int(bucket), route=route,
+                        cache_size=len(_SCORER_CACHE))
         logits_fn = spec.logits_routed(route)
 
         def scorer(params, x):
@@ -120,11 +127,12 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.spec = spec
         self.meta = meta
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        to_dev = lambda t: torch.as_tensor(t, device=self.device)  # noqa: E731
+        self.params = tree_map(to_dev, params)
         self.buckets = batching.normalize_buckets(buckets)
         self.route = route or DEFAULT_ROUTE
-        self.heads = (None if heads is None
-                      else tree_map(lambda t: t.to(self.device), heads))
+        # heads: tensors, or the host NumPy stack export_personalized gives
+        self.heads = None if heads is None else tree_map(to_dev, heads)
         # resolve eagerly so an invalid route fails at construction
         spec.logits_routed(self.route)
 
@@ -183,7 +191,8 @@ class ServeEngine:
         scoring) and collect scores + timing."""
         params = self.params_for(client)
         batches = batching.batches_of(stream, self.buckets)
-        with record_function("serve.score_stream"):
+        with obs_trace.span("serve.score_stream", model=self.spec.name,
+                            route=self.route):
             t0 = time.perf_counter()
             t_prev = t0
             pending = None
@@ -202,7 +211,8 @@ class ServeEngine:
                 return t_now
 
             for xb, n_valid in feed.device_feed(batches, self.device):
-                with record_function("serve.dispatch"):
+                with obs_trace.span("serve.dispatch",
+                                    bucket=int(xb.shape[0])):
                     scorer = _get_scorer(self.spec, self.meta, xb.shape[0],
                                          self.route)
                     res = scorer(params, xb)    # dispatch of batch N

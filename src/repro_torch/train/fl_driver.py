@@ -1,7 +1,11 @@
 """End-to-end FL driver for the anomaly-detection use case (paper §V): the
 port's copy of ``repro/train/fl_driver.py``'s engines and what they need
 (``METHODS``, ``fl_for_method``, ``RunResult``, ``simulate_round_time``,
-``realized_cohort_fraction``, the FedL2P personalisation pass).
+``realized_cohort_fraction``, the FedL2P personalisation pass and
+``export_personalized``, the deprecated ``spent_epsilon``).  The engines'
+host phases are traced by ``repro_torch.obs`` (``sweep.*`` and
+``population.*`` spans, ``compile.runner_miss`` events and ``runner.build``
+spans; ``RUNNER_STATS`` is a registry view).
 
 Both run the full Algorithm-1 loop on the synthetic UNSW-NB15 / ROAD
 federations and report accuracy, AUC-ROC, simulated training time and the
@@ -46,6 +50,7 @@ import contextlib
 import dataclasses
 import math
 import time
+import warnings
 import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
@@ -68,6 +73,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.mlp import auc_roc, auc_roc_torch
 from repro_torch.models.spec import (DataMeta, ModelSpec, get_model_spec,
                                      meta_for)
+from repro_torch.obs import stats as obs_stats
+from repro_torch.obs import trace as obs_trace
 from repro_torch.privacy import accountant as acct_lib
 from repro_torch.privacy import schedule as sched_lib
 from repro_torch.privacy.accountant import accounted_epsilon
@@ -145,6 +152,18 @@ def personalized_client_params(params, fed: FederatedData, spec: ModelSpec,
     return out
 
 
+def export_personalized(params, fed: FederatedData, spec: ModelSpec,
+                        steps: int = 3, lr: float = 0.05,
+                        batch: int = 64, seed: int = 0):
+    """Personalised per-client parameters STACKED along a leading client
+    axis (host NumPy): the ``heads`` tree ``ServeEngine`` indexes with
+    ``client=i`` and ``save_serving_checkpoint`` persists."""
+    per_client = personalized_client_params(params, fed, spec, steps=steps,
+                                            lr=lr, batch=batch, seed=seed)
+    return tree_map(lambda *leaves: np.stack([l.detach().cpu().numpy()
+                                              for l in leaves]), *per_client)
+
+
 def _personalize(params, fed: FederatedData, spec: ModelSpec,
                  steps: int = 3, lr: float = 0.05,
                  batch: int = 64, seed: int = 0):
@@ -218,6 +237,19 @@ def simulate_round_time(fl: FLConfig, util_state, sel_mask, failed,
     t = torch.where(code == 1.0, t_async, torch.where(code == 2.0, t_hier, t))
     return torch.where(torch.any(sel, dim=-1), t,
                        torch.full_like(t, comm_time))
+
+
+def spent_epsilon(fl: FLConfig, rounds: int) -> float:
+    """Deprecated alias of :func:`repro_torch.privacy.accountant.
+    accounted_epsilon`, kept as the reference keeps it: fixed-σ runs report
+    the closed-form composition, scheduled runs the in-loop accountant's
+    trace (``RunResult.history['eps']``)."""
+    warnings.warn(
+        "fl_driver.spent_epsilon is deprecated; use "
+        "repro_torch.privacy.accountant.accounted_epsilon (fixed-σ) or the "
+        "in-loop accountant trace (dp_scheduled)", DeprecationWarning,
+        stacklevel=2)
+    return accounted_epsilon(fl, rounds)
 
 
 def realized_cohort_fraction(k_eff, n_clients: int):
@@ -591,9 +623,12 @@ def _build_lane_run(fl: FLConfig, rounds: int, eval_every: int,
 # (FLParams) and the federation are arguments, so one runner serves a
 # whole ε/failure/lr/plan grid; a code-0 grid's runner leaves out the async
 # and hier blocks.  The population engine's runners share the cache under a "pop"
-# tag.  RUNNER_STATS counts misses and hits, as the reference's does.
+# tag.  RUNNER_STATS counts misses and hits, as the reference's does: a view
+# of the registry (repro_torch.obs.stats), so dict-style call sites (index,
+# +=, dict(...)) work unchanged and STATS.snapshot()/reset()/expect() see it
+# as the "runner" namespace.
 _RUNNER_CACHE: Dict = {}
-RUNNER_STATS = {"misses": 0, "hits": 0}
+RUNNER_STATS = obs_stats.STATS.counters("runner", misses=0, hits=0)
 
 # Device-side federations cached per host FederatedData object (keyed by
 # id() and device, with a weakref guard: FederatedData defines __eq__, so it
@@ -614,29 +649,37 @@ def _device_federation(fed: FederatedData, device: torch.device):
     return entry[1], entry[2], entry[3]
 
 
-def _cached_runner(cache_key, build: Callable):
+def _cached_runner(cache_key, build: Callable, engine: str, model: str,
+                   rounds: int, n_lanes: int):
     """The runner of ``cache_key``, built by ``build()`` on a miss: one miss
-    a key (counted in ``RUNNER_STATS``), hits after."""
+    a key (counted in ``RUNNER_STATS``, a ``compile.runner_miss`` event and
+    a ``runner.build`` span), hits after."""
     runner = _RUNNER_CACHE.get(cache_key)
     if runner is None:
         RUNNER_STATS["misses"] += 1
-        runner = _RUNNER_CACHE[cache_key] = build()
+        obs_trace.event("compile.runner_miss", engine=engine, model=model,
+                        rounds=rounds, n_lanes=n_lanes,
+                        cache_size=len(_RUNNER_CACHE))
+        with obs_trace.span("runner.build", engine=engine, model=model):
+            runner = _RUNNER_CACHE[cache_key] = build()
     else:
         RUNNER_STATS["hits"] += 1
     return runner
 
 
-def _run_lanes(tag: str, prepare: Callable):
+def _run_lanes(tag: str, prepare: Callable, **attrs):
     """Time one engine call: ``prepare()`` gives the runner's thunk, whose
     ``(params, sim_time, trace)`` are read back to the host, each step
-    under a ``{tag}.prepare/execute/readback`` span.  Returns ``(params,
-    sim_time [L], trace {column: [L, n_evals]}, wall s)`` as NumPy."""
+    under a ``{tag}.prepare/execute/readback`` span (``attrs`` on the
+    first).  Returns ``(params, sim_time [L], trace {column: [L,
+    n_evals]}, wall s)`` as NumPy."""
+    n_lanes = attrs["n_lanes"]
     t0 = time.perf_counter()
-    with record_function(f"{tag}.prepare"):
+    with obs_trace.span(f"{tag}.prepare", **attrs):
         execute = prepare()
-    with record_function(f"{tag}.execute"):
+    with obs_trace.span(f"{tag}.execute", n_lanes=n_lanes):
         params_b, sim_b, trace_b = execute()
-    with record_function(f"{tag}.readback"):
+    with obs_trace.span(f"{tag}.readback", n_lanes=n_lanes):
         trace_np = {k: v.cpu().numpy() for k, v in trace_b.items()}
         sim_np = sim_b.cpu().numpy()
     return params_b, sim_np, trace_np, time.perf_counter() - t0
@@ -760,13 +803,16 @@ def run_fl_sweep(
             (fl_static(fl), rounds, eval_every, meta, n_lanes, stack.shapes(),
              str(device), codes),
             lambda: _build_lane_run(fl_static(fl), rounds, eval_every, meta,
-                                    stack.n_clients, device, codes))
+                                    stack.n_clients, device, codes),
+            "sweep", fl.model, rounds, n_lanes)
         lanes = params_lanes(cells, len(seeds), device)
         return lambda: runner(seeds * len(cells), stack, data_size,
                               data_quality, lanes, init_states=init_states,
                               draws=draws)
 
-    params_b, sim_np, trace_np, wall = _run_lanes("sweep", prepare)
+    params_b, sim_np, trace_np, wall = _run_lanes(
+        "sweep", prepare, method=method, n_lanes=n_lanes, n_cells=len(cells),
+        rounds=rounds, plans=",".join(sorted({c.plan for c in cells})))
     finish = None
     if return_params or method == "fedl2p":
         spec = get_model_spec(fl.model, meta)
@@ -939,11 +985,14 @@ def run_fl_population(
              pop.shapes(), int(sel_chunks), str(device)),
             lambda: _build_population_run(fl_static(fl), rounds, eval_every,
                                           meta, pop.n_clients,
-                                          int(sel_chunks), device))
+                                          int(sel_chunks), device),
+            "population", fl.model, rounds, n_lanes)
         lanes = params_lanes(cells, len(seeds), device)
         return lambda: runner(seeds * len(cells), pop_dev, lanes,
                               init_states=init_states, draws=draws)
 
-    _, sim_np, trace_np, wall = _run_lanes("population", prepare)
+    _, sim_np, trace_np, wall = _run_lanes(
+        "population", prepare, method=method, n_lanes=n_lanes,
+        n_cells=len(cells), rounds=rounds, n_clients=pop.n_clients)
     return _lane_results(cells, seeds, method, dataset, rounds, eval_every,
                          sim_np, trace_np, wall / n_lanes)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``
-or ``chip_before_after.py``) imports JAX or the reference package, and its
-entry points never run on the CPU unless asked to."""
+"""The port stands alone: no module of ``repro_torch`` (nor ``chip_smoke.py``,
+``chip_before_after.py`` or ``chip_round_ab.py``) imports JAX or the
+reference package, and its entry points never run on the CPU unless asked
+to."""
 import ast
 from pathlib import Path
 
@@ -11,7 +12,9 @@ from repro_torch.configs.base import FLConfig, fl_params
 from repro_torch.core import rounds as t_rounds
 from repro_torch.data.synthetic import make_federated, make_population
 from repro_torch.configs.base import get_arch
+from repro_torch.core.fault import FailureModel
 from repro_torch.device import resolve_device
+from repro_torch.launch import fl_train as t_fl_train
 from repro_torch.launch import serve as t_serve
 from repro_torch.models.model import build as build_lm
 from repro_torch.models import mlp as t_mlp
@@ -23,7 +26,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_before_after.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_before_after.py",
+    ROOT / "chip_round_ab.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -51,9 +55,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
 
 def test_entry_points_default_to_cuda():
     """Without ``device=``, run_fl_legacy, run_fl, run_fl_sweep,
-    run_fl_population, make_parallel_round and make_cohort_round go to
-    CUDA: on a machine without a card they raise instead of running on the
-    CPU."""
+    run_fl_population, make_parallel_round, make_cohort_round,
+    ``FailureModel`` and the FL CLI (``launch/fl_train.py`` without
+    ``--device``) go to CUDA: on a machine without a card they raise
+    instead of running on the CPU."""
     fed = make_federated(0, "unsw", n_samples=300, n_clients=4)
     fl = FLConfig(n_clients=4, clients_per_round=2, local_epochs=1,
                   local_batch=8)
@@ -79,6 +84,13 @@ def test_entry_points_default_to_cuda():
         t_rounds.make_parallel_round(t_mlp.mlp_loss, fl, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         t_rounds.make_cohort_round(t_mlp.mlp_loss, pop_fl, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FailureModel()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        t_fl_train.main(["--rounds", "1", "--clients", "4",
+                         "--samples", "300"])
+    assert FailureModel(device="cpu").sample(
+        torch.Generator().manual_seed(0), 4).device.type == "cpu"
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(ValueError):
         resolve_device("meta")

@@ -12,16 +12,19 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    spills, and require no spill in ``flash_attention_kernel`` and
    ``flash_decode_lanes_kernel`` (the head dims up to 32),
    ``flash_attention_mma_kernel`` (bf16 at DMAX 64, 96, 128, 256),
-   ``rglru_scan_tiles_kernel`` and
-   ``sumsq_rows_cluster_kernel``, and record (without a gate) those of
+   ``rglru_scan_tiles_kernel`` and ``sumsq_rows``' three
+   (``sumsq_rows_cluster_kernel``, and the split plan's
+   ``sumsq_rows_split_kernel`` and ``sumsq_rows_finish_kernel``), and
+   record (without a gate) those of
    ``flash_attention_row_kernel`` (f32 at head dims 64 and 128, which
    spills at 128);
 3. hold the DP kernels against their plain PyTorch versions on the card, at
    the paper config's shape [40, 13890] and at ragged shapes (P ≡ 1, 2, 3
    mod 4, a base pointer one element off, rows shorter than a cluster's
-   blocks, one row of 10⁶, 1,000 rows), require ``sumsq_rows`` to repeat
-   bitwise, and require its cluster and one-block plans and every load
-   branch (head, 16-byte body, tail, empty block) to run;
+   blocks, one row of 10⁶, 1,000 rows, rows of 8.4–9 million), require
+   ``sumsq_rows`` to repeat bitwise, and require its cluster, one-block
+   and split plans and every load branch (head, 16-byte body, tail, empty
+   block) to run;
 4. drive the FL path: ``run_fl_legacy`` on the paper's config (40 clients,
    hidden 128, unsw) for 10 rounds, counting kernel launches;
 5. run 3 rounds on the card and on the CPU from the same state with the
@@ -160,7 +163,24 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    the α = 0.05 verdict and the AUC and mean-K tests printed; the DP
    kernels at the CLI's rows [40, 4,898] and the check's [400, 4,898]
    against their plain versions, timed beside ``vector_norm`` and the
-   bound.
+   bound;
+17. federated LM training: ``launch/train.py``'s ``train`` at the CLI's
+   defaults with ``--dp`` (8 clients, 2 client slots a round, 1 local step,
+   batch 2, seq 64, lr 0.005, clipped DP at ε 50 and clip 10, failures
+   0.05, 3 rounds, remat "none") on granite-3-8b at full width with its
+   depth cut 40 -> 8 (1,795,174,400 params, a row of 1,796,280,320
+   elements with the norms and the vocab padding, bf16): the ``client_serial``
+   round with K1a/K1b once per privatised slot (6, counted from 0 just
+   before), finite losses, the eval loss before and after, the warm round
+   wall, peak memory, a client step's forward+backward, one profiled round
+   (busy share, spans, heaviest kernels); K1 at the update's row [1, P]
+   against its plain versions (``sumsq_rows`` on its split plan to a
+   relative 1e-6 and bitwise repeatable, ``scale_noise_rows`` bitwise),
+   timed beside them, ``vector_norm``, ``addcmul`` on σ·n, the bound and
+   ``sumsq_rows`` on the cluster plan; a 2-layer f32 cut at the same
+   widths, 2 serial rounds with DP card vs CPU on the same draws and
+   ``grad_accum`` 2 and remat "full"/"dots" against the plain step on the
+   card, within 1e-4.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -320,21 +340,25 @@ def timed(kernel, plain, library, iters: int = 100):
 # boundary.  The paper config's update (P ≡ 2 mod 4: every other row starts
 # 8 bytes off), the grid of PR 11, P ≡ 1 and 3, the update one element off,
 # rows shorter than a cluster's blocks (empty blocks), one row of 10⁶ and
-# 1,000 rows (one block a row)
+# 1,000 rows (one block a row); then rows the split plan takes: one row
+# just past its threshold, one element off, and 3 rows with P ≡ 2 mod 4
 SQ_CASES = [(SLICE_ROWS, SLICE_P, 0)] + [
     (r, p, 0) for p in (64, 1000, 40_000) for r in (1, 7)] + [
     (5, 1001, 0), (5, 4099, 0), (SLICE_ROWS, SLICE_P, 1), (5, 4099, 1),
-    (3, 5, 0), (2, 30, 3), (1, 1_000_000, 0), (1000, SLICE_P, 0)]
-SQ_BRANCHES = {"cluster", "one block", "head", "float4", "tail", "empty"}
+    (3, 5, 0), (2, 30, 3), (1, 1_000_000, 0), (1000, SLICE_P, 0),
+    (1, 8_388_613, 1), (3, 9_000_002, 0)]
+SQ_BRANCHES = {"cluster", "one block", "split", "head", "float4", "tail",
+               "empty"}
 
 
 def sumsq_branches(dpk, x) -> set:
-    """The branches ``sumsq_rows_cluster_kernel`` takes on ``x [R, P]``:
-    a cluster of blocks a row or one block, and per block a scalar head,
-    16-byte loads, a scalar tail or no columns at all."""
+    """The branches ``sumsq_rows`` takes on ``x [R, P]``: a cluster of
+    blocks a row, one block, or the split plan, and per block a scalar
+    head, 16-byte loads, a scalar tail or no columns at all."""
     r, p = x.shape
     plan = dpk.sumsq_plan(r, p)
-    out = {"cluster" if plan.cluster > 1 else "one block"}
+    out = {"split" if plan.split > 1
+           else "cluster" if plan.cluster > 1 else "one block"}
     for row in range(min(r, 4)):  # row starts repeat mod 4
         start = x.data_ptr() % 16 // 4 + row * p
         for head, vec4s, tail in dpk.sumsq_segments(plan, p, start):
@@ -383,8 +407,9 @@ def phase_kernels_vs_plain(torch, dpk, ref, ops):
                                                max_abs(o, o_ref))
         if (r, p, offset) == (SLICE_ROWS, SLICE_P, 0):
             errs["sumsq_rows"] = max_abs(sq, sq_ref)
+        plan = dpk.sumsq_plan(r, p)
         print(f"  [{r:>4}, {p:>7}] + {offset}  "
-              f"C={dpk.sumsq_plan(r, p).cluster}  sumsq max|err| "
+              f"C={plan.cluster} S={plan.split}  sumsq max|err| "
               f"{max_abs(sq, sq_ref):.3e}  bitwise repeat ok  "
               f"scale_noise/dp_clip_noise ok")
     check(SQ_BRANCHES <= branches,
@@ -1073,9 +1098,10 @@ RG_CASES = [(1, 128, 128, False), (2, 64, 96, True), (3, 64, 512, True),
 RG_BRANCHES = {"4 lanes, 16-byte loads", "1 lane, 4-byte loads",
                "one row a block", "rows packed", "one tile", "two tiles",
                "more tiles", "ragged tile", "idle threads", "h0", "no h0"}
-# rglru_scan_tiles_kernel<VEC> and sumsq_rows_cluster_kernel
+# rglru_scan_tiles_kernel<VEC>, and sumsq_rows' cluster kernel and the
+# split plan's two
 RG_KERNEL_NAME = re.compile(r"23rglru_scan_tiles_kernelILi(\d+)EE")
-SQ_KERNEL_NAME = re.compile(r"25sumsq_rows_cluster_kernel()")
+SQ_KERNEL_NAME = re.compile(r"\d\dsumsq_rows_(cluster|split|finish)_kernel")
 
 
 def ptxas_report(log: str, name_re, kernel: str) -> dict:
@@ -1140,8 +1166,8 @@ def check_rg_ptxas(log: str) -> dict:
 
 
 def check_sq_ptxas(log: str) -> dict:
-    """``sumsq_rows_cluster_kernel``: one instance."""
-    return check_ptxas(log, SQ_KERNEL_NAME, "sumsq_rows_cluster_kernel", 1)
+    """``sumsq_rows_{cluster,split,finish}_kernel``: one instance each."""
+    return check_ptxas(log, SQ_KERNEL_NAME, "sumsq_rows", 3)
 
 
 def check_flash_attention(torch, fak, ref, randn) -> float:
@@ -3111,6 +3137,402 @@ def phase_rng_check(torch, dpk, ref, fed, fl, card):
             "rows": rows, "dp_rows": dp_rows}
 
 
+# phase 17: federated LM training through the train CLI's function at its
+# defaults with --dp (python -m repro_torch.launch.train: 8 clients, 2
+# client slots a round, 1 local step, batch 2, seq 64, lr 0.005, clipped DP
+# at ε 50 and clip 10, failures 0.05, 3 rounds, remat "none", seed 0) on
+# granite-3-8b at full width, its depth cut 40 -> 8 (the serial round holds
+# ~28 bytes a parameter at its peak in the reference's reckoning: 229 GB at
+# 40 layers, 50 GB at 8)
+LMT_LAYERS = 8
+LMT_PARAMS = 1_795_174_400  # ModelConfig.param_count() at 8 layers
+# the update's flat row: the tree's elements, with the norm scales and the
+# vocab padding (49,408 rows) that param_count leaves out
+LMT_ROW = 1_796_280_320
+LMT_ROUNDS = 3
+LMT_SLOTS = 2               # the CLI's --clients-per-step
+LMT_CUT = 2                 # layers of the f32 card-vs-CPU cut
+LMT_CUT_ROUNDS = 2
+LMT_CUT_SEEDS = (1, 3)      # each seed its own params, state, data, draws
+LMT_TOL = 1e-4
+# After a round of DP noise (σ ≈ 0.97 an element against weights of 0.02)
+# the softmaxes saturate (loss ~220, scores of 1e3-1e4), so the same f32
+# sums taken in another order move the next round's values far more than
+# 1e-4.  Each value of a round after the first is therefore held at
+# LMT_REASSOC_MULT times its re-association gap, read in the same run: the
+# larger of the card's and the CPU's difference between that same round at
+# grad_accum 2 and at 1 (same state, same draws), and never under LMT_TOL.
+# That split re-associates only the sum over the batch; card against CPU
+# re-associates every GEMM's reduction as well, hence the multiple
+LMT_REASSOC_MULT = 8.0
+LMT_SQ_RTOL = 1e-6
+LMT_SPANS = ("selection", "local_train", "dp_privatize", "aggregate")
+# a profiled round's device time by kind: the first pattern a kernel's name
+# matches (cuBLAS names its H100 GEMMs nvjet_*, sm90_xmma_*)
+LMT_KINDS = (("K1", r"sumsq_rows|scale_noise_rows"),
+             ("GEMMs", r"gemm|xmma|cutlass|nvjet|cublas"),
+             ("noise draw", r"normal|philox|distribution"),
+             ("copies and casts", r"copy|Memcpy|Memset"),
+             ("other", r""))
+
+
+def lm_train_profiled(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: its host wall (ms, to a
+    synchronise), the device busy ms (the round's spans left out), the
+    spans' host ms and the heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device, busy_ms, spans, by_kernel = profile_summary(prof.events(),
+                                                        LMT_SPANS)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:8]
+    kinds = {kind: 0.0 for kind, _ in LMT_KINDS}
+    for name, (_, ms) in by_kernel.items():
+        kind = next(k for k, pat in LMT_KINDS if re.search(pat, name))
+        kinds[kind] += ms
+    return {"wall_ms": wall, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall, "device_ops": len(device),
+            "spans_host_ms": spans, "device_ms_by_kind": kinds,
+            "top_kernels": [{"name": k[:80], "calls": n, "device_ms": t}
+                            for k, (n, t) in top]}
+
+
+def lm_train_k1(torch, dpk, ref, launches, card):
+    """K1a and K1b at the LM update's row [1, P] against their plain
+    versions (``sumsq_rows`` to a relative 1e-6 and bitwise repeatable;
+    ``scale_noise_rows`` bitwise), timed by CUDA events over 5 calls each
+    (ms a call: host dispatch is ~20 us of it) beside the plain versions,
+    ``vector_norm`` / ``addcmul`` on σ·n and the bytes bound; ``sumsq_rows``
+    also on the cluster plan, the one a row of this width took before the
+    split plan (8 blocks)."""
+    from repro_torch.core.dp import gaussian_sigma
+
+    p = LMT_ROW
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn(1, p, generator=gen, device="cuda") * 1e-3
+    nz = torch.randn(1, p, generator=gen, device="cuda")
+    plan = dpk.sumsq_plan(1, p)
+    check(plan.split > 1, f"sumsq plan at [1, {p}]: {plan}")
+    cluster = dpk.cluster_plan(1, p)
+    sq, sq_ref = dpk.sumsq_rows(x), ref.sumsq_rows_ref(x)
+    sq_cluster = dpk._launch_sumsq(x, cluster)
+    rel = float((sq.double() - sq_ref.double()).abs() / sq_ref.double())
+    rel_cluster = float((sq_cluster.double() - sq_ref.double()).abs()
+                        / sq_ref.double())
+    check(rel <= LMT_SQ_RTOL, f"sumsq_rows at [1, {p}]: relative {rel}")
+    check(torch.equal(sq, dpk.sumsq_rows(x)),
+          f"sumsq_rows not bitwise repeatable at [1, {p}]")
+    sigma = gaussian_sigma(50.0, 1e-5, 10.0)
+    scale = ref.clip_scale(torch.sqrt(sq_ref), 10.0)
+    o = dpk.scale_noise_rows(x, nz, scale, sigma)
+    o_ref = ref.scale_noise_rows_ref(x, nz, scale, sigma)
+    check(torch.equal(o, o_ref), f"scale_noise_rows is not bitwise its "
+          f"plain version at [1, {p}]")
+    del o, o_ref
+    torch.cuda.empty_cache()
+
+    def ms(fn):
+        return eager_ms(fn, iters=5, reps=3)
+
+    t_sq = {"ms": ms(lambda: dpk.sumsq_rows(x)),
+            "plain_ms": ms(lambda: ref.sumsq_rows_ref(x)),
+            "library_ms": ms(lambda: torch.linalg.vector_norm(x, dim=1)),
+            "cluster_plan_ms": ms(lambda: dpk._launch_sumsq(x, cluster))}
+    t_sn = {"ms": ms(lambda: dpk.scale_noise_rows(x, nz, scale, sigma)),
+            "plain_ms": ms(lambda: ref.scale_noise_rows_ref(x, nz, scale,
+                                                            sigma)),
+            "library_ms": None}
+    sn, scale_col = sigma * nz, scale[:, None]
+    t_sn["addcmul_ms"] = ms(lambda: torch.addcmul(sn, x, scale_col))
+    del sn
+    common = {"route": "cuda", "shape": [1, p],
+              "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
+              "timing": "CUDA events, 5 back-to-back calls, median of 3"}
+    b_sq, by_sq = sumsq_bound(1, p)
+    b_sn, by_sn = bound(12 * p + 4, 3 * p)
+    rows = [
+        {"name": "sumsq_rows_lm_train", **common,
+         "replaces": "src/repro/kernels/dp_clip_noise.py:62",
+         "launches": launches["sumsq_rows"],
+         "max_abs_err": float((sq.double() - sq_ref.double()).abs()),
+         "rel_err": rel, "cluster_plan_rel_err": rel_cluster,
+         "plan": list(plan), "bound_ms": b_sq, "bound_by": by_sq, **t_sq},
+        {"name": "scale_noise_rows_lm_train", **common,
+         "replaces": "src/repro/kernels/dp_clip_noise.py:81",
+         "launches": launches["scale_noise_rows"], "max_abs_err": 0.0,
+         "bound_ms": b_sn, "bound_by": by_sn, **t_sn}]
+    print(f"  K1 at [1, {p:,}] ({card}): sumsq_rows (split plan, "
+          f"{plan.split} blocks) rel err {rel:.2e} (cluster plan "
+          f"{rel_cluster:.2e}), bitwise repeatable; {t_sq['ms']:.3f} ms "
+          f"(bound {b_sq:.3f} ms, {by_sq}; cluster plan "
+          f"{t_sq['cluster_plan_ms']:.3f} ms; plain {t_sq['plain_ms']:.3f}; "
+          f"vector_norm {t_sq['library_ms']:.3f}); scale_noise_rows bitwise "
+          f"its plain version, {t_sn['ms']:.3f} ms (bound {b_sn:.3f} ms; "
+          f"plain {t_sn['plain_ms']:.3f}; addcmul on σ·n "
+          f"{t_sn['addcmul_ms']:.3f})")
+    return rows
+
+
+def lmt_round_values(state, metrics):
+    """The values of a serial round that the card and the CPU must agree
+    on, by name: each a list of tensors."""
+    from repro_torch.tree import tree_leaves
+
+    out = {f: [getattr(metrics, f)]
+           for f in ("pre_loss", "post_loss", "global_loss", "update_norms")}
+    out["util"] = list(state.util)
+    out["params"] = tree_leaves(state.params)
+    return out
+
+
+def lmt_rel_err(a, b, scale_by=None) -> float:
+    """max |a − b| over ``scale_by``, by default max(1, max |b|), on
+    ``b``'s device in ``b``'s dtype (f32: a − b is exact where a and b
+    are within a factor of 2, and otherwise off by 2^-24 of the larger,
+    far under any bar here; an f64 copy of the 600 M params would cost
+    seconds a comparison on the host)."""
+    b = b.detach()
+    if not b.numel():
+        return 0.0
+    a = a.detach().to(b.device, b.dtype)
+    scale = max(1.0, float(b.abs().max())) if scale_by is None else scale_by
+    return float((a - b).abs().max()) / scale
+
+
+def lmt_diff(va, vb) -> dict:
+    """:func:`lmt_rel_err` of two :func:`lmt_round_values`, name by name
+    (the largest over a name's tensors)."""
+    return {k: max(lmt_rel_err(a, b) for a, b in zip(va[k], vb[k]))
+            for k in va}
+
+
+def lm_train_card_vs_cpu(torch, card):
+    """The 2-layer f32 cut at granite's width: ``grad_accum`` 2 against 1
+    and remat "full" and "dots" against "none" on the card at the first
+    seed's initial params (LMT_TOL, grads of each leaf's max|g|); then, at
+    each of LMT_CUT_SEEDS, 2 serial rounds with clipped DP on the card and
+    on the CPU from the same state and the same ``SerialDraws`` (the DP
+    noise drawn on the card, one row a slot): sel_mask and failed equal,
+    the first round's values within LMT_TOL (relative, and absolute of
+    max(1, |x|)), the noised second round's within LMT_REASSOC_MULT times
+    their re-association gap read in this run (the same round at
+    grad_accum 2 on each device).  Every reading is printed before any bar
+    is checked."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.data.tokens import lm_round_batches
+    from repro_torch.launch.train import train_fl_config
+    from repro_torch.models.model import build
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LMT_CUT,
+                              dtype="float32")
+    model = build(cfg)
+    fl = train_fl_config(dp=True)
+    n = fl.n_clients
+
+    def loss(remat="none"):
+        return lambda p, b: model.loss(p, b, remat=remat)
+
+    steps = {(dev, ga): rounds_lib.make_serial_round(
+        loss(), fl, n, device=dev, grad_accum=ga)
+        for dev in ("cuda", "cpu") for ga in (1, 2)}
+    readings = []  # (what, err, bar)
+
+    params = model.init(LMT_CUT_SEEDS[0], device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = {k: torch.as_tensor(v, device="cuda")[0, 0] for k, v in
+             lm_round_batches(cfg.vocab_size, 1, 1, 2, 64, 9).items()}
+    base_loss, base_g = rounds_lib.microbatched_value_and_grad(
+        loss(), 1)(params, batch)
+    variants = {"grad_accum=2": rounds_lib.microbatched_value_and_grad(
+        loss(), 2)}
+    variants.update({f"remat={m}": rounds_lib.value_and_grad(loss(m))
+                     for m in ("full", "dots")})
+    for name, vag in variants.items():
+        v_loss, v_g = vag(params, batch)
+        readings.append((f"{name} loss", lmt_rel_err(v_loss, base_loss),
+                         LMT_TOL))
+        readings.append((f"{name} grads", max(
+            lmt_rel_err(a, b, max(float(b.abs().max()), 1e-30))
+            for a, b in zip(tree_leaves(v_g), tree_leaves(base_g))),
+            LMT_TOL))
+    del base_g, v_g, params
+
+    mismatch, seed_s = [], []
+    for seed in LMT_CUT_SEEDS:
+        t0 = time.perf_counter()
+        params = model.init(seed, device="cuda")
+        card_state = rounds_lib.init_serial_state(
+            params, fl, torch.Generator(device="cuda").manual_seed(seed))
+        cpu_state = card_state._replace(
+            params=tree_to(params, "cpu"),
+            util=type(card_state.util)(*(t.cpu() for t in card_state.util)),
+            kctl=type(card_state.kctl)(*(t.cpu() for t in card_state.kctl)),
+            rng=torch.Generator().manual_seed(seed),
+            fault=type(card_state.fault)(*(t.cpu()
+                                           for t in card_state.fault)))
+        del params
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+        for r in range(LMT_CUT_ROUNDS):
+            data = {k: torch.as_tensor(v) for k, v in lm_round_batches(
+                cfg.vocab_size, LMT_SLOTS, 1, 2, 64, 100 * seed + r).items()}
+            data_c = {k: v.cuda() for k, v in data.items()}
+            draws = rounds_lib.draw_serial_round(gen, n, LMT_SLOTS, 1,
+                                                 fl.selection)._replace(
+                dp_noise=torch.randn(LMT_SLOTS, n_params, generator=gen,
+                                     device="cuda"))
+            draws_h = draws.to("cpu")
+            bars, out, gaps = {}, {}, {}
+            for dev, st, d, dr in (("cuda", card_state, data_c, draws),
+                                   ("cpu", cpu_state, data, draws_h)):
+                out[dev] = steps[dev, 1](st, d, draws=dr)
+                if r > 0:  # the same round at grad_accum 2
+                    gaps[dev] = lmt_diff(
+                        lmt_round_values(*steps[dev, 2](st, d, draws=dr)),
+                        lmt_round_values(*out[dev]))
+            for k in gaps.get("cuda", {}):
+                gap = max(gaps["cuda"][k], gaps["cpu"][k])
+                bars[k] = max(LMT_TOL, LMT_REASSOC_MULT * gap)
+                readings.append((f"seed {seed} round {r} {k} grad_accum "
+                                 f"gap: card {gaps['cuda'][k]:.2e}, CPU "
+                                 f"{gaps['cpu'][k]:.2e}", gap, None))
+            (card_state, mc), (cpu_state, mh) = out["cuda"], out["cpu"]
+            del out
+            del draws, draws_h, data_c
+            if not (torch.equal(mc.sel_mask.cpu(), mh.sel_mask)
+                    and torch.equal(mc.failed.cpu(), mh.failed)):
+                mismatch.append(f"seed {seed} round {r}")
+            for k, err in lmt_diff(lmt_round_values(card_state, mc),
+                                   lmt_round_values(cpu_state, mh)).items():
+                readings.append((f"seed {seed} round {r} {k}", err,
+                                 bars.get(k, LMT_TOL)))
+        del card_state, cpu_state
+        torch.cuda.empty_cache()
+        seed_s.append(time.perf_counter() - t0)
+    print(f"  2-layer f32 cut ({n_params:,} params; "
+          f"{' + '.join(f'{t:.1f}' for t in seed_s)} s a seed): "
+          f"seeds {LMT_CUT_SEEDS}, {LMT_CUT_ROUNDS} serial rounds with DP "
+          f"card vs CPU on the same draws (sel_mask and failed "
+          f"{'equal' if not mismatch else 'DIFFER: ' + ', '.join(mismatch)}"
+          f"), grad_accum 2 and remat full, dots vs none on the card; "
+          f"relative errors against their bars (LMT_TOL {LMT_TOL}; after a "
+          f"noised round {LMT_REASSOC_MULT:g} x the larger grad_accum gap):")
+    for what, err, bar in readings:
+        print(f"    {what}: {err:.2e}"
+              + ("" if bar is None else f" (bar {bar:.2e})"))
+    check(not mismatch, f"sel_mask/failed differ card vs CPU: {mismatch}")
+    for what, err, bar in readings:
+        if bar is not None:
+            check(err <= bar, f"{what}: {err:.3e} over its bar {bar:.3e}")
+    return {"params": n_params, "seeds": list(LMT_CUT_SEEDS),
+            "readings": [{"what": w, "err": e, "bar": b}
+                         for w, e, b in readings],
+            "seed_s": seed_s}
+
+
+def phase_lm_train(torch, dpk, ref, card):
+    """Phase 17: federated LM training on granite-3-8b at full width and 8
+    layers (bf16), through ``launch/train.py``'s ``train`` at the CLI's
+    defaults with ``--dp``: K1a/K1b once per privatised slot (counted from
+    0 just before), finite losses, the eval loss before and after, the
+    warm round wall, peak memory, a client step's forward+backward, one
+    profiled round (busy share, spans, heaviest kernels); K1 at [1, P]
+    against its plain versions and timed; the 2-layer f32 cut card vs
+    CPU."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.data.tokens import lm_round_batches
+    from repro_torch.launch.train import train
+
+    out = {}
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LMT_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dpk.reset_launches()
+    res = train(cfg, rounds=LMT_ROUNDS, dp=True, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(dpk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    model, step, state = res["model"], res["step"], res["state"]
+    n, nbytes = tree_bytes(state.params)
+    check(cfg.param_count() == LMT_PARAMS and n == LMT_ROW,
+          f"{cfg.param_count()} params ({n} elements) at {LMT_LAYERS} "
+          f"layers")
+    losses = ([res["initial_eval_loss"], res["final_eval_loss"]]
+              + [r["local_loss"] for r in res["rounds"]])
+    check(all(math.isfinite(v) for v in losses), f"LM losses {losses}")
+    slots = LMT_ROUNDS * LMT_SLOTS
+    check(launches == {"sumsq_rows": slots, "scale_noise_rows": slots},
+          f"K1 launches {launches} for {slots} privatised slots")
+    walls = [r["wall_s"] * 1e3 for r in res["rounds"]]
+    out.update(layers=LMT_LAYERS, params=n, param_bytes=nbytes,
+               launches=launches, eval_loss=[losses[0], losses[1]],
+               rounds=[{k: v for k, v in r.items()} for r in res["rounds"]],
+               round_wall_ms=walls,
+               warm_round_wall_ms=statistics.median(walls[1:]),
+               max_memory_allocated=peak)
+
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in
+            lm_round_batches(cfg.vocab_size, LMT_SLOTS, 1, 2, 64,
+                             7).items()}
+    vag = rounds_lib.value_and_grad(lambda p, b: model.loss(p, b,
+                                                            remat="none"))
+    batch = {k: v[0, 0] for k, v in data.items()}
+    fb = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vag(state.params, batch)
+        torch.cuda.synchronize()
+        fb.append((time.perf_counter() - t0) * 1e3)
+    out["fwd_bwd_ms"] = fb
+    out["fwd_bwd_ms_median_warm"] = statistics.median(fb[1:])
+
+    def one_round():
+        nonlocal state
+        state, _ = step(state, data)
+
+    out["profile"] = lm_train_profiled(torch, one_round)
+    prof = out["profile"]
+    print(f"  {cfg.name} at {LMT_LAYERS} layers: {cfg.param_count():,} "
+          f"params, {n:,} elements ({nbytes / 1e9:.2f} GB bf16); eval loss {losses[0]:.4f} -> "
+          f"{losses[1]:.4f}; round walls "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms (warm "
+          f"{out['warm_round_wall_ms']:.1f}); K1 launches {launches}; peak "
+          f"allocated {peak / 1e9:.2f} GB; client step forward+backward "
+          f"{out['fwd_bwd_ms_median_warm']:.2f} ms; profiled round "
+          f"{prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms (share "
+          f"{prof['device_busy_share']:.3f}, {prof['device_ops']} ops)  "
+          f"({card})")
+    for name, ms in sorted(prof["spans_host_ms"].items()):
+        print(f"    span {name}: {ms:.2f} ms host")
+    for kind, ms in prof["device_ms_by_kind"].items():
+        print(f"    device {kind}: {ms:.2f} ms")
+    for k in prof["top_kernels"]:
+        print(f"    kernel {k['name']}: {k['calls']} calls, "
+              f"{k['device_ms']:.3f} ms")
+    del res, model, step, state, vag, data, batch
+    torch.cuda.empty_cache()
+
+    rows = lm_train_k1(torch, dpk, ref, launches, card)
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = lm_train_card_vs_cpu(torch, card)
+    torch.cuda.empty_cache()
+    return out, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3287,6 +3709,15 @@ def main() -> int:
             k["launches_rng_check"] = \
                 fl_ops["rng_check"]["launches"][k["name"]]
 
+    print(f"== 17. LM training: the train CLI's defaults with --dp on "
+          f"{LM_ARCH} at full width, {LMT_LAYERS} layers (cut from 40), "
+          f"bf16, {LMT_ROUNDS} rounds  ({card})")
+    lm_train, lm_train_rows = phase_lm_train(torch, dpk, ref, card)
+    kernels += lm_train_rows
+    for k in kernels:
+        if k["name"] in ("sumsq_rows", "scale_noise_rows"):
+            k["launches_lm_train"] = lm_train["launches"][k["name"]]
+
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3298,6 +3729,7 @@ def main() -> int:
         "serve": serve, "serve_launches": serve_launches,
         "model_grid": grid, "privacy": privacy, "plan_frontier": plans,
         "population": population, "lm": lm, "fl_ops": fl_ops,
+        "lm_train": lm_train,
         "total_s": time.perf_counter() - t_all,
     }
     OUT_DIR.mkdir(exist_ok=True)

@@ -5,8 +5,9 @@ The inputs are NumPy values (``np.asarray`` of the JAX arrays, or anything
 ``{"l1": {"w", "b"}, ...}`` and the ``UtilityState`` / ``KControllerState``
 / ``FaultState`` NamedTuples (or mappings of their fields), cast to f32;
 the language model's params and KV caches (nested dicts and lists), each
-leaf in its own dtype.  The layouts are the reference's, so nothing is
-transposed.
+leaf in its own dtype; the ``client_serial`` plan's round state with its
+server optimizer's state over the param tree.  The layouts are the
+reference's, so nothing is transposed.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core import selection as sel_lib
 from repro_torch.core.rounds import RoundState
 from repro_torch.fault.process import FaultState
-from repro_torch.optim.optimizers import make_server_optimizer
+from repro_torch.optim.optimizers import AdamState, make_server_optimizer
 from repro_torch.tree import flatten_rows
 
 
@@ -72,6 +73,38 @@ def round_state_from_jax(params, util, kctl, fault, fl: FLConfig, device,
     return RoundState(
         params=p,
         server_opt_state=server.init(flatten_rows(p, 0)),
+        util=sel_lib.UtilityState(**{k: _tensor(v, device)
+                                     for k, v in _fields(util).items()}),
+        kctl=sel_lib.KControllerState(**{k: _tensor(v, device)
+                                         for k, v in _fields(kctl).items()}),
+        round_idx=int(round_idx),
+        rng=torch.Generator(device=device).manual_seed(seed),
+        fault=FaultState(**{k: _tensor(v, device)
+                            for k, v in _fields(fault).items()}),
+    )
+
+
+def serial_round_state_from_jax(params, server_opt_state, util, kctl, fault,
+                                fl: FLConfig, device, seed: int = 0,
+                                round_idx: int = 0) -> RoundState:
+    """The ``client_serial`` plan's :class:`RoundState` on ``device`` from
+    the reference's: the param tree through :func:`lm_params_from_jax`
+    (each leaf keeps its dtype), the server state over the tree (``()``
+    for SGD, a momentum tree, or ``AdamState`` of trees and its count), the
+    utility, K-controller and fault states in f32.  ``seed`` seeds the
+    state's ``torch.Generator``."""
+    device = torch.device(device)
+    if hasattr(server_opt_state, "_fields"):
+        server = AdamState(lm_params_from_jax(server_opt_state.mu, device),
+                           lm_params_from_jax(server_opt_state.nu, device),
+                           _leaf(server_opt_state.count, device))
+    elif len(server_opt_state) == 0:
+        server = ()
+    else:
+        server = lm_params_from_jax(server_opt_state, device)
+    return RoundState(
+        params=lm_params_from_jax(params, device),
+        server_opt_state=server,
         util=sel_lib.UtilityState(**{k: _tensor(v, device)
                                      for k, v in _fields(util).items()}),
         kctl=sel_lib.KControllerState(**{k: _tensor(v, device)

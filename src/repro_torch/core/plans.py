@@ -5,8 +5,8 @@ STATIC program family, the runtime lane ``code`` within it, the round-step
 builder, the time model, and config-build-time validation
 (``FLConfig.__post_init__`` calls :func:`validate_plan`).  The registry is
 the reference's, entry for entry, so a config is accepted or rejected alike
-in both packages.  The port builds only ``client_parallel`` at code 0;
-``core/rounds.py`` raises for the others.
+in both packages, and :meth:`RoundPlan.builder_fn` resolves each plan's
+builder in the port's ``core/rounds.py``.
 """
 from __future__ import annotations
 
@@ -27,6 +27,12 @@ class RoundPlan:
     description: str = ""
     requires: Optional[Callable] = field(default=None, compare=False,
                                          repr=False)
+
+    def builder_fn(self) -> Callable:
+        """The round-step builder in ``core/rounds.py`` (resolved at call
+        time: ``core/rounds.py`` imports this module)."""
+        from repro_torch.core import rounds as rounds_lib
+        return getattr(rounds_lib, self.builder)
 
 
 _REGISTRY: Dict[str, RoundPlan] = {}

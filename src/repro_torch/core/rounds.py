@@ -26,17 +26,26 @@ release (budget exhaustion under scheduled privacy,
 :func:`make_cohort_round` is the population-scale form: availability,
 scores, the cohort top-k and the failure processes run as ``[L, N]``
 vector ops, and training, DP and aggregation run on the gathered
-``[L, k_max]`` cohort only.  The ``client_serial`` plan raises: its only
-caller in the reference is the large-model launch path.
+``[L, k_max]`` cohort only.
+
+:func:`make_serial_round` is the ``client_serial`` plan, the reference's
+large-model path (``launch/train.py``): one run, one client slot at a
+time, on a param TREE kept in its storage dtype (bf16 for the LMs).  Each
+slot trains with autograd (:func:`microbatched_value_and_grad`, optional
+gradient accumulation), writes its f32 update straight into one flat
+``[P]`` buffer that the DP kernel reads as a ``[1, P]`` row, and streams
+into an f32 accumulator (``aggregation.stream_*``); the server steps the
+tree leaf by leaf.
 
 Fault tolerance: failure times come from ``fault/process.py``; a client
 that fails at step f keeps ``c·⌊f/c⌋`` steps of work with checkpoints every
 ``c`` steps, or nothing without fault tolerance.
 
 Random draws: torch cannot reproduce JAX's threefry stream.  A round's
-variates form a :class:`RoundDraws` (or :class:`CohortDraws`) bundle, drawn
-from each lane's ``torch.Generator`` on the device (:func:`draw_round`,
-:func:`draw_cohort_round`), or built by a caller (the parity tests rebuild
+variates form a :class:`RoundDraws` (or :class:`CohortDraws`,
+:class:`SerialDraws`) bundle, drawn from each lane's ``torch.Generator``
+on the device (:func:`draw_round`, :func:`draw_cohort_round`,
+:func:`draw_serial_round`), or built by a caller (the parity tests rebuild
 the reference's own draws from its keys).  This is the port's counterpart
 of the key argument.
 """
@@ -56,8 +65,12 @@ from repro_torch.core.plans import get_plan
 from repro_torch.data.synthetic import Population, sample_cohort_batches
 from repro_torch.device import resolve_device
 from repro_torch.fault import process as fault_proc
-from repro_torch.optim.optimizers import AdamState, make_server_optimizer
-from repro_torch.tree import flatten_rows, tree_map, unflatten_rows
+from repro_torch.kernels import ops as kops
+from repro_torch.optim.optimizers import (AdamState, make_server_optimizer,
+                                          make_tree_server_optimizer,
+                                          tree_sgd)
+from repro_torch.tree import (flatten_rows, tree_leaves, tree_map,
+                              unflatten_rows)
 
 
 class RoundState(NamedTuple):
@@ -65,7 +78,8 @@ class RoundState(NamedTuple):
     a leading lane axis on every tensor and one generator a lane."""
 
     params: Dict[str, Any]       # nested dict of tensors (the global model)
-    server_opt_state: Any        # over the flat [P] (or [L, P]) global model
+    server_opt_state: Any        # over the flat [P] / [L, P] model, or
+                                 # the param tree (the serial plan)
     util: sel_lib.UtilityState
     kctl: sel_lib.KControllerState
     round_idx: int
@@ -147,11 +161,17 @@ def draw_round(gens: Sequence[torch.Generator], n: int, local_steps: int,
         out.fault_u[i].uniform_(generator=gen)
         out.fault_steps[i].random_(0, local_steps, generator=gen)
         out.dp_noise[i].normal_(generator=gen)
+    return out._replace(sel_noise=_selection_variate(out.sel_noise,
+                                                     selection))
+
+
+def _selection_variate(u: torch.Tensor, selection: str) -> torch.Tensor:
+    """Uniforms ``u`` as the variate ``selection`` consumes
+    (``NOISE_KIND``): standard Gumbel, or the uniforms themselves."""
     if sel_lib.NOISE_KIND[selection] == "gumbel":
         tiny = torch.finfo(torch.float32).tiny
-        u = torch.clamp(out.sel_noise, min=tiny)
-        return out._replace(sel_noise=-torch.log(-torch.log(u)))
-    return out
+        return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+    return u
 
 
 def init_round_state(params, fl: FLConfig, gen: torch.Generator,
@@ -172,14 +192,18 @@ def init_round_state(params, fl: FLConfig, gen: torch.Generator,
 
 
 def _opt_map(fn: Callable, *opt_states):
-    """``fn`` over the tensors of server optimizer states of one structure
-    (a lane's Adam step count is its own, as each lane's is in the
-    reference's vmap: a gated lane does not step)."""
+    """``fn`` over the tensors of server optimizer states (or param trees)
+    of one structure: tensors, dicts, lists and ``AdamState`` (a lane's
+    Adam step count is its own, as each lane's is in the reference's vmap:
+    a gated lane does not step)."""
     first = opt_states[0]
     if isinstance(first, torch.Tensor):
         return fn(*opt_states)
-    if isinstance(first, AdamState):
-        return AdamState(*(fn(*ts) for ts in zip(*opt_states)))
+    if isinstance(first, dict):
+        return {k: _opt_map(fn, *(s[k] for s in opt_states)) for k in first}
+    if isinstance(first, (list, AdamState)):
+        vals = [_opt_map(fn, *ts) for ts in zip(*opt_states)]
+        return AdamState(*vals) if isinstance(first, AdamState) else vals
     return first  # () of plain SGD
 
 
@@ -268,22 +292,24 @@ def _dp_sigma(fl: FLConfig, pr: FLParams):
     return dp_lib.gaussian_sigma_rt(pr.dp_epsilon, fl.dp_delta, pr.dp_clip)
 
 
-def _gate_server_update(update_gate, new_flat, new_server_state,
-                        flat_params, server_state):
+def _gate_server_update(update_gate, new_params, new_server_state,
+                        params, server_state):
     """Budget-exhaustion masking: a lane whose ``update_gate`` is ≤ 0 keeps
     its global params AND server-optimizer state bitwise (the old values
     are selected, not a zero update added), as a deployment that halts at
     exhaustion.  ``update_gate`` is an ``[L]`` 0/1 device tensor, so a lane
-    can flip without a host read; ``None`` leaves the step ungated."""
+    can flip without a host read (a 0-d one for the serial round's single
+    run); ``None`` leaves the step ungated.  Params are flat lanes or a
+    tree."""
     if update_gate is None:
-        return new_flat, new_server_state
+        return new_params, new_server_state
     live = update_gate > 0
 
     def keep(new, old):
-        return torch.where(live.reshape(live.shape + (1,) * (new.dim() - 1)),
-                           new, old)
+        return torch.where(live.reshape(
+            live.shape + (1,) * (new.dim() - live.dim())), new, old)
 
-    return (keep(new_flat, flat_params),
+    return (_opt_map(keep, new_params, params),
             _opt_map(keep, new_server_state, server_state))
 
 
@@ -771,3 +797,296 @@ def make_cohort_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
         return new_state, metrics
 
     return cohort_step
+
+
+# ---------------------------------------------------------------------------
+# client_serial plan (the LM path: one client slot at a time, param trees)
+# ---------------------------------------------------------------------------
+
+
+def value_and_grad(loss_fn: Callable):
+    """``jax.value_and_grad`` of ``loss_fn(params, batch)`` over a param
+    tree, by autograd: ``(loss, grads)``, each grad in its leaf's dtype
+    (zeros for a leaf the loss does not reach).  The params need not
+    require grad; detached leaves that do are made here, so the caller's
+    tensors are never marked."""
+    def vag(params, batch):
+        with torch.enable_grad():
+            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            loss = loss_fn(p, batch)
+            leaves = tree_leaves(p)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        by_leaf = {id(t): g for t, g in zip(leaves, grads)}
+        return loss.detach(), tree_map(lambda t: by_leaf[id(t)], p)
+
+    return vag
+
+
+def microbatched_value_and_grad(loss_fn: Callable, grad_accum: int):
+    """Gradient accumulation: batch leaves ``[B, ...]`` are split into
+    ``grad_accum`` microbatches run in order; losses and grads are summed
+    in f32, scaled by ``1/grad_accum`` and the grads cast back to each
+    param's dtype (the reference's ``lax.scan``)."""
+    vag = value_and_grad(loss_fn)
+    if grad_accum <= 1:
+        return vag
+
+    def accumulated(params, batch):
+        mb = tree_map(lambda x: x.reshape(
+            (grad_accum, x.shape[0] // grad_accum) + tuple(x.shape[1:])),
+            batch)
+        first = tree_leaves(params)[0]
+        loss_acc = torch.zeros((), device=first.device)
+        g_acc = tree_map(lambda p: torch.zeros(p.shape, device=p.device),
+                         params)
+        for i in range(grad_accum):
+            loss, g = vag(params, tree_map(lambda x: x[i], mb))
+            tree_map(lambda a, x: a.add_(x.float()), g_acc, g)
+            loss_acc = loss_acc + loss
+        scale = 1.0 / grad_accum
+        return loss_acc * scale, tree_map(
+            lambda gg, p: (gg * scale).to(p.dtype), g_acc, params)
+
+    return accumulated
+
+
+def _local_train_tree_fn(loss_fn: Callable, grad_accum: int = 1):
+    """One client's local SGD on a param tree (the reference's
+    ``_local_train_fn``): every local step runs, and ``torch.where`` keeps
+    the steps at or past ``effective_steps`` (checkpoint-recovery
+    truncation) from landing, so params stay in their storage dtype.
+    Returns ``(delta, loss at the first step, loss at the last)``: the f32
+    update as one flat ``[P]`` buffer in leaf order, the row the DP kernel
+    reads (:func:`unflatten_rows` gives its tree of views)."""
+    vag = microbatched_value_and_grad(loss_fn, grad_accum)
+
+    def local_train(global_params, step_batches, effective_steps, lr):
+        opt = tree_sgd(lr)
+        p = global_params
+        losses = []
+        for s in range(tree_leaves(step_batches)[0].shape[0]):
+            loss, grads = vag(p, tree_map(lambda v: v[s], step_batches))
+            new_p, _ = opt.update(grads, (), p)
+            del grads
+            live = s < effective_steps
+            p = tree_map(lambda a, b: torch.where(live, b, a), p, new_p)
+            del new_p
+            losses.append(loss)
+        leaves = tree_leaves(global_params)
+        flat = torch.empty(sum(t.numel() for t in leaves),
+                           device=leaves[0].device)
+        # f32 copy, then the f32 subtraction: a.f32 − b.f32 with no f32
+        # temporaries of the tree
+        tree_map(lambda d, a, b: d.copy_(a).sub_(b),
+                 unflatten_rows(flat, global_params), p, global_params)
+        return flat, losses[0], losses[-1]
+
+    return local_train
+
+
+class SerialDraws(NamedTuple):
+    """One serial round's random variates (the reference's key splits, as
+    values): ``avail_u [n]`` and ``sel_noise [n]`` as in
+    :class:`RoundDraws`; ``fail_u [K]`` and ``fail_step [K]`` the slots'
+    i.i.d. failure uniforms and steps (``fault/process.py``
+    ``iid_fail_times``); ``dp_noise [K, P]`` standard normals in leaf
+    order, or ``None``: the round then draws each slot's noise from the
+    state's generator into one reusable ``[P]`` buffer as it privatises
+    that slot (at an LM's width a ``[K, P]`` bundle would not fit)."""
+
+    avail_u: torch.Tensor
+    sel_noise: torch.Tensor
+    fail_u: torch.Tensor
+    fail_step: torch.Tensor
+    dp_noise: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "SerialDraws":
+        return SerialDraws(*(None if t is None else t.to(device)
+                             for t in self))
+
+
+def draw_serial_round(gen: torch.Generator, n: int, slots: int,
+                      local_steps: int, selection: str) -> SerialDraws:
+    """Draw a serial round's :class:`SerialDraws` (without ``dp_noise``)
+    from ``gen`` on its device, in a fixed order: availability, selection
+    variate, failure uniforms, failure steps.  The slots' DP noise follows
+    in the round, slot by slot."""
+    dev = gen.device
+    avail_u = torch.empty(n, device=dev).uniform_(generator=gen)
+    sel_u = torch.empty(n, device=dev).uniform_(generator=gen)
+    fail_u = torch.empty(slots, device=dev).uniform_(generator=gen)
+    fail_step = torch.empty(slots, dtype=torch.long, device=dev).random_(
+        0, local_steps, generator=gen)
+    return SerialDraws(avail_u, _selection_variate(sel_u, selection),
+                       fail_u, fail_step)
+
+
+def init_serial_state(params, fl: FLConfig, gen: torch.Generator,
+                      n_clients=None, **util_kw) -> RoundState:
+    """:func:`init_round_state` for the ``client_serial`` plan: the server
+    optimizer's state is over the param tree (``params`` stay a tree in
+    their storage dtype, never flattened)."""
+    n = n_clients or fl.n_clients
+    server = make_tree_server_optimizer(fl.server_opt, fl.server_lr)
+    return RoundState(
+        params=params,
+        server_opt_state=server.init(params),
+        util=sel_lib.init_utility_state(n, gen=gen, **util_kw),
+        kctl=sel_lib.init_k_state(fl, device=gen.device),
+        round_idx=0,
+        rng=gen,
+        fault=fault_proc.init_fault_state(n, device=gen.device),
+    )
+
+
+def make_serial_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
+                      ckpt_every_steps: int = 2,
+                      dp_use_kernel: Optional[bool] = None,
+                      grad_accum: int = 1, delta_dtype=None, device=None):
+    """Build ``round_step(state, batches, params=None, update_gate=None, *,
+    draws=None) -> (state, metrics)``, the ``client_serial`` plan for one
+    run on ``device`` (``cuda`` unless ``"cpu"`` is asked).
+
+    ``state``: a :class:`RoundState` from :func:`init_serial_state` (params
+    a tree in their storage dtype).  batches: a dict of ``[K, local_steps,
+    ...]`` tensors (``{"tokens", "labels"}`` for an LM, ``{"x", "y"}`` for
+    a detector), the data of the K = ``fl.serial_clients_in_step`` client
+    slots that the host filled; slot i is the i-th client of the stable
+    top-K of ``sel_mask + utility·1e-6`` (ties to the lower index, as
+    ``lax.top_k``).  ``params``: runtime :class:`FLParams` (``None`` uses
+    ``fl``'s).  ``update_gate``: a 0-d 0/1 tensor withholding the release,
+    or ``None``.  ``draws``: a :class:`SerialDraws`, or ``None`` to draw
+    from ``state.rng``.
+
+    Failures are the historical i.i.d. draw per SLOT (``fault/process.py``
+    ``iid_fail_times``); the fault state is carried unchanged.  Each slot
+    is trained (``grad_accum`` microbatches), privatised and streamed into
+    the accumulator (f32, or ``delta_dtype``).  Clipped DP runs on the
+    slot's flat ``[P]`` update (``kernels/ops.py`` ``dp_clip_noise``: on
+    the card K1a + K1b on a ``[1, P]`` row, on the CPU the plain version);
+    the paper mode goes leaf by leaf (``privatize_update``).  The route
+    follows the device: ``dp_use_kernel`` None or True takes it, and False,
+    the reference's switch to its plain version, is refused for a round
+    on the card, whose tensors always run the kernels.  Per-client metrics are
+    scattered back from the slots; ``failed`` and ``update_norms`` are per
+    slot ``[K]``."""
+    if dp_use_kernel is False and torch.device(
+            "cuda" if device is None else device).type == "cuda":
+        raise ValueError("dp_use_kernel=False asks for the plain DP version, "
+                         "but a round on the card always runs the kernels")
+    device = resolve_device(device)
+    strategy = sel_lib.get_strategy(fl.selection)
+    local_train = _local_train_tree_fn(loss_fn, grad_accum)
+    slots = int(fl.serial_clients_in_step)
+    k_max = int(fl.k_max or n_clients)
+    default_params = fl_params(fl)
+
+    def round_step(state: RoundState, batches,
+                   params: Optional[FLParams] = None,
+                   update_gate: Optional[torch.Tensor] = None, *,
+                   draws: Optional[SerialDraws] = None
+                   ) -> Tuple[RoundState, RoundMetrics]:
+        leaves = tree_leaves(state.params)
+        if leaves[0].device != device:
+            raise ValueError(f"state is on {leaves[0].device}, the round "
+                             f"step was built for {device}")
+        n_params = sum(t.numel() for t in leaves)
+        pr = default_params if params is None else params
+        server = make_tree_server_optimizer(fl.server_opt, pr.server_lr)
+        sigma = _dp_sigma(fl, pr) if fl.dp_enabled else 0.0
+        local_steps = tree_leaves(batches)[0].shape[1]
+        if draws is None:
+            draws = draw_serial_round(state.rng, n_clients, slots,
+                                      local_steps, fl.selection)
+
+        with record_function("selection"):
+            avail = (draws.avail_u < as_f32(pr.avail_prob,
+                                            draws.avail_u)).float()
+            utility = sel_lib.compute_utility(state.util, fl,
+                                              fault_w=pr.fault_util_w)
+            k_eff = torch.clamp(
+                state.kctl.k if fl.adaptive_k
+                else torch.full((), float(fl.clients_per_round),
+                                device=device), max=float(slots))
+            sel_mask = strategy(draws.sel_noise, state.util, utility, avail,
+                                k_eff, min(slots, k_max), pr.explore_noise)
+            # slot i <- i-th selected client (the host fed matching data)
+            sel_idx = torch.argsort(-(sel_mask + utility * 1e-6),
+                                    stable=True)[:slots]
+            slot_live = (torch.arange(slots, device=device) < k_eff).float()
+
+        fail_at = fault_proc.iid_fail_times(
+            draws.fail_u, draws.fail_step,
+            as_f32(pr.failure_prob, draws.fail_u), local_steps)
+        eff_steps, failed = _effective_steps(fail_at, local_steps,
+                                             ckpt_every_steps,
+                                             fl.fault_tolerance)
+
+        acc = agg.stream_init(state.params, delta_dtype or torch.float32)
+        pre_loss, post_loss, norms = (torch.zeros(slots, device=device)
+                                      for _ in range(3))
+        noise = noise_buf = None
+        for slot in range(slots):
+            with record_function("local_train"):
+                flat, pre, post = local_train(
+                    state.params, tree_map(lambda v: v[slot], batches),
+                    eff_steps[slot], pr.local_lr)
+            with record_function("dp_privatize"):
+                if fl.dp_enabled:
+                    if draws.dp_noise is not None:
+                        noise = draws.dp_noise[slot]
+                    else:
+                        if noise_buf is None:
+                            noise_buf = torch.empty(n_params, device=device)
+                        noise = noise_buf.normal_(generator=state.rng)
+                if fl.dp_enabled and fl.dp_mode == "clipped":
+                    flat, norm = kops.dp_clip_noise(flat, noise, pr.dp_clip,
+                                                    sigma)
+                    delta = unflatten_rows(flat, state.params)
+                elif fl.dp_enabled:
+                    delta, norm = dp_lib.privatize_update(
+                        unflatten_rows(flat, state.params), noise,
+                        mode=fl.dp_mode, clip=pr.dp_clip, sigma=sigma)
+                else:
+                    delta = unflatten_rows(flat, state.params)
+                    norm = dp_lib.global_norm(delta)
+            with record_function("aggregate"):
+                m = slot_live[slot] * (eff_steps[slot] > 0)
+                acc = agg.stream_accumulate(acc, delta, m, 1.0)
+            del flat, delta
+            pre_loss[slot], post_loss[slot], norms[slot] = pre, post, norm
+        del noise, noise_buf
+
+        with record_function("aggregate"):
+            agg_delta = agg.stream_finalize(acc)
+            del acc
+            new_params, new_server_state = agg.apply_server_update_tree(
+                server, state.params, state.server_opt_state, agg_delta)
+            del agg_delta
+            new_params, new_server_state = _gate_server_update(
+                update_gate, new_params, new_server_state, state.params,
+                state.server_opt_state)
+
+        contrib = slot_live * (eff_steps > 0)
+        denom = torch.clamp(torch.sum(contrib), min=1.0)
+        global_loss = torch.sum(post_loss * contrib) / denom
+        # scatter slot losses back to the selected clients' entries (the
+        # slots' clients are distinct)
+        zeros = torch.zeros(n_clients, device=device)
+        full_mask = zeros.index_add(0, sel_idx, contrib)
+        full_pre = zeros.index_add(0, sel_idx, pre_loss * contrib)
+        full_post = zeros.index_add(0, sel_idx, post_loss * contrib)
+        util = sel_lib.update_utility_state(state.util, full_mask, full_pre,
+                                            full_post, fl)
+        kctl = sel_lib.update_k(state.kctl, global_loss, fl,
+                                tol=pr.k_tol, patience=pr.k_patience)
+
+        new_state = RoundState(new_params, new_server_state, util, kctl,
+                               state.round_idx + 1, state.rng, state.fault)
+        metrics = RoundMetrics(full_mask, avail, failed.float(), full_pre,
+                               full_post, global_loss, k_eff, norms,
+                               torch.ones(n_clients, device=device))
+        return new_state, metrics
+
+    return round_step

@@ -39,6 +39,16 @@
 //   a CUDA graph.  (The TPU kernel carried one SMEM scalar across its
 //   sequential grid; here a row's C partials meet in the cluster, so no
 //   second pass is needed.)
+// * sumsq, split plan (sumsq_plan() picks it when even C = 8 leaves R·8
+//   blocks short of the SMs and a block would take over 2^20 columns: one
+//   or a few rows as wide as a whole language model, P = 1.8·10^9 for
+//   granite-3-8b's update at 8 layers, where 8 SMs would read 7.2 GB).  A
+//   row is cut into S ranges of `chunk` columns (S·R ≈ 4 blocks a SM), each
+//   summed by one block exactly as a cluster block sums its range, and
+//   written to partials[r·S + b]; a second launch, one block a row, adds a
+//   row's S partials (thread t takes t, t + 256, ... in order, then the
+//   block's trees).  Both orders are fixed, so the result is bitwise
+//   repeatable; the S·R floats of workspace come from the wrapper.
 // * scale_noise: a 2-D grid, y over rows and x over column tiles; each thread
 //   reads its row's scale once, and its row's σ once when σ is per row (a
 //   sweep's stacked lanes, each with its own ε: R = L·N rows, up to
@@ -64,6 +74,7 @@ constexpr int kSumsqThreads = 256;
 constexpr int kUnroll = 4;      // float4 loads a thread issues together
 constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kMaxRows = 65535;
+constexpr int kMaxSplit = 1 << 16;  // split-plan blocks a row
 constexpr int kScaleThreads = 256;
 constexpr int kScaleItems = 4;  // elements per thread per column tile
 
@@ -86,18 +97,68 @@ __device__ __forceinline__ float sq4(float4 v, float acc) {
   return fmaf(v.w, v.w, acc);
 }
 
-__global__ void __launch_bounds__(kSumsqThreads)
-sumsq_rows_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
-                          int64_t P, int64_t chunk) {
-  const int64_t lo = min(static_cast<int64_t>(blockIdx.x) * chunk, P);
-  const int64_t n = min(chunk, P - lo);
-  const float* p = x + static_cast<int64_t>(blockIdx.y) * P + lo;
+// the block's sum of its threads' `sum`s: a warp-shuffle tree, then a tree
+// of the warp partials in warp 0; the block's total is thread 0's
+__device__ __forceinline__ float block_reduce(float sum) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_down_sync(0xffffffffu, sum, off);
+
+  __shared__ float warp_sums[kSumsqThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = sum;
+  __syncthreads();
+  if (warp == 0) {
+    sum = lane < kSumsqThreads / 32 ? warp_sums[lane] : 0.0f;
+#pragma unroll
+    for (int off = kSumsqThreads / 64; off > 0; off >>= 1)
+      sum += __shfl_down_sync(0xffffffffu, sum, off);
+  }
+  return sum;
+}
+
+// Σ p[i]² over [0, n) by one block (p 4-byte aligned): a scalar head up to
+// the first 16-byte boundary, float4 loads, kUnroll issued together per
+// thread before any is used, a scalar tail; the block's total is thread 0's
+__device__ __forceinline__ float block_sumsq(const float* __restrict__ p,
+                                             int64_t n) {
   // elements before the first 16-byte boundary (x is 4-byte aligned)
   const int64_t misaligned = reinterpret_cast<uintptr_t>(p) % 16 / 4;
   const int64_t head = min((4 - misaligned) % 4, n);
   const int64_t n4 = (n - head) / 4;
   const int64_t tail = n - head - 4 * n4;
   const float4* p4 = reinterpret_cast<const float4*>(p + head);
+  const int tid = threadIdx.x;
+
+  float acc[kUnroll] = {};
+  if (tid < head) acc[0] = p[tid] * p[tid];
+  for (int64_t i = tid; i < n4; i += kSumsqThreads * kUnroll) {
+    float4 v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t j = i + static_cast<int64_t>(u) * kSumsqThreads;
+      v[u] = j < n4 ? __ldg(p4 + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc[u] = sq4(v[u], acc[u]);
+  }
+  if (tid < tail) {
+    const float v = p[head + 4 * n4 + tid];
+    acc[1] = fmaf(v, v, acc[1]);
+  }
+  float sum = acc[0];
+#pragma unroll
+  for (int u = 1; u < kUnroll; ++u) sum += acc[u];
+  return block_reduce(sum);
+}
+
+__global__ void __launch_bounds__(kSumsqThreads)
+sumsq_rows_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
+                          int64_t P, int64_t chunk) {
+  const int64_t lo = min(static_cast<int64_t>(blockIdx.x) * chunk, P);
+  const int64_t n = min(chunk, P - lo);
+  const float* p = x + static_cast<int64_t>(blockIdx.y) * P + lo;
   const int tid = threadIdx.x;
   const unsigned rank = blockIdx.x;  // the cluster is the grid's x extent
   const bool cluster = gridDim.x > 1;
@@ -120,40 +181,7 @@ sumsq_rows_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
     asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
   }
 
-  float acc[kUnroll] = {};
-  if (tid < head) acc[0] = p[tid] * p[tid];
-  for (int64_t i = tid; i < n4; i += kSumsqThreads * kUnroll) {
-    float4 v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t j = i + static_cast<int64_t>(u) * kSumsqThreads;
-      v[u] = j < n4 ? __ldg(p4 + j) : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) acc[u] = sq4(v[u], acc[u]);
-  }
-  if (tid < tail) {
-    const float v = p[head + 4 * n4 + tid];
-    acc[1] = fmaf(v, v, acc[1]);
-  }
-  float sum = acc[0];
-#pragma unroll
-  for (int u = 1; u < kUnroll; ++u) sum += acc[u];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    sum += __shfl_down_sync(0xffffffffu, sum, off);
-
-  __shared__ float warp_sums[kSumsqThreads / 32];
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  if (lane == 0) warp_sums[warp] = sum;
-  __syncthreads();
-  if (warp == 0) {
-    sum = lane < kSumsqThreads / 32 ? warp_sums[lane] : 0.0f;
-#pragma unroll
-    for (int off = kSumsqThreads / 64; off > 0; off >>= 1)
-      sum += __shfl_down_sync(0xffffffffu, sum, off);
-  }
+  const float sum = block_sumsq(p, n);
   if (!cluster) {  // C = 1: the block is the row
     if (tid == 0) out[blockIdx.y] = sum;
     return;
@@ -181,6 +209,32 @@ sumsq_rows_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
   float row = sum;
   for (unsigned r = 1; r < gridDim.x; ++r) row += parts[r];
   out[blockIdx.y] = row;
+}
+
+// split plan, pass 1: grid (S, R); block b of row r sums its columns
+// [b·chunk, (b + 1)·chunk) ∩ [0, P) into partials[r·S + b]
+__global__ void __launch_bounds__(kSumsqThreads)
+sumsq_rows_split_kernel(const float* __restrict__ x,
+                        float* __restrict__ partials, int64_t P,
+                        int64_t chunk) {
+  const int64_t lo = min(static_cast<int64_t>(blockIdx.x) * chunk, P);
+  const int64_t n = min(chunk, P - lo);
+  const float sum =
+      block_sumsq(x + static_cast<int64_t>(blockIdx.y) * P + lo, n);
+  if (threadIdx.x == 0)
+    partials[static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x] = sum;
+}
+
+// split plan, pass 2: one block a row adds the row's S partials, thread t
+// taking t, t + 256, ... in order, then the block's trees
+__global__ void __launch_bounds__(kSumsqThreads)
+sumsq_rows_finish_kernel(const float* __restrict__ partials,
+                         float* __restrict__ out, int split) {
+  const float* p = partials + static_cast<int64_t>(blockIdx.x) * split;
+  float sum = 0.0f;
+  for (int i = threadIdx.x; i < split; i += kSumsqThreads) sum += p[i];
+  sum = block_reduce(sum);
+  if (threadIdx.x == 0) out[blockIdx.x] = sum;
 }
 
 // sigma_rows: one σ a row, or null for the one `sigma` of every row
@@ -233,6 +287,27 @@ extern "C" int dpcn_sumsq_rows(const float* x, float* out, int64_t R,
   const cudaError_t err =
       cudaLaunchKernelEx(&config, sumsq_rows_cluster_kernel, x, out, P, chunk);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the split plan: S = `split` blocks a row of `chunk` columns each, as
+// sumsq_plan() gives them; `partials` holds R·S floats
+extern "C" int dpcn_sumsq_rows_split(const float* x, float* partials,
+                                     float* out, int64_t R, int64_t P,
+                                     int split, int64_t chunk,
+                                     cudaStream_t stream) {
+  const bool ok = R >= 1 && R <= kMaxRows && P >= 0 && split >= 2 &&
+                  split <= kMaxSplit &&
+                  chunk == ((P + split - 1) / split + 3) / 4 * 4;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  sumsq_rows_split_kernel<<<dim3(static_cast<unsigned>(split),
+                                 static_cast<unsigned>(R)),
+                            kSumsqThreads, 0, stream>>>(x, partials, P,
+                                                        chunk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sumsq_rows_finish_kernel<<<static_cast<unsigned>(R), kSumsqThreads, 0,
+                             stream>>>(partials, out, split);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,10 +10,12 @@ Replaces the two Pallas TPU kernels of ``repro/kernels/dp_clip_noise.py``:
 
 The source is ``csrc/dp_clip_noise.cu``, built and loaded by ``_nvcc.py``.
 Both kernels are memory-bound; the source says how they are laid out.
-:func:`sumsq_plan` chooses the ``sumsq_rows`` launch (blocks a row, in one
-thread-block cluster, and the columns of each) in plain Python, and
+:func:`sumsq_plan` chooses the ``sumsq_rows`` launch in plain Python: the
+blocks a row, in one thread-block cluster, and the columns of each; or,
+for a few rows as wide as a language model, the split plan (many blocks a
+row, their partials added by a second fixed-order pass).
 :func:`sumsq_segments` gives the loads each block makes, so that the CPU
-tests can follow the kernel's order; the C entry point checks the plan.
+tests can follow the kernel's order; the C entry points check the plan.
 
 A wrapper given a CPU tensor runs the plain version in ``kernels/ref.py``;
 given a CUDA tensor it launches its kernel or raises.  Nothing falls back.
@@ -30,12 +32,19 @@ from repro_torch.kernels import _nvcc, ref
 
 MAX_ROWS = 65535  # gridDim.y of both launches
 CLUSTERS = (1, 2, 4, 8)  # blocks a row: the portable cluster sizes
+# the split plan: taken when R·8 blocks leave SMs idle and a cluster block
+# would read more than SPLIT_MIN_CHUNK columns; it aims at SPLIT_BLOCKS
+# blocks in all (4 a SM, each 256 threads with 16 float4 loads in flight)
+SPLIT_MIN_CHUNK = 1 << 20
+SPLIT_BLOCKS = 4 * _nvcc.SMS
 
 LAUNCHES = {"sumsq_rows": 0, "scale_noise_rows": 0}
 
 _SIGNATURES = {
     "dpcn_sumsq_rows": (_nvcc.PTR, _nvcc.PTR, _nvcc.I64, _nvcc.I64,
                         _nvcc.I32, _nvcc.I64, _nvcc.PTR),
+    "dpcn_sumsq_rows_split": (_nvcc.PTR, _nvcc.PTR, _nvcc.PTR, _nvcc.I64,
+                              _nvcc.I64, _nvcc.I32, _nvcc.I64, _nvcc.PTR),
     "dpcn_scale_noise_rows": (_nvcc.PTR, _nvcc.PTR, _nvcc.PTR, _nvcc.F32,
                               _nvcc.PTR, _nvcc.I64, _nvcc.I64, _nvcc.PTR),
     "dpcn_scale_noise_rows_sigma": (_nvcc.PTR, _nvcc.PTR, _nvcc.PTR,
@@ -46,21 +55,43 @@ _SIGNATURES = {
 
 class SumsqPlan(NamedTuple):
     """``sumsq_rows``' launch: ``cluster`` blocks a row (one thread-block
-    cluster), block ``rank`` taking columns ``[rank·chunk, (rank+1)·chunk)``
-    of its row; grid (cluster, R)."""
+    cluster; grid (cluster, R)), or with ``split`` > 1 the split plan,
+    ``split`` blocks a row (grid (split, R)) whose partials a second launch
+    adds; block ``rank`` takes columns ``[rank·chunk, (rank+1)·chunk)`` of
+    its row."""
     cluster: int
     chunk: int
+    split: int = 1
+
+    @property
+    def blocks(self) -> int:
+        """Blocks a row."""
+        return self.cluster * self.split
+
+
+def _chunk(p: int, blocks: int) -> int:
+    """``ceil(p / blocks)`` rounded up to a multiple of 4, so every block
+    of a row starts at the row's alignment."""
+    return -(-(-(-p // blocks)) // 4) * 4
+
+
+def cluster_plan(r: int, p: int) -> SumsqPlan:
+    """The fewest blocks a row (1, 2, 4 or 8: one thread-block cluster) for
+    which ``r`` rows cover the H100's SMs (``_nvcc.SMS``; 8 when none
+    does): C = 4 at the paper's R = 40, C = 1 from R = 132 up."""
+    cluster = next((c for c in CLUSTERS if r * c >= _nvcc.SMS), CLUSTERS[-1])
+    return SumsqPlan(cluster, _chunk(p, cluster))
 
 
 def sumsq_plan(r: int, p: int) -> SumsqPlan:
-    """The fewest blocks a row (1, 2, 4 or 8) for which ``r`` rows cover the
-    H100's SMs (``_nvcc.SMS``; 8 when none does): C = 4 at the paper's
-    R = 40, C = 1 from R = 132 up.  ``chunk`` is ``ceil(p / C)`` rounded up
-    to a multiple of 4, so every block of a row starts at the row's
-    alignment."""
-    cluster = next((c for c in CLUSTERS if r * c >= _nvcc.SMS), CLUSTERS[-1])
-    per_block = -(-p // cluster)
-    return SumsqPlan(cluster, -(-per_block // 4) * 4)
+    """:func:`cluster_plan`, unless even 8 blocks a row leave SMs idle and
+    each would read over ``SPLIT_MIN_CHUNK`` columns: then the split plan,
+    ``ceil(SPLIT_BLOCKS / r)`` blocks a row (528 for one row)."""
+    plan = cluster_plan(r, p)
+    if r * plan.cluster < _nvcc.SMS and plan.chunk > SPLIT_MIN_CHUNK:
+        split = -(-SPLIT_BLOCKS // r)
+        return SumsqPlan(1, _chunk(p, split), split)
+    return plan
 
 
 def sumsq_segments(plan: SumsqPlan, p: int,
@@ -71,7 +102,7 @@ def sumsq_segments(plan: SumsqPlan, p: int,
     offset ``row_start`` of a 16-byte-aligned buffer (only its value mod 4
     matters).  Empty blocks give (0, 0, 0)."""
     out = []
-    for rank in range(plan.cluster):
+    for rank in range(plan.blocks):
         lo = min(rank * plan.chunk, p)
         n = min(plan.chunk, p - lo)
         head = min((4 - (row_start + lo) % 4) % 4, n)
@@ -117,17 +148,31 @@ def sumsq_rows(x: torch.Tensor) -> torch.Tensor:
     reduction order: the same input gives the same bits every run."""
     if x.device.type == "cpu":
         return ref.sumsq_rows_ref(x)
+    out = _launch_sumsq(x, sumsq_plan(*x.shape))
+    LAUNCHES["sumsq_rows"] += 1
+    return out
+
+
+def _launch_sumsq(x: torch.Tensor, plan: SumsqPlan) -> torch.Tensor:
+    """``sumsq_rows`` of a CUDA ``x`` on the launch ``plan``, uncounted
+    (the C entry points refuse a plan whose chunk does not tile the row as
+    :func:`_chunk` tiles it)."""
     _require_cuda(x, "sumsq_rows")
     _check_rows("x", x, x.device)
     lib = _load()
     r, p = x.shape
-    plan = sumsq_plan(r, p)
     out = torch.empty(r, dtype=torch.float32, device=x.device)
     stream = _nvcc.stream_of(x)
-    _nvcc.raise_on(lib.dpcn_sumsq_rows(x.data_ptr(), out.data_ptr(), r, p,
-                                       plan.cluster, plan.chunk, stream),
-                   "sumsq_rows")
-    LAUNCHES["sumsq_rows"] += 1
+    if plan.split > 1:
+        partials = torch.empty(r * plan.split, dtype=torch.float32,
+                               device=x.device)
+        err = lib.dpcn_sumsq_rows_split(x.data_ptr(), partials.data_ptr(),
+                                        out.data_ptr(), r, p, plan.split,
+                                        plan.chunk, stream)
+    else:
+        err = lib.dpcn_sumsq_rows(x.data_ptr(), out.data_ptr(), r, p,
+                                  plan.cluster, plan.chunk, stream)
+    _nvcc.raise_on(err, "sumsq_rows")
     return out
 
 

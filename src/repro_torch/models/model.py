@@ -2,10 +2,10 @@
 configs.
 
 ``build(cfg)`` returns a :class:`Model` exposing ``init`` / ``axes`` /
-``param_shapes`` / ``forward`` / ``decode_step`` / ``init_cache``.
-Encoder-decoder configs wait for the encoder-decoder slice and configs
-with a multimodal frontend for the VLM slice; both raise.  ``loss`` and
-``input_specs`` wait for the training and dry-run slices.
+``param_shapes`` / ``loss`` / ``forward`` / ``decode_step`` /
+``init_cache``.  Encoder-decoder configs wait for the encoder-decoder slice
+and configs with a multimodal frontend for the VLM slice; both raise.
+``input_specs`` waits for the dry-run slice.
 """
 from __future__ import annotations
 
@@ -87,6 +87,15 @@ class Model:
         """The param tree as ``meta`` tensors: shapes and dtypes, nothing
         allocated."""
         return T.lm_param_shapes(self.cfg)
+
+    # -- training -----------------------------------------------------------
+    def loss(self, params, batch, *, remat: str = "full", impl: str = "ref",
+             remat_group: int = 1) -> torch.Tensor:
+        """Next-token cross-entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (both [B,S]; -100 ignored) in mode ``"train"``
+        (``transformer.lm_loss``)."""
+        return T.lm_loss(params, self.cfg, batch["tokens"], batch["labels"],
+                         remat=remat, impl=impl, remat_group=remat_group)
 
     # -- inference ----------------------------------------------------------
     def forward(self, params, batch, *, impl: str = "ref",

@@ -5,16 +5,28 @@ Layers are stacked per *segment* (``ModelConfig.segments``): a segment is
 a super-block of block kinds repeated N times, and its params are stacked
 along a leading "layers" axis, as the reference stacks them for its
 ``lax.scan``, so weights carry across as a tree map.  Here the segment
-runs as a Python loop over its repeats, each indexing views of the stacked
-params (and of the stacked caches in decode).  The block kinds ``moe``,
-``rec`` and ``ssd`` wait for their slices; the ``train`` mode, remat and
-``remat_group`` wait for the training slice.
+runs as a Python loop over its repeats, each on views of the stacked
+params (``unbind``: one backward stacks the layers' grads) and, in decode,
+of the stacked caches.
+
+Mode ``"train"`` runs the stack under ``remat`` (the reference's
+``jax.checkpoint`` of its scan body): ``"full"`` checkpoints each repeat,
+or each group of ``remat_group`` repeats when that divides the segment
+(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` checkpoints the
+same regions but saves the outputs of the products without batch dims
+(``aten.mm``/``addmm``: the dense projections) and recomputes the rest,
+the counterpart of ``dots_with_no_batch_dims_saveable``.  ``lm_loss`` is
+the next-token cross-entropy.  The block kinds ``moe``, ``rec`` and
+``ssd`` wait for their slices.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
@@ -30,7 +42,11 @@ WAITING_KINDS = {
     "rec": "the hybrid slice (rglru decode step and cache)",
     "ssd": "the SSD slice (ssd blocks and their decode step)",
 }
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
+REMATS = ("none", "full", "dots")
+# the products "dots" saves: those without batch dims (the dense
+# projections); attention's batched einsums (bmm) are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def padded_vocab(cfg) -> int:
@@ -137,6 +153,15 @@ def _index(tree, r: int):
     return tree[r]
 
 
+def _unbind(tree, reps: int):
+    """The ``reps`` repeats of a stacked tree of dicts, as a list of trees
+    of views."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, reps) for k, v in tree.items()}
+        return [{k: v[r] for k, v in per_key.items()} for r in range(reps)]
+    return list(torch.unbind(tree, 0))
+
+
 def stack_cache(cfg, batch: int, cache_len: int, window_override=None,
                 device=None):
     """Caches mirroring the segment structure (stacked over repeats)."""
@@ -152,24 +177,56 @@ def stack_cache(cfg, batch: int, cache_len: int, window_override=None,
     return out
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, remat: str):
+    """``fn`` under the ``remat`` policy (mode ``"train"``)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _dots_policy))
+
+
 def apply_stack(stack_params, cfg, x, positions, *, mode: str, caches=None,
                 index: Optional[int] = None, window_override=None,
-                impl: str = "ref"):
+                impl: str = "ref", remat: str = "none",
+                remat_group: int = 1):
     """Run all segments.  Returns (x, caches): in decode the stacked
-    caches, written in place; else None."""
+    caches, written in place; else None.  ``remat`` and ``remat_group``
+    apply in mode ``"train"`` only, as in the reference."""
     if mode not in MODES:
-        raise NotImplementedError(
-            f"mode {mode!r}: the port runs {MODES}; 'train' (remat, "
-            "remat_group) waits for the training slice")
+        raise ValueError(f"mode {mode!r}: one of {MODES}")
+    if remat not in REMATS:
+        raise ValueError(f"remat {remat!r}: one of {REMATS}")
+    if mode != "train":
+        remat = "none"
     for si, (kinds, reps) in enumerate(cfg.segments()):
-        for r in range(reps):
-            pl = _index(stack_params[si], r)
-            cl = _index(caches[si], r) if mode == "decode" else None
-            for i, kind in enumerate(kinds):
-                x, _ = apply_block(
-                    pl[f"b{i}"], kind, x, positions, cfg, mode=mode,
-                    cache=cl[f"b{i}"] if cl is not None else None,
-                    index=index, window_override=window_override, impl=impl)
+        layers = _unbind(stack_params[si], reps)
+        g = remat_group if (mode == "train" and remat_group > 1
+                            and reps % remat_group == 0) else 1
+
+        def group(h, r0, layers=layers, kinds=kinds, si=si):
+            for r in range(r0, r0 + g):
+                cl = _index(caches[si], r) if mode == "decode" else None
+                for i, kind in enumerate(kinds):
+                    h, _ = apply_block(
+                        layers[r][f"b{i}"], kind, h, positions, cfg,
+                        mode=mode,
+                        cache=cl[f"b{i}"] if cl is not None else None,
+                        index=index, window_override=window_override,
+                        impl=impl)
+            return h
+
+        run = _remat(group, remat)
+        for r0 in range(0, reps, g):
+            x = run(x, r0)
     return x, (caches if mode == "decode" else None)
 
 
@@ -218,21 +275,42 @@ def _positions(cfg, pos: torch.Tensor) -> torch.Tensor:
     return pos
 
 
-def lm_forward(params, cfg, tokens, positions=None, *, window_override=None,
-               impl: str = "ref", last_only: bool = False) -> torch.Tensor:
-    """Prefill forward.  tokens: [B,S] int.  ``last_only``: logits for the
-    final position only (the serving prefill).  Returns logits [B,S,V] or
-    [B,1,V] (the reference also returns an aux loss, zero without MoE)."""
+def lm_forward(params, cfg, tokens, positions=None, *, mode: str = "prefill",
+               remat: str = "none", window_override=None, impl: str = "ref",
+               last_only: bool = False, remat_group: int = 1) -> torch.Tensor:
+    """Train or prefill forward.  tokens: [B,S] int.  ``mode`` is
+    ``"prefill"`` (the port's default: serving) or ``"train"`` (the
+    reference's default), which applies ``remat``/``remat_group``.
+    ``last_only``: logits for the final position only (the serving
+    prefill).  Returns logits [B,S,V] or [B,1,V] (the reference also returns
+    an aux loss, zero without MoE)."""
     x = L.embed(params["embed"], tokens)
     if positions is None:
         b, s = tokens.shape
         positions = _positions(cfg, torch.arange(
             s, dtype=torch.int32, device=tokens.device).expand(b, s))
-    x, _ = apply_stack(params["stack"], cfg, x, positions, mode="prefill",
-                       window_override=window_override, impl=impl)
+    x, _ = apply_stack(params["stack"], cfg, x, positions, mode=mode,
+                       window_override=window_override, impl=impl,
+                       remat=remat, remat_group=remat_group)
     if last_only:
         x = x[:, -1:]
     return lm_logits(params, cfg, x)
+
+
+def lm_loss(params, cfg, tokens, labels, *, remat: str = "full",
+            impl: str = "ref", remat_group: int = 1) -> torch.Tensor:
+    """Next-token cross-entropy over the padded vocab (its padding is
+    masked to −1e30), mean over the labels that are not ``-100``.  labels:
+    [B,S] int.  The reference adds the MoE aux loss, 0 for the ``attn``
+    kind."""
+    logits = lm_forward(params, cfg, tokens, mode="train", remat=remat,
+                        impl=impl, remat_group=remat_group)
+    labels = labels.long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (lse - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def lm_decode_step(params, cfg, token, caches, index: int, positions=None,

@@ -135,8 +135,11 @@ def test_unported_kinds_modes_and_models_raise():
     for kind in ("moe", "rec", "ssd"):
         with pytest.raises(NotImplementedError, match="waits for"):
             t_tr.init_block(None, tc, kind)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        t_tr.apply_stack([], tc, torch.zeros(1, 1, 128), None, mode="train")
+    with pytest.raises(ValueError, match="mode"):
+        t_tr.apply_stack([], tc, torch.zeros(1, 1, 128), None, mode="scan")
+    with pytest.raises(ValueError, match="remat"):
+        t_tr.apply_stack([], tc, torch.zeros(1, 1, 128), None, mode="train",
+                         remat="offload")
     for arch in ("seamless_m4t_large_v2", "qwen2_vl_72b"):
         jc = j_base.get_arch(arch, smoke=True)
         with pytest.raises(NotImplementedError, match="slice"):

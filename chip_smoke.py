@@ -135,11 +135,10 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    argmax of both equal); phi3-mini's prefill at [1, 512] (32 launches,
    32 kernel calls); a 2-layer f32 variant at full
    width, card (K3's f32 row kernel) vs CPU (plain) within 1e-4; K3 at
-   granite's [4, 512, 32 | 8, 128], phi3's [1, 512, 32 | 32, 96],
-   granite's long [1, 4096, 32 | 8, 128] and recurrentgemma's local
-   attention [1, 4096, 16 | 1, 256] with window 2048 (bf16, causal)
-   against its plain version (2e-2, bitwise repeat), timed beside it,
-   SDPA (GQA; a boolean mask for the window) and the bound;
+   granite's [4, 512, 32 | 8, 128], phi3's [1, 512, 32 | 32, 96] and
+   granite's long [1, 4096, 32 | 8, 128] (bf16, causal) against its plain
+   version (2e-2, bitwise repeat), timed beside it, SDPA (GQA) and the
+   bound;
 16. the FL operations layer at the FL CLI's defaults (``python -m
    repro_torch.launch.fl_train``: unsw, 40 clients, ``mlp`` at hidden 64,
    clipped DP at ε 50, 100 rounds; nothing cut): the CLI in-process with
@@ -180,7 +179,33 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    ``sumsq_rows`` on the cluster plan; a 2-layer f32 cut at the same
    widths, 2 serial rounds with DP card vs CPU on the same draws and
    ``grad_accum`` 2 and remat "full"/"dots" against the plain step on the
-   card, within 1e-4.
+   card, within 1e-4;
+18. the recurrent LM families at full width and depth in bf16, after
+   phases 15 and 17 have freed their models: recurrentgemma-9b's
+   ``config()`` (38 layers, 26 ``rec`` and 12 local attention, 9,396,408,320
+   elements, 20.54 GB) built on the card; its prefill step
+   ``forward(impl="flash", last_only=True)`` at [4, 512] and [1, 4096]
+   (where the window of 2048 binds) with both counts set to 0 just before
+   it and 26 ``rglru_scan`` and 12 ``flash_attention`` launches required,
+   its warm walls, profile (busy share; device ms of K2, K3, the cuBLAS
+   GEMMs in f32 (the RG-LRU gates) and in bf16 by kernel name, and the
+   rest) and agreement with ``impl="ref"`` (phase 15's bf16 bar, every
+   argmax equal); the serve path (``generate``:
+   128-token prompts at B = 4, 32 greedy tokens; ms a prefill_scan and a
+   decode step, tok/s, peak) against the prefill step at phase 15's
+   floor; a 2-layer f32 cut (``("rec", "rec")``, no attention: K3 refuses
+   f32 above D = 128) card vs CPU within 1e-4 (the forward at both impls,
+   2 K2 launches at ``"flash"``, 8 decode steps with their caches); K2 at
+   [4, 512, 4096] and [1, 4096, 4096] bitwise its plain version, timed
+   beside it and its bound; K3 at [4, 512, 16 | 1, 256] and [1, 4096, 16
+   | 1, 256] with window 2048 beside SDPA (a boolean mask).  Then
+   mamba2-130m: the serve CLI's ``main(["--arch", "mamba2_130m",
+   "--full"])`` in-process at its defaults (no kernel launched, as the
+   reference's LM routes none), its prefill step at [4, 512], and f32
+   copies at full width card vs CPU (the forward at [2, 128] and 8 decode
+   steps with their caches): 2 layers within 1e-4; all 24 also against
+   the same weights in f64 on the CPU, the card's values held at 4 times
+   the CPU's f32 distance from f64, read in the run.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -2420,16 +2445,13 @@ LM_CARD_CPU = (2, 128)      # B, S of the 2-layer f32 card-vs-CPU forward
 LM_BF16_TOL = 2e-2          # bf16: relative, and of max(1, max|logit|)
 LM_F32_TOL = 1e-4
 # (name, (b, s, hq, hkv, d), window, the prefill whose launches count): K3
-# at granite's and phi3's prefill shapes and granite's long prefill, and at
-# recurrentgemma-9b's local attention (16 | 1 heads of 256, window 2048:
-# on no path yet, its rec model waits for a later slice), causal bf16
+# at granite's and phi3's prefill shapes and granite's long prefill, causal
+# bf16 (recurrentgemma-9b's local attention: phase 18's REC_FA_CASES)
 LM_FA_CASES = (
     ("flash_attention_lm_granite", (4, 512, 32, 8, 128), None, "prefill"),
     ("flash_attention_lm_phi3", (1, 512, 32, 32, 96), None, "phi3_prefill"),
     ("flash_attention_lm_granite_long", (1, 4096, 32, 8, 128), None,
-     "long_prefill"),
-    ("flash_attention_recurrentgemma_local", (1, 4096, 16, 1, 256), 2048,
-     None))
+     "long_prefill"))
 
 
 def lm_close(torch, got, want, tol: float, what: str,
@@ -2458,22 +2480,29 @@ def lm_close(torch, got, want, tol: float, what: str,
     return out
 
 
-def tree_bytes(tree) -> tuple:
-    """(elements, bytes) of a tree of dicts and lists of tensors."""
+def tree_list(tree) -> list:
+    """The tensors of a tree of dicts and lists, in order."""
     if isinstance(tree, dict):
         tree = list(tree.values())
     if isinstance(tree, list):
-        parts = [tree_bytes(t) for t in tree]
-        return sum(p[0] for p in parts), sum(p[1] for p in parts)
-    return tree.numel(), tree.numel() * tree.element_size()
+        return [t for sub in tree for t in tree_list(sub)]
+    return [tree]
 
 
-def tree_to(tree, device):
+def tree_bytes(tree) -> tuple:
+    """(elements, bytes) of a tree of dicts and lists of tensors."""
+    leaves = tree_list(tree)
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+def tree_to(tree, where):
+    """Every tensor of the tree ``.to(where)``: a device or a dtype."""
     if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
+        return {k: tree_to(v, where) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    return tree.to(device)
+        return [tree_to(v, where) for v in tree]
+    return tree.to(where)
 
 
 def lm_tokens(torch, cfg, b: int, s: int, seed: int):
@@ -2634,8 +2663,7 @@ def phase_lm(torch, fak, ref, card, ptxas_rows):
     32 greedy tokens) against the prefill step, at the floor of the plain
     prefill's agreement with it, phi3-mini's prefill (32
     launches), a 2-layer f32 variant card vs CPU, and K3 at both prefill
-    shapes, granite's long prefill and recurrentgemma's local attention
-    beside SDPA and its bound."""
+    shapes and granite's long prefill beside SDPA and its bound."""
     import dataclasses
 
     from repro_torch.configs.base import get_arch
@@ -2751,7 +2779,7 @@ def phase_lm(torch, fak, ref, card, ptxas_rows):
     torch.cuda.empty_cache()
 
     rows = [check_lm_kernel(torch, fak, ref, name, case, window,
-                            out[key]["launches"] if key else 0, ptxas_rows)
+                            out[key]["launches"], ptxas_rows)
             for name, case, window, key in LM_FA_CASES]
     for row in rows:
         row["sdpa_ratio"] = row["ms"] / row["library_ms"]
@@ -3533,6 +3561,539 @@ def phase_lm_train(torch, dpk, ref, card):
     return out, rows
 
 
+# phase 18: the recurrent LM families at full width and depth in bf16:
+# recurrentgemma-9b (38 layers: 26 rec with K2 in the prefill, 12 local
+# attention with K3 at D = 256, window 2048) and mamba2-130m (24 ssd
+# layers, no kernel, as in the reference's LM) through the serve CLI
+REC_ARCH, SSD_ARCH = "recurrentgemma_9b", "mamba2_130m"
+REC_ELEMENTS = 9_396_408_320   # lm_param_shapes' elements (wa/wx included)
+REC_K2, REC_K3 = 26, 12        # launches a prefill step: rec, attn layers
+REC_CUT = 2                    # layers of the f32 cut: ("rec", "rec")
+REC_CUT_TOKENS = (2, 128)      # B, S of the f32 cut's forward
+REC_DECODE_STEPS = 8           # decode steps card vs CPU (each f32 model)
+SSD_ELEMENTS = 129_100_224
+SSD_PREFILL = (4, 512)
+SSD_CUT = 2                    # layers of mamba2's f32 cut at 1e-4
+# mamba2's f32 copy at all 24 layers is held, card against CPU and card
+# against f64, at COND_MULT times the CPU's own f32 distance from its f64
+# run of the same weights (read in the run, never under 1e-4): two f32
+# runs each g from the exact result may differ by 2g, and the card's
+# reduction order may be the less accurate one by as much again
+COND_MULT = 4.0
+# K2 at the rec prefill's two shapes (no h0) and K3 at its local
+# attention's (16 | 1 heads of 256, window 2048), with the prefill whose
+# launches count
+REC_K2_CASES = (
+    ("rglru_scan_recurrentgemma_prefill", (4, 512, 4096), "prefill"),
+    ("rglru_scan_recurrentgemma_long", (1, 4096, 4096), "long_prefill"))
+REC_FA_CASES = (
+    ("flash_attention_recurrentgemma_prefill", (4, 512, 16, 1, 256), 2048,
+     "prefill"),
+    ("flash_attention_recurrentgemma_local", (1, 4096, 16, 1, 256), 2048,
+     "long_prefill"))
+REC_GEMM = LMT_KINDS[1][1]     # cuBLAS kernel names
+REC_GEMM_F32 = r"f32f32|sgemm"  # of those, the f32 products' (TF32 off)
+
+
+def rec_prefill(torch, fak, rgk, model, params, tokens, card):
+    """recurrentgemma-9b's prefill step (``forward(impl="flash",
+    last_only=True)``): K2's and K3's counts set to 0 just before the
+    main-path call and read just after (26 and 12); three warm calls by
+    the host clock, counted again; one profiled call (busy share; device
+    ms of K2, K3 (26 and 12 calls), the cuBLAS GEMMs by kernel name in f32
+    (the RG-LRU gates' two a ``rec`` layer, TF32 off) and in bf16, and
+    the rest)."""
+    def step():
+        return model.forward(params, {"tokens": tokens}, impl="flash",
+                             last_only=True)
+
+    def reset():
+        rgk.reset_launches()
+        fak.reset_launches()
+
+    def counts():
+        return (rgk.LAUNCHES["rglru_scan"], fak.LAUNCHES["flash_attention"])
+
+    reset()
+    logits = step()
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == (REC_K2, REC_K3),
+          f"(rglru_scan, flash_attention) launches {launches} in one "
+          f"prefill, not {(REC_K2, REC_K3)}")
+    check(bool(torch.isfinite(logits[..., :model.cfg.vocab_size]).all()),
+          "non-finite prefill logits")
+    walls = []
+    for _ in range(3):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check(counts() == (REC_K2, REC_K3), "launches of a warm prefill")
+    prof_wall, device, busy_ms, by_kernel = lm_profiled(torch, step)
+    kinds = {k: [0, 0.0] for k in ("K2", "K3", "f32 GEMMs", "bf16 GEMMs",
+                                    "other")}
+    for name, (n, t) in by_kernel.items():
+        kind = ("K2" if "rglru_scan" in name else
+                "K3" if FA_MMA_KERNEL in name else
+                "other" if not re.search(REC_GEMM, name) else
+                "f32 GEMMs" if re.search(REC_GEMM_F32, name) else
+                "bf16 GEMMs")
+        kinds[kind][0] += n
+        kinds[kind][1] += t
+    check((kinds["K2"][0], kinds["K3"][0]) == (REC_K2, REC_K3),
+          f"K2, K3 kernel calls in a profiled prefill: {kinds}")
+    warm = statistics.median(walls)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:6]
+    out = {"launches": {"rglru_scan": launches[0],
+                        "flash_attention": launches[1]},
+           "warm_wall_ms": walls, "warm_wall_ms_median": warm,
+           "profiled_wall_ms": prof_wall, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / prof_wall,
+           "device_ops": len(device),
+           "device_ms_by_kind": {k: {"calls": n, "ms": t}
+                                 for k, (n, t) in kinds.items()},
+           "top_kernels": [{"name": k[:80], "calls": n, "device_ms": t}
+                           for k, (n, t) in top]}
+    b, s = tokens.shape
+    print(f"  {model.cfg.name} prefill [{b}, {s}] (impl=flash, last_only): "
+          f"{launches[0]} rglru_scan and {launches[1]} flash_attention "
+          f"launches a call; warm wall {warm:.2f} ms "
+          f"({', '.join(f'{w:.2f}' for w in walls)}); profiled "
+          f"{prof_wall:.2f} ms, device busy {busy_ms:.2f} ms (share "
+          f"{busy_ms / prof_wall:.3f}, {len(device)} ops)  ({card})")
+    for kind, (n, t) in kinds.items():
+        print(f"    device {kind}: {n} calls, {t:.3f} ms "
+              f"({100 * t / busy_ms:.1f} % of busy)")
+    for k in out["top_kernels"]:
+        print(f"    kernel {k['name']}: {k['calls']} calls, "
+              f"{k['device_ms']:.3f} ms")
+    return logits, out
+
+
+def check_rec_scan(torch, rgk, ref, name, case, launches, ptxas):
+    """K2 at a recurrentgemma prefill shape (a, x [B, L, W] f32, no h0):
+    bitwise its plain version and bitwise repeatable, timed beside it
+    (CUDA-graph replay of 5 calls) and its bound; no PyTorch call computes
+    a sequential recurrence, so no library time."""
+    b, l, w = case
+    gen = torch.Generator().manual_seed(13)
+    a = torch.sigmoid(torch.randn(b, l, w, generator=gen)).cuda()
+    x = torch.randn(b, l, w, generator=gen).cuda()
+    h, h_last = rgk.rglru_scan(a, x)
+    h_ref, hl_ref = ref.rglru_scan_ref(a, x)
+    check(torch.equal(h, h_ref) and torch.equal(h_last, hl_ref),
+          f"{name}: rglru_scan not bitwise equal to its plain version")
+    h2, hl2 = rgk.rglru_scan(a, x)
+    check(torch.equal(h, h2) and torch.equal(h_last, hl2),
+          f"{name}: rglru_scan not bitwise repeatable")
+    b_rg, by_rg = scan_bound((b, l, w, False))
+    plan = rgk.launch_plan(b, l, w, True)
+    row = {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:60",
+        "shape": [b, l, w], "launches": launches,
+        "max_abs_err": max_abs(h, h_ref), "bound_ms": b_rg,
+        "bound_by": by_rg, "plan": plan._asdict(),
+        "ptxas": ptxas.get(str(plan.vec)),
+        **timed(lambda: rgk.rglru_scan(a, x),
+                lambda: ref.rglru_scan_ref(a, x), None, iters=5),
+    }
+    print(f"  {name} [{b}, {l}, {w}]: bitwise its plain version and "
+          f"repeatable; device {row['ms'] * 1e3:.1f} us (eager "
+          f"{row['eager_ms'] * 1e3:.1f}); bound {b_rg * 1e3:.2f} us "
+          f"({by_rg}, {100 * b_rg / row['ms']:.1f} % of it); plain "
+          f"{row['plain_ms'] * 1e3:.1f} us; library none; plan "
+          f"{plan.vec} lane(s) a thread, block {plan.block}, grid "
+          f"{plan.grid}; launches {launches} a prefill")
+    return row
+
+
+def f64_mode(torch):
+    """A ``TorchFunctionMode`` under which the port's f32 pins
+    (``Tensor.float`` and ``torch.float32`` passed as an argument) give
+    f64; ``f32_ops`` names every op that still returned an f32 tensor."""
+    class F64(torch.overrides.TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.f32_ops = set()
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            def widen(v):
+                return torch.float64 if v is torch.float32 else v
+
+            if func is torch.Tensor.float:
+                func = torch.Tensor.double
+            out = func(*map(widen, args),
+                       **{k: widen(v) for k, v in (kwargs or {}).items()})
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.dtype == torch.float32:
+                    self.f32_ops.add(getattr(func, "__name__", str(func)))
+            return out
+
+    return F64()
+
+
+def cut_card_vs_cpu(torch, model, params, tokens, steps: int, what: str,
+                    impls=("flash", "ref"), k2=None,
+                    exact: bool = False) -> dict:
+    """An f32 model on the card against its copy on the CPU: the last
+    logits of ``forward`` at each impl (with ``k2``, ``rglru_scan``'s
+    launches on the card counted: one a ``rec`` layer at ``"flash"``, none
+    at ``"ref"``), then ``steps`` decode steps from zero caches, the logits
+    and every cache compared after each: the max abs error of each, and
+    the largest magnitude beside it, each within LM_F32_TOL.  With
+    ``exact`` the CPU also runs the same weights in f64
+    (:func:`f64_mode`), and both f32 runs are read against it: each value
+    of the card's, against the CPU's and against f64, is then held at
+    COND_MULT times the CPU's own f32 distance from f64, and never under
+    LM_F32_TOL."""
+    v = model.cfg.vocab_size
+    cpu_params = tree_to(params, "cpu")
+    n_rec = model.cfg.pattern().count("rec")
+    out = {}
+    if exact:
+        mode = f64_mode(torch)
+        params64 = tree_to(cpu_params, torch.float64)
+
+    def note(key, got, want):
+        err, mag = max_abs(got, want), float(want.abs().max())
+        old = out.get(key, (0.0, 0.0))
+        out[key] = (max(old[0], err), max(old[1], mag))
+
+    def note_all(key, card, cpu, f64=None):
+        note(key, card, cpu)
+        if f64 is not None:
+            note(f"{key}_card_vs_f64", card, f64)
+            note(f"{key}_cpu_vs_f64", cpu, f64)
+
+    for impl in impls:
+        if k2 is not None:
+            k2.reset_launches()
+        on_card = model.forward(params, {"tokens": tokens}, impl=impl,
+                                last_only=True)
+        torch.cuda.synchronize()
+        if k2 is not None:
+            want = n_rec if impl == "flash" else 0
+            check(k2.LAUNCHES["rglru_scan"] == want,
+                  f"{what} forward({impl}): {k2.LAUNCHES['rglru_scan']} "
+                  f"rglru_scan launches, not {want}")
+        on_cpu = model.forward(cpu_params, {"tokens": tokens.cpu()},
+                               impl=impl, last_only=True)
+        f64 = None
+        if exact:
+            with mode:
+                f64 = model.forward(params64, {"tokens": tokens.cpu()},
+                                    impl=impl, last_only=True)[..., :v]
+        note_all(f"forward_{impl}", on_card.cpu()[..., :v], on_cpu[..., :v],
+                 f64)
+    card_c = model.init_cache(tokens.shape[0], steps, params=params)
+    cpu_c = model.init_cache(tokens.shape[0], steps, params=cpu_params)
+    if exact:
+        with mode:
+            c64 = model.init_cache(tokens.shape[0], steps, params=params64)
+    for t in range(steps):
+        lc, _ = model.decode_step(params, tokens[:, t:t + 1], card_c, t)
+        lp, _ = model.decode_step(cpu_params, tokens[:, t:t + 1].cpu(),
+                                  cpu_c, t)
+        l64 = None
+        if exact:
+            with mode:
+                l64 = model.decode_step(params64, tokens[:, t:t + 1].cpu(),
+                                        c64, t)[0][..., :v]
+        note_all("decode_logits", lc.cpu()[..., :v], lp[..., :v], l64)
+        cpu_list = tree_list(cpu_c)
+        f64_list = tree_list(c64) if exact else [None] * len(cpu_list)
+        for a, c, e in zip(tree_list(card_c), cpu_list, f64_list):
+            note_all("decode_caches", a.cpu(), c, e)
+    bars = {k: LM_F32_TOL for k in out if not k.endswith("_cpu_vs_f64")}
+    if exact:
+        check(not mode.f32_ops, f"{what}: the f64 run returned f32 from "
+              f"{sorted(mode.f32_ops)}")
+        for k in bars:
+            base = k.removesuffix("_card_vs_f64")
+            bars[k] = max(LM_F32_TOL, COND_MULT * out[f"{base}_cpu_vs_f64"][0])
+    print(f"  {what}, card vs CPU (f32): " + ", ".join(
+        f"{k} max|err| {e:.2e} (max|x| {m:.3g}"
+        + (f", bar {bars[k]:.2e})" if k in bars else ")")
+        for k, (e, m) in out.items()) + f"; {steps} decode steps")
+    for k, bar in bars.items():
+        check(out[k][0] <= bar, f"{what} {k}: {out[k][0]} over {bar}")
+    return {k: {"max_abs_err": e, "max_abs": m, "bar": bars.get(k)}
+            for k, (e, m) in out.items()}
+
+
+def rec_bf16_floor(torch, cfg, params, token_sets) -> dict:
+    """For each token set: the bf16 model's plain prefill (``impl="ref"``,
+    last logits) against the same weights cast to f32 (an exact cast),
+    by :func:`lm_close` ungated: the elements bf16's own rounding puts past
+    LM_BF16_TOL.  The f32 copy (37.6 GB) is freed before returning."""
+    import dataclasses
+
+    from repro_torch.models.model import build
+
+    model = build(cfg)
+    model32 = build(dataclasses.replace(cfg, dtype="float32"))
+    params32 = tree_to(params, torch.float32)
+    v = cfg.vocab_size
+    out = {}
+    for key, tokens in token_sets.items():
+        want = model32.forward(params32, {"tokens": tokens}, impl="ref",
+                               last_only=True)
+        got = model.forward(params, {"tokens": tokens}, impl="ref",
+                            last_only=True)
+        out[key] = lm_close(
+            torch, got[..., :v], want[..., :v], LM_BF16_TOL,
+            f"bf16's floor {list(tokens.shape)}: impl=ref bf16 vs f32 "
+            f"weights", gate=False)
+        del want, got
+    del params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recurrent_lm(torch, fak, rgk, ref, card, ptxas):
+    """Phase 18: recurrentgemma-9b's ``config()`` in bf16 on the card:
+    the tree (9,396,408,320 elements), the prefill step at [4, 512] and
+    [1, 4096] on K2 and K3 (26 and 12 launches a step) against
+    ``impl="ref"``, the serve path
+    (``generate``: 128-token prompts, 32 greedy tokens) against the prefill
+    step at phase 15's floor, a 2-layer f32 cut card vs CPU, K2 and K3 at
+    the prefill's shapes; then mamba2-130m through the serve CLI at
+    ``--full``, its prefill step at [4, 512] (no kernel) and f32 copies
+    card vs CPU."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build
+
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["allocated_at_start"] = torch.cuda.memory_allocated()
+    cfg = get_arch(REC_ARCH)
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n, nbytes = tree_bytes(params)
+    f32_bytes = sum(t.numel() * 4 for t in tree_list(params)
+                    if t.dtype == torch.float32)
+    out["build"] = {"seconds": time.perf_counter() - t0, "params": n,
+                    "bytes": nbytes, "f32_bytes": f32_bytes,
+                    "param_count": cfg.param_count(),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    check(n == REC_ELEMENTS, f"{cfg.name}: {n} elements")
+    print(f"  built {cfg.name}: {cfg.n_layers} layers {cfg.segments()}, "
+          f"{n:,} elements ({cfg.param_count():,} by param_count, which "
+          f"leaves the gates' wa/wx out), {nbytes / 1e9:.2f} GB ("
+          f"{f32_bytes / 1e9:.2f} GB of it f32) in "
+          f"{out['build']['seconds']:.2f} s; allocated before it "
+          f"{out['allocated_at_start'] / 1e9:.2f} GB, max "
+          f"{out['build']['max_memory_allocated'] / 1e9:.2f} GB  ({card})")
+    v = cfg.vocab_size
+
+    # bf16's own rounding floor, read in this run: the plain prefill
+    # (impl="ref") in bf16 against the same weights run in f32 (impl="ref":
+    # K3 refuses f32 at D = 256).  Two bf16 paths that round apart differ
+    # past LM_BF16_TOL in many logits here (the scan's order alone does),
+    # so a kernel path is held to have no more elements beyond the bar
+    # from the plain path than the plain path has from f32
+    token_sets = {"prefill": lm_tokens(torch, cfg, *LM_PREFILL, seed=1),
+                  "long_prefill": lm_tokens(torch, cfg, *LM_LONG_PREFILL,
+                                            seed=5)}
+    floor = rec_bf16_floor(torch, cfg, params, token_sets)
+    out["bf16_floor"] = floor
+
+    for key, shape in (("prefill", LM_PREFILL),
+                       ("long_prefill", LM_LONG_PREFILL)):
+        tokens = token_sets[key]
+        logits, out[key] = rec_prefill(torch, fak, rgk, model, params,
+                                       tokens, card)
+        plain = model.forward(params, {"tokens": tokens}, impl="ref",
+                              last_only=True)
+        out[key]["flash_vs_ref"] = lm_close(
+            torch, logits[..., :v], plain[..., :v], LM_BF16_TOL,
+            f"prefill {list(shape)} impl=flash vs impl=ref (bf16)",
+            gate=False)
+        out[key]["ref_vs_f32"] = floor[key]
+        beyond = out[key]["flash_vs_ref"]["beyond"]
+        check(beyond <= floor[key]["beyond"],
+              f"prefill {shape}: flash vs ref {beyond} elements beyond "
+              f"{LM_BF16_TOL}, more than bf16's floor "
+              f"{floor[key]['beyond']}")
+        check(out[key]["flash_vs_ref"]["argmax_equal"] == shape[0],
+              f"prefill {shape}: flash and ref disagree on an argmax")
+        del logits, plain, tokens
+
+    del token_sets
+    prompts = lm_tokens(torch, cfg, LM_PREFILL[0], LM_PROMPT, seed=2)
+    torch.cuda.reset_peak_memory_stats()  # the floor's f32 copy is freed
+    gen = generate(model, params, prompts, LM_NEW)
+    fwd = model.forward(params, {"tokens": prompts}, impl="flash",
+                        last_only=True)
+    plain = model.forward(params, {"tokens": prompts}, impl="ref",
+                          last_only=True)
+    serve = {"batch": LM_PREFILL[0], "prompt": LM_PROMPT, "new": LM_NEW,
+             "prefill_scan_s": gen["prefill_s"], "decode_s": gen["decode_s"],
+             "tok_per_s": LM_PREFILL[0] * LM_NEW / gen["decode_s"],
+             "decode_step_ms": gen["decode_s"] / LM_NEW * 1e3,
+             "prefill_scan_step_ms": gen["prefill_s"] / LM_PROMPT * 1e3,
+             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    check(tuple(gen["tokens"].shape) == (LM_PREFILL[0], LM_NEW) and bool(
+        ((gen["tokens"] >= 0) & (gen["tokens"] < v)).all()), "greedy tokens")
+    for key, want, what in (("scan_vs_forward_ref", plain, "ref"),
+                            ("scan_vs_forward", fwd, "flash")):
+        serve[key] = lm_close(
+            torch, gen["prefill_logits"][..., :v], want[..., :v],
+            LM_BF16_TOL, f"prefill_scan last logits vs forward({what}, "
+            f"last_only) (bf16)", gate=False)
+        check(serve[key]["argmax_equal"] == LM_PREFILL[0],
+              f"prefill_scan and forward({what}) disagree on an argmax")
+    # phase 15's floor: the scan no further from the prefill step than
+    # from the plain prefill
+    beyond = serve["scan_vs_forward"]["beyond"]
+    check(beyond <= serve["scan_vs_forward_ref"]["beyond"],
+          f"prefill_scan vs forward(flash): {beyond} elements beyond "
+          f"{LM_BF16_TOL}, more than the plain prefill's "
+          f"{serve['scan_vs_forward_ref']['beyond']}")
+    last = LM_PROMPT + LM_NEW - 1
+    wall, device, busy_ms, _ = lm_profiled(torch, lambda: model.decode_step(
+        params, gen["tokens"][:, -1:], gen["caches"], last))
+    serve["decode_profile"] = {"wall_ms": wall, "device_busy_ms": busy_ms,
+                               "device_busy_share": busy_ms / wall,
+                               "device_ops": len(device)}
+    out["serve"] = serve
+    print(f"  serve path: prefill_scan of {LM_PROMPT} tokens x "
+          f"{LM_PREFILL[0]} in {gen['prefill_s']:.3f} s "
+          f"({serve['prefill_scan_step_ms']:.2f} ms a step); {LM_NEW} "
+          f"greedy tokens in {gen['decode_s']:.3f} s "
+          f"({serve['decode_step_ms']:.2f} ms a step, "
+          f"{serve['tok_per_s']:.1f} tok/s); one profiled decode step "
+          f"{wall:.2f} ms, busy {busy_ms:.2f} ms (share "
+          f"{busy_ms / wall:.3f}, {len(device)} ops); max allocated "
+          f"{serve['max_memory_allocated'] / 1e9:.2f} GB  ({card})")
+    del params, gen, fwd, plain, prompts
+    torch.cuda.empty_cache()
+
+    small = build(dataclasses.replace(cfg, n_layers=REC_CUT,
+                                      dtype="float32"))
+    check(small.cfg.segments() == ((("rec", "rec"), 1),),
+          f"the f32 cut's segments {small.cfg.segments()}")
+    params = small.init(0, device="cuda")
+    toks = lm_tokens(torch, cfg, *REC_CUT_TOKENS, seed=4)
+    out["card_vs_cpu_2layer_f32"] = cut_card_vs_cpu(
+        torch, small, params, toks, REC_DECODE_STEPS,
+        f"{cfg.name} cut to {REC_CUT} rec layers [{REC_CUT_TOKENS[0]}, "
+        f"{REC_CUT_TOKENS[1]}]", k2=rgk)
+    del params, toks
+    torch.cuda.empty_cache()
+
+    rows = [check_rec_scan(torch, rgk, ref, name, case,
+                           out[key]["launches"]["rglru_scan"],
+                           ptxas["rglru_scan"])
+            for name, case, key in REC_K2_CASES]
+    rows += [check_lm_kernel(torch, fak, ref, name, case, window,
+                             out[key]["launches"]["flash_attention"],
+                             ptxas["flash_attention_mma"])
+             for name, case, window, key in REC_FA_CASES]
+    for row in rows:
+        if row["library_ms"] is not None:
+            row["sdpa_ratio"] = row["ms"] / row["library_ms"]
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    rgk.reset_launches()
+    fak.reset_launches()
+    cli = serve_cli.main(["--arch", SSD_ARCH, "--full"])
+    torch.cuda.synchronize()
+    ssd_cfg = get_arch(SSD_ARCH)
+    toks = cli["tokens"]
+    first = cli["prefill_logits"][:, 0, :ssd_cfg.vocab_size].argmax(-1)
+    check(tuple(toks.shape) == (4, 32) and bool(
+        ((toks >= 0) & (toks < ssd_cfg.vocab_size)).all())
+        and torch.equal(toks[:, 0], first), "mamba2 CLI tokens")
+    check(rgk.LAUNCHES["rglru_scan"] == fak.LAUNCHES["flash_attention"] == 0,
+          "the mamba2 serve CLI launched a kernel")
+    ssd = {"cli": {"prefill_s": cli["prefill_s"], "decode_s": cli["decode_s"],
+                   "tok_per_s": cli["tok_per_s"],
+                   "decode_step_ms": cli["decode_s"] / 32 * 1e3,
+                   "prefill_scan_step_ms": cli["prefill_s"] / 16 * 1e3,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated()}}
+    print(f"  {ssd_cfg.name} serve CLI --full (B 4, 16-token prompts, 32 "
+          f"tokens): prefill_scan {cli['prefill_s']:.3f} s "
+          f"({ssd['cli']['prefill_scan_step_ms']:.2f} ms a step), decode "
+          f"{ssd['cli']['decode_step_ms']:.2f} ms a step, "
+          f"{cli['tok_per_s']:.1f} tok/s, max allocated "
+          f"{ssd['cli']['max_memory_allocated'] / 1e9:.3f} GB; no kernel "
+          f"launched  ({card})")
+    model = build(ssd_cfg)
+    params = model.init(0, device="cuda")
+    n, nbytes = tree_bytes(params)
+    check(n == SSD_ELEMENTS, f"{ssd_cfg.name}: {n} elements")
+    tokens = lm_tokens(torch, ssd_cfg, *SSD_PREFILL, seed=6)
+
+    def step():
+        return model.forward(params, {"tokens": tokens}, impl="flash",
+                             last_only=True)
+
+    rgk.reset_launches()
+    fak.reset_launches()
+    logits = step()
+    torch.cuda.synchronize()
+    check(rgk.LAUNCHES["rglru_scan"] == fak.LAUNCHES["flash_attention"] == 0,
+          "mamba2's prefill launched a kernel")
+    check(bool(torch.isfinite(logits[..., :ssd_cfg.vocab_size]).all()),
+          "non-finite mamba2 prefill logits")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof_wall, device, busy_ms, _ = lm_profiled(torch, step)
+    ssd["params"], ssd["bytes"] = n, nbytes
+    ssd["prefill"] = {"warm_wall_ms": walls,
+                      "warm_wall_ms_median": statistics.median(walls),
+                      "profiled_wall_ms": prof_wall,
+                      "device_busy_ms": busy_ms,
+                      "device_busy_share": busy_ms / prof_wall,
+                      "device_ops": len(device)}
+    print(f"  {ssd_cfg.name}: {n:,} elements, {nbytes / 1e9:.3f} GB bf16; "
+          f"prefill {list(SSD_PREFILL)} warm wall "
+          f"{ssd['prefill']['warm_wall_ms_median']:.2f} ms "
+          f"({', '.join(f'{w:.2f}' for w in walls)}); profiled "
+          f"{prof_wall:.2f} ms, busy {busy_ms:.2f} ms (share "
+          f"{busy_ms / prof_wall:.3f}, {len(device)} ops)  ({card})")
+    del params, logits, tokens
+    torch.cuda.empty_cache()
+    # an f32 copy at full width: at SSD_CUT layers within 1e-4, as the
+    # other f32 cuts; at full depth against an f64 run as well, at the bar
+    # that run sets (the chunk scan's segment sums are differences of
+    # cumsums that reach ~1e3 over a chunk, ~1e-4 of the decay in f32)
+    toks = lm_tokens(torch, ssd_cfg, *LM_CARD_CPU, seed=7)
+    for layers, exact in ((SSD_CUT, False), (ssd_cfg.n_layers, True)):
+        small = build(dataclasses.replace(ssd_cfg, n_layers=layers,
+                                          dtype="float32"))
+        params = small.init(0, device="cuda")
+        ssd[f"card_vs_cpu_f32_{layers}_layers"] = cut_card_vs_cpu(
+            torch, small, params, toks, REC_DECODE_STEPS,
+            f"{ssd_cfg.name} in f32 at {layers} layers [{LM_CARD_CPU[0]}, "
+            f"{LM_CARD_CPU[1]}]", impls=("ref",), exact=exact)
+        del params
+        torch.cuda.empty_cache()
+    del toks
+    out["mamba2"] = ssd
+    return out, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3718,6 +4279,14 @@ def main() -> int:
         if k["name"] in ("sumsq_rows", "scale_noise_rows"):
             k["launches_lm_train"] = lm_train["launches"][k["name"]]
 
+    print(f"== 18. recurrent LMs: {REC_ARCH} (prefill on rglru_scan and "
+          f"flash_attention, serve path) and {SSD_ARCH} (the serve CLI at "
+          f"--full), full width and depth, bf16  ({card})")
+    with torch.no_grad():
+        rec_lm, rec_rows = phase_recurrent_lm(torch, fak, rgk, ref, card,
+                                              ptxas)
+    kernels += rec_rows
+
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3729,7 +4298,7 @@ def main() -> int:
         "serve": serve, "serve_launches": serve_launches,
         "model_grid": grid, "privacy": privacy, "plan_frontier": plans,
         "population": population, "lm": lm, "fl_ops": fl_ops,
-        "lm_train": lm_train,
+        "lm_train": lm_train, "recurrent_lm": rec_lm,
         "total_s": time.perf_counter() - t_all,
     }
     OUT_DIR.mkdir(exist_ok=True)

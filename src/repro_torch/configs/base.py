@@ -221,9 +221,6 @@ WAITING = {
     "phi3p5_moe_42b": "the mixture-of-experts slice (models/moe.py)",
     "llama4_maverick_400b": "the mixture-of-experts slice (models/moe.py) "
                             "and the sharding slice (400B over several cards)",
-    "recurrentgemma_9b": "the hybrid slice (the rec block, flash_attention "
-                         "at head dim 256, rglru_scan in prefill)",
-    "mamba2_130m": "the SSD slice (ssd blocks and their decode step)",
     "seamless_m4t_large_v2": "the encoder-decoder slice (models/encdec.py)",
     "mistral_large_123b": "the sharding slice (123B over several cards)",
     "qwen2_vl_72b": "the VLM slice (M-RoPE frontend) and the sharding slice "

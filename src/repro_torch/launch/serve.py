@@ -1,13 +1,12 @@
 """CLI: batched greedy (or sampled) decode serving on an assigned
 architecture: the port's copy of ``repro/launch/serve.py``.
 
-PYTHONPATH=src python -m repro_torch.launch.serve --arch granite_3_8b \\
+PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma_9b \\
     --full [--batch 4 --prompt-len 16 --new-tokens 32] [--device cpu]
 
 Without ``--full`` it serves the architecture's smoke config.  The default
-architecture is ``granite_3_8b`` (the reference's, ``mamba2_130m``, waits
-for the SSD slice: ``get_arch`` names the slice).  It runs on
-the card unless given ``--device cpu``.  Prompts and sampling draw from a
+architecture is ``mamba2_130m``, as the reference's.  It runs on the card
+unless given ``--device cpu``.  Prompts and sampling draw from a
 ``torch.Generator`` seeded by ``--seed`` + 1 (the params from ``--seed``).
 """
 from __future__ import annotations
@@ -82,7 +81,7 @@ def generate(model: Model, params, prompts: torch.Tensor, new_tokens: int, *,
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="granite_3_8b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="mamba2_130m")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -42,6 +42,7 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import spec as spec_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import fan_in_init, normal_init
+from repro_torch.models.sharding import split_meta
 
 
 def _require_windowed(meta: spec_lib.DataMeta, name: str):
@@ -124,6 +125,7 @@ class _RecCfg(NamedTuple):
     d_model: int
     lru_width: int
     conv_width: int
+    dtype: str = "float32"
 
 
 def _build_rglru(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
@@ -134,7 +136,7 @@ def _build_rglru(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
 
     def init(gen: torch.Generator):
         return {"embed": _dense(gen, n_signals, d),
-                "rec": rglru_lib.init_rglru(gen, cfg),
+                "rec": split_meta(rglru_lib.init_rglru(gen, cfg))[0],
                 "head": _dense(gen, 2 * d, meta.n_classes)}
 
     def make_logits(impl: str):
@@ -176,6 +178,7 @@ class _SsmCfg(NamedTuple):
     ssm_chunk: int
     conv_width: int
     norm_eps: float
+    dtype: str = "float32"
 
 
 def _ssd_scan_fn(route: str):
@@ -202,7 +205,7 @@ def _build_ssm(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
 
     def init(gen: torch.Generator):
         embed = _dense(gen, n_signals, d)
-        mix = ssm_lib.init_ssd(gen, cfg)
+        mix = split_meta(ssm_lib.init_ssd(gen, cfg))[0]
         # small-dt init (dt ≈ 0.12): heads start with 8–60-step memory
         mix["dt_bias"] = torch.full_like(mix["dt_bias"], -2.0)
         return {"embed": embed, "mix": mix,
@@ -213,7 +216,7 @@ def _build_ssm(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
 
         def one_view(params, hw):
             h = hw @ params["embed"]["w"] + params["embed"]["b"]
-            y, _ = ssm_lib.ssd_block(params["mix"], h, cfg, scan_fn)
+            y, _ = ssm_lib.ssd_block(params["mix"], h, cfg, scan_fn=scan_fn)
             h = h + y
             pooled = torch.cat([h.mean(dim=1), h[:, -1], h.amax(dim=1)],
                                dim=-1)

@@ -101,7 +101,8 @@ class Model:
     def forward(self, params, batch, *, impl: str = "ref",
                 window: Optional[int] = None, last_only: bool = False):
         """Prefill logits for ``batch["tokens"]`` [B,S]; ``impl="flash"``
-        runs attention on the ``flash_attention`` kernel."""
+        runs attention on the ``flash_attention`` kernel and the ``rec``
+        blocks' recurrence on ``rglru_scan``."""
         return T.lm_forward(params, self.cfg, batch["tokens"], impl=impl,
                             window_override=window, last_only=last_only)
 

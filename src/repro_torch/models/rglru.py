@@ -1,5 +1,5 @@
 """RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427): the
-port's copy of the whole-sequence path of ``repro/models/rglru.py``.
+port's copy of ``repro/models/rglru.py``.
 
 Recurrence (per channel):
     r_t = sigmoid(W_a x_t + b_a)            recurrence gate
@@ -15,9 +15,12 @@ The recurrence runs on one of two scans (``rglru_block``'s ``impl``):
 mirrors ``jax.lax.associative_scan``'s odd/even recursion (6 levels at
 L = 64) and stays differentiable under ``torch.func.vmap``; ``"flash"`` is
 ``kernels.ops.rglru_scan``, the CUDA kernel on the card (its sequential
-plain version on the CPU), which has no backward.  The one-token decode
-step and its cache wait for the LM substrate; the reference's sharding
-metadata is not ported.
+plain version on the CPU), which has no backward.  ``state`` (the cache
+of :func:`init_rglru_cache`) carries ``h`` into the scan as its ``h0``
+and ``conv`` into the causal conv.  :func:`rglru_decode_step` is the
+one-token recurrence; it writes its new state into the cache it is given
+(the stacked caches of ``transformer.stack_cache`` are updated through
+views), where the reference returns a fresh cache.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import fan_in_init
+from repro_torch.models.layers import device_of, dtype_of, fan_in_init
+from repro_torch.models.sharding import pm
 
 _C = 8.0
 
@@ -36,25 +40,30 @@ def lru_width(cfg) -> int:
     return cfg.lru_width or cfg.d_model
 
 
-def init_rglru(gen: torch.Generator, cfg) -> dict:
-    """Fresh block params (f32) on ``gen.device``."""
+def init_rglru(gen: Optional[torch.Generator], cfg) -> dict:
+    """Fresh block params as a ParamMeta tree (the reference's axes) on
+    ``gen.device``, or shapes only on the meta device for ``gen`` None:
+    the projections and the conv in ``cfg.dtype``, the RG-LRU gates and Λ
+    in f32.  Drawn in the order w_in, w_gate, conv_w, wa, wx, w_out."""
     d = cfg.d_model
     w = lru_width(cfg)
-    dev = gen.device
+    dt, dev = dtype_of(cfg), device_of(gen)
     return {
-        "w_in": fan_in_init(gen, (d, w)),
-        "w_gate": fan_in_init(gen, (d, w)),
-        "conv_w": fan_in_init(gen, (cfg.conv_width, w)),
-        "conv_b": torch.zeros(w, device=dev),
+        "w_in": pm(fan_in_init(gen, (d, w), dtype=dt), "embed", "mlp"),
+        "w_gate": pm(fan_in_init(gen, (d, w), dtype=dt), "embed", "mlp"),
+        "conv_w": pm(fan_in_init(gen, (cfg.conv_width, w), dtype=dt),
+                     None, "mlp"),
+        "conv_b": pm(torch.zeros(w, dtype=dt, device=dev), "mlp"),
         # RG-LRU gates (diagonal parameterisation)
-        "wa": fan_in_init(gen, (w, w)),
-        "ba": torch.zeros(w, device=dev),
-        "wx": fan_in_init(gen, (w, w)),
-        "bx": torch.zeros(w, device=dev),
+        "wa": pm(fan_in_init(gen, (w, w)), "mlp", None),
+        "ba": pm(torch.zeros(w, device=dev), None),
+        "wx": pm(fan_in_init(gen, (w, w)), "mlp", None),
+        "bx": pm(torch.zeros(w, device=dev), None),
         # Λ so that a ≈ uniform(0.9, 0.999) at r = 1 (paper §2.4)
-        "lam": torch.log(torch.expm1(
+        "lam": pm(torch.log(torch.expm1(
             -torch.log(torch.linspace(0.9, 0.999, w, device=dev)) / _C)),
-        "w_out": fan_in_init(gen, (w, d)),
+            None),
+        "w_out": pm(fan_in_init(gen, (w, d), dtype=dt), "mlp", "embed"),
     }
 
 
@@ -137,22 +146,49 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out, new_state
 
 
-def rglru_block(params, x: torch.Tensor, cfg, impl: str = "ref"):
-    """The recurrent residual branch over a whole sequence from a zero
-    state.  x: [b, l, d] -> ([b, l, d], {"h": [b, w] f32, "conv":
-    [b, k-1, w]}).  ``impl``: ``"ref"`` (the log-depth scan) or
-    ``"flash"`` (``kernels.ops.rglru_scan``)."""
+def rglru_block(params, x: torch.Tensor, cfg, state=None,
+                impl: str = "ref"):
+    """The recurrent residual branch over a whole sequence.  x: [b, l, d]
+    -> ([b, l, d], {"h": [b, w] f32, "conv": [b, k-1, w]}).  ``state``
+    (a cache of :func:`init_rglru_cache`, or None for zeros) is read, not
+    written.  ``impl``: ``"ref"`` (the log-depth scan) or ``"flash"``
+    (``kernels.ops.rglru_scan``, ``h`` its ``h0`` operand)."""
     gate = F.gelu(torch.einsum("bld,dw->blw", x, params["w_gate"]),
                   approximate="tanh")
     u = torch.einsum("bld,dw->blw", x, params["w_in"])
-    u, new_conv = _causal_conv(u, params["conv_w"], params["conv_b"])
+    u, new_conv = _causal_conv(u, params["conv_w"], params["conv_b"],
+                               None if state is None else state["conv"])
     a, x_in = _gates(params, u.float())
+    h0 = None if state is None else state["h"]
     if impl == "flash":
-        h, h_last = kops.rglru_scan(a, x_in)
+        h, h_last = kops.rglru_scan(a, x_in, h0)
     elif impl == "ref":
-        h, h_last = rglru_scan(a, x_in)
+        h, h_last = rglru_scan(a, x_in, h0)
     else:
         raise ValueError(f"rglru_block: unknown impl {impl!r}")
     y = h.to(x.dtype) * gate
     out = torch.einsum("blw,wd->bld", y, params["w_out"])
     return out, {"h": h_last, "conv": new_conv}
+
+
+def rglru_decode_step(params, x: torch.Tensor, cache, cfg):
+    """One token: :func:`rglru_block` over x [b, 1, d] from ``cache`` (its
+    scan of one step is ``h = a·h + x``), the new ``h`` and ``conv``
+    written into ``cache`` in place.  Returns ([b, 1, d], cache)."""
+    out, new = rglru_block(params, x, cfg, state=cache)
+    cache["h"].copy_(new["h"])
+    cache["conv"].copy_(new["conv"])
+    return out, cache
+
+
+def init_rglru_cache(cfg, batch: int, device=None) -> dict:
+    """Zeroed decode state: ``h`` [b, w] f32 and ``conv`` [b, k-1, w] in
+    the activation dtype ``cfg.dtype``.  The reference allocates ``conv``
+    in bf16 and replaces it after the first step with one of the
+    activations' dtype; an in-place cache keeps that dtype from the start
+    (the zeros are equal in either), so an f32 model's conv state is never
+    rounded to bf16."""
+    w = lru_width(cfg)
+    return {"h": torch.zeros(batch, w, dtype=torch.float32, device=device),
+            "conv": torch.zeros(batch, cfg.conv_width - 1, w,
+                                dtype=dtype_of(cfg), device=device)}

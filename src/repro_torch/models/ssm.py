@@ -1,21 +1,32 @@
 """Mamba-2 (SSD — state-space duality, arXiv:2405.21060) block: the port's
-copy of the prefill path of ``repro/models/ssm.py``.
+copy of ``repro/models/ssm.py``.
 
 Chunked SSD: the sequence is split into chunks of length Q; within a chunk
 the output is the quadratic "attention-like" masked form, across chunks a
 linear recurrence carries the [heads, head_dim, state] SSM state.  That
 recurrence is the RG-LRU scan's ``h = a·h + x`` form over the flattened
-state (:func:`chunk_scan_via`), so it runs on the ``rglru_scan`` kernel on
-the card.  The one-token decode step waits for the LM substrate.
+state (:func:`chunk_scan_via`).  By default it runs on the scan's plain
+version, chunk by chunk in f32, as the reference's ``lax.scan`` does; the
+LM takes that path.  The ``ssm`` detector routes it through the
+``rglru_scan`` kernel.
+
+Decode: O(1) per token by the recurrent form
+    S_t = exp(dt*A) * S_{t-1} + dt * B_t ⊗ x_t ;  y_t = C_t · S_t + D * x_t
+:func:`ssd_decode_step` writes its new state into the cache it is given,
+where the reference returns a fresh cache.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import fan_in_init, rmsnorm
+from repro_torch.kernels import ref as kref
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models.layers import (device_of, dtype_of, fan_in_init,
+                                       rmsnorm)
+from repro_torch.models.sharding import pm
 
 
 def ssd_dims(cfg):
@@ -24,35 +35,37 @@ def ssd_dims(cfg):
     return d_in, heads, cfg.ssm_head_dim, cfg.ssm_state
 
 
-def init_ssd(gen: torch.Generator, cfg) -> dict:
-    """Fresh mixer params (f32) on ``gen.device``; the fused input
-    projection is ``[z (gate), x, B, C, dt]``."""
+def init_ssd(gen: Optional[torch.Generator], cfg) -> dict:
+    """Fresh mixer params as a ParamMeta tree (the reference's axes) on
+    ``gen.device``, or shapes only on the meta device for ``gen`` None:
+    ``cfg.dtype``, with ``A_log``, ``D`` and ``dt_bias`` in f32.  The fused
+    input projection is ``[z (gate), x, B, C, dt]``.  Drawn in the order
+    in_proj, conv_w, out_proj."""
     d = cfg.d_model
     d_in, h, p, n = ssd_dims(cfg)
-    dev = gen.device
+    dt, dev = dtype_of(cfg), device_of(gen)
     d_proj = 2 * d_in + 2 * n + h
     return {
-        "in_proj": fan_in_init(gen, (d, d_proj)),
-        "conv_w": fan_in_init(gen, (cfg.conv_width, d_in + 2 * n)),
-        "conv_b": torch.zeros(d_in + 2 * n, device=dev),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, h, device=dev)),
-        "D": torch.ones(h, device=dev),
-        "dt_bias": torch.zeros(h, device=dev),
-        "norm_scale": torch.ones(d_in, device=dev),
-        "out_proj": fan_in_init(gen, (d_in, d)),
+        "in_proj": pm(fan_in_init(gen, (d, d_proj), dtype=dt),
+                      "embed", "mlp"),
+        "conv_w": pm(fan_in_init(gen, (cfg.conv_width, d_in + 2 * n),
+                                 dtype=dt), None, "mlp"),
+        "conv_b": pm(torch.zeros(d_in + 2 * n, dtype=dt, device=dev), "mlp"),
+        "A_log": pm(torch.log(torch.linspace(1.0, 16.0, h, device=dev)),
+                    None),
+        "D": pm(torch.ones(h, device=dev), None),
+        "dt_bias": pm(torch.zeros(h, device=dev), None),
+        "norm_scale": pm(torch.ones(d_in, dtype=dt, device=dev), "mlp"),
+        "out_proj": pm(fan_in_init(gen, (d_in, d), dtype=dt), "mlp", "embed"),
     }
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv + silu over a whole sequence.  x: [b, l, c];
-    w: [k, c]."""
-    k = w.shape[0]
-    pad = torch.zeros(x.shape[0], k - 1, x.shape[2], dtype=x.dtype,
-                      device=x.device)
-    xp = torch.cat([pad, x], dim=1)
-    out = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(k)) + b
-    return F.silu(out)
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None):
+    """The RG-LRU block's depthwise causal conv, then silu.  Returns (out
+    [b, l, c], the new state)."""
+    out, new_state = rglru_lib._causal_conv(x, w, b, state)
+    return F.silu(out), new_state
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -99,11 +112,13 @@ def chunk_scan_via(linear_scan: Callable) -> Callable:
     return scan_fn
 
 
-def ssd_chunked(x, dt, A, B, C, chunk: int, scan_fn: Callable):
+def ssd_chunked(x, dt, A, B, C, chunk: int, init_state=None,
+                scan_fn: Optional[Callable] = None):
     """x: [b,l,h,p]; dt: [b,l,h]; A: [h] (positive, used as −A); B, C:
-    [b,l,n].  Returns (y [b,l,h,p], final_state [b,h,p,n]), starting from
-    a zero state.  ``scan_fn`` is the inter-chunk recurrence
-    (:func:`chunk_scan_via`)."""
+    [b,l,n]; ``init_state`` [b,h,p,n] or None for zeros.  Returns (y
+    [b,l,h,p], final_state [b,h,p,n]).  ``scan_fn`` is the inter-chunk
+    recurrence ``s_new = s·dec + st`` (:func:`chunk_scan_via`); None runs
+    it on ``rglru_scan``'s plain version, as the reference's ``lax.scan``."""
     b, l, h, p = x.shape
     n = B.shape[-1]
     q = min(chunk, l)
@@ -132,7 +147,10 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, scan_fn: Callable):
 
     # inter-chunk recurrence
     chunk_decay = torch.exp(torch.sum(dAr, dim=2))           # [b,nc,h]
-    s0 = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+    s0 = (torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+          if init_state is None else init_state.float())
+    if scan_fn is None:
+        scan_fn = chunk_scan_via(kref.rglru_scan_ref)
     final_state, prev_states = scan_fn(chunk_decay, states, s0)
 
     # inter-chunk contribution
@@ -143,20 +161,64 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, scan_fn: Callable):
     return y, final_state
 
 
-def ssd_block(params, x: torch.Tensor, cfg, scan_fn: Callable):
+def ssd_block(params, x: torch.Tensor, cfg, state=None,
+              scan_fn: Optional[Callable] = None):
     """Full Mamba-2 mixer over a whole sequence.  x: [b, l, d] ->
-    ([b, l, d], the final SSM state [b,h,p,n] f32)."""
+    ([b, l, d], {"ssm": [b,h,p,n] f32, "conv": [b, k-1, d_in+2n]}).
+    ``state`` (a cache of :func:`init_ssd_cache`, or None for zeros) is
+    read, not written; ``scan_fn`` goes to :func:`ssd_chunked`."""
     d_in, h, p, n = ssd_dims(cfg)
     z, xbc, dt = _project(params, x, cfg)
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                 None if state is None else state["conv"])
     xs = xbc[..., :d_in].reshape(x.shape[0], x.shape[1], h, p).float()
     B = xbc[..., d_in:d_in + n].float()
     C = xbc[..., d_in + n:].float()
     A = torch.exp(params["A_log"])
-    y, final = ssd_chunked(xs, dt, A, B, C, cfg.ssm_chunk, scan_fn=scan_fn)
+    y, final = ssd_chunked(xs, dt, A, B, C, cfg.ssm_chunk,
+                           None if state is None else state["ssm"],
+                           scan_fn=scan_fn)
     y = y + params["D"][None, None, :, None] * xs
     y = y.reshape(x.shape[0], x.shape[1], d_in).to(x.dtype)
     y = y * F.silu(z)
     y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
     out = torch.einsum("ble,ed->bld", y, params["out_proj"])
-    return out, final
+    return out, {"ssm": final, "conv": new_conv}
+
+
+def ssd_decode_step(params, x: torch.Tensor, cache, cfg):
+    """One token by the recurrent form.  x: [b, 1, d] -> ([b, 1, d],
+    cache), the new ``ssm`` and ``conv`` written into ``cache`` in
+    place."""
+    d_in, h, p, n = ssd_dims(cfg)
+    z, xbc, dt = _project(params, x, cfg)
+    xbc, new_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                 cache["conv"])
+    xs = xbc[..., :d_in].reshape(x.shape[0], 1, h, p).float()[:, 0]
+    B = xbc[..., d_in:d_in + n].float()[:, 0]                # [b,n]
+    C = xbc[..., d_in + n:].float()[:, 0]
+    A = torch.exp(params["A_log"])
+    dt0 = dt[:, 0]                                            # [b,h]
+    dA = torch.exp(-A * dt0)
+    s = cache["ssm"] * dA[:, :, None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dt0, xs, B)
+    y = torch.einsum("bn,bhpn->bhp", C, s) + params["D"][None, :, None] * xs
+    y = y.reshape(x.shape[0], 1, d_in).to(x.dtype)
+    y = y * F.silu(z)
+    y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
+    out = torch.einsum("ble,ed->bld", y, params["out_proj"])
+    cache["ssm"].copy_(s)
+    cache["conv"].copy_(new_conv)
+    return out, cache
+
+
+def init_ssd_cache(cfg, batch: int, device=None) -> dict:
+    """Zeroed decode state: ``ssm`` [b,h,p,n] f32 and ``conv`` [b, k-1,
+    d_in+2n] in the activation dtype ``cfg.dtype`` (the reference's bf16
+    buffer takes the activations' dtype after its first step; the zeros
+    are equal in either, as ``rglru.init_rglru_cache`` says)."""
+    d_in, h, p, n = ssd_dims(cfg)
+    return {"ssm": torch.zeros(batch, h, p, n, dtype=torch.float32,
+                               device=device),
+            "conv": torch.zeros(batch, cfg.conv_width - 1, d_in + 2 * n,
+                                dtype=dtype_of(cfg), device=device)}

@@ -1,5 +1,6 @@
 """Decoder-only transformer stack: the port's copy of
-``repro/models/transformer.py`` for the ``attn`` block kind.
+``repro/models/transformer.py`` for the ``attn``, ``rec`` (RG-LRU) and
+``ssd`` (Mamba-2) block kinds.
 
 Layers are stacked per *segment* (``ModelConfig.segments``): a segment is
 a super-block of block kinds repeated N times, and its params are stacked
@@ -16,8 +17,12 @@ or each group of ``remat_group`` repeats when that divides the segment
 same regions but saves the outputs of the products without batch dims
 (``aten.mm``/``addmm``: the dense projections) and recomputes the rest,
 the counterpart of ``dots_with_no_batch_dims_saveable``.  ``lm_loss`` is
-the next-token cross-entropy.  The block kinds ``moe``, ``rec`` and
-``ssd`` wait for their slices.
+the next-token cross-entropy.  In decode every block writes its new state
+into the stacked caches through their views (the attention's k/v slots,
+the recurrent blocks' ``h``/``ssm`` and ``conv``).  A ``rec`` block takes
+``impl`` in prefill and train, as the reference's does (``"flash"``: the
+``rglru_scan`` kernel); an ``ssd`` block runs its chunk scan on the
+scan's plain version and launches no kernel, as the reference's LM does.  The block kind ``moe`` waits for its slice.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.sharding import (ParamMeta, add_axis, map_meta, pm,
                                          split_meta)
 
@@ -39,9 +46,8 @@ NEG_INF = attn_lib.NEG_INF
 # block kinds the port does not have yet, and the slice each waits for
 WAITING_KINDS = {
     "moe": "the mixture-of-experts slice (models/moe.py)",
-    "rec": "the hybrid slice (rglru decode step and cache)",
-    "ssd": "the SSD slice (ssd blocks and their decode step)",
 }
+KINDS = ("attn", "rec", "ssd")
 MODES = ("train", "prefill", "decode")
 REMATS = ("none", "full", "dots")
 # the products "dots" saves: those without batch dims (the dense
@@ -58,7 +64,7 @@ def _check_kind(kind: str) -> None:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet: it waits for "
             f"{WAITING_KINDS[kind]}")
-    if kind != "attn":
+    if kind not in KINDS:
         raise ValueError(kind)
 
 
@@ -70,9 +76,14 @@ def _check_kind(kind: str) -> None:
 def init_block(gen, cfg, kind: str):
     _check_kind(kind)
     d = cfg.d_model
+    if kind == "ssd":
+        return {"ln": L.init_rmsnorm(gen, d, cfg),
+                "ssd": ssm_lib.init_ssd(gen, cfg)}
+    init_mixer = (attn_lib.init_attention if kind == "attn"
+                  else rglru_lib.init_rglru)
     return {
         "ln1": L.init_rmsnorm(gen, d, cfg),
-        "attn": attn_lib.init_attention(gen, cfg),
+        kind: init_mixer(gen, cfg),
         "ln2": L.init_rmsnorm(gen, d, cfg),
         "mlp": L.init_mlp(gen, cfg),
     }
@@ -88,16 +99,33 @@ def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
                 cache=None, index: Optional[int] = None,
                 window_override=None, impl: str = "ref"):
     """Returns (x, new_cache).  In decode ``cache`` is written in place
-    (``attention.decode_attention``)."""
+    (``attention.decode_attention``, ``rglru_decode_step``,
+    ``ssd_decode_step``); the stack keeps no prefill cache, as the
+    reference's drops it."""
     _check_kind(kind)
     new_cache = cache
+    if kind == "ssd":
+        h = L.rmsnorm(params["ln"], x, cfg.norm_eps)
+        if mode == "decode":
+            s, new_cache = ssm_lib.ssd_decode_step(params["ssd"], h, cache,
+                                                   cfg)
+        else:
+            s, _ = ssm_lib.ssd_block(params["ssd"], h, cfg)
+        return x + s, new_cache
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
-    w = _attn_window(cfg, window_override)
-    if mode == "decode":
+    if kind == "rec":
+        if mode == "decode":
+            a, new_cache = rglru_lib.rglru_decode_step(params["rec"], h,
+                                                       cache, cfg)
+        else:
+            a, _ = rglru_lib.rglru_block(params["rec"], h, cfg, impl=impl)
+    elif mode == "decode":
         a, new_cache = attn_lib.decode_attention(
-            params["attn"], h, cache, index, positions, cfg, window=w)
+            params["attn"], h, cache, index, positions, cfg,
+            window=_attn_window(cfg, window_override))
     else:
-        a = attn_lib.attention(params["attn"], h, positions, cfg, window=w,
+        a = attn_lib.attention(params["attn"], h, positions, cfg,
+                               window=_attn_window(cfg, window_override),
                                impl=impl)
     x = x + a
     h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -108,6 +136,10 @@ def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
                      window_override=None, device=None):
     _check_kind(kind)
+    if kind == "rec":
+        return rglru_lib.init_rglru_cache(cfg, batch, device=device)
+    if kind == "ssd":
+        return ssm_lib.init_ssd_cache(cfg, batch, device=device)
     w = _attn_window(cfg, window_override)
     clen = min(cache_len, w) if w else cache_len
     return attn_lib.init_cache(cfg, batch, clen, device=device)
@@ -301,8 +333,8 @@ def lm_loss(params, cfg, tokens, labels, *, remat: str = "full",
             impl: str = "ref", remat_group: int = 1) -> torch.Tensor:
     """Next-token cross-entropy over the padded vocab (its padding is
     masked to −1e30), mean over the labels that are not ``-100``.  labels:
-    [B,S] int.  The reference adds the MoE aux loss, 0 for the ``attn``
-    kind."""
+    [B,S] int.  The reference adds the MoE aux loss, 0 for the ``attn``,
+    ``rec`` and ``ssd`` kinds."""
     logits = lm_forward(params, cfg, tokens, mode="train", remat=remat,
                         impl=impl, remat_group=remat_group)
     labels = labels.long()

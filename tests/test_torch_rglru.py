@@ -8,7 +8,8 @@ reference's ``repro/models/rglru.py`` on the CPU.
   rounds twice, so not bitwise);
 * ``_causal_conv`` (the Python ``sum`` order, then ``+ b``) and
   ``rglru_block`` on both scans against the reference at 1e-6 / 1e-5;
-* ``init_rglru``'s structure, and its Λ against the reference's.
+* ``init_rglru``'s ParamMeta tree (paths, shapes, axes), and its Λ
+  against the reference's.
 """
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from repro_torch import convert
 from repro_torch.kernels import ref as t_ref
 from repro_torch.models import rglru as t_rglru
 from repro_torch.models.detectors import _RecCfg
+from repro_torch.models.sharding import split_meta as t_split_meta
 from repro_torch.tree import tree_leaves, tree_paths
 
 torch.set_num_threads(1)
@@ -134,10 +136,13 @@ def test_rglru_block_matches_reference(impl):
 
 
 def test_init_rglru_structure_and_decay():
+    """A ParamMeta tree with the reference's paths, shapes and axes."""
     cfg = _RecCfg(d_model=16, lru_width=16, conv_width=4)
-    own = t_rglru.init_rglru(torch.Generator().manual_seed(0), cfg)
-    jparams = split_meta(j_rglru.init_rglru(jax.random.key(0),
-                                            _JCfg(16, 16, 4)))[0]
+    own, own_axes = t_split_meta(
+        t_rglru.init_rglru(torch.Generator().manual_seed(0), cfg))
+    jparams, jaxes = split_meta(j_rglru.init_rglru(jax.random.key(0),
+                                                   _JCfg(16, 16, 4)))
+    assert own_axes == jaxes
     assert tree_paths(own) == sorted((k,) for k in jparams)
     assert [tuple(l.shape) for l in tree_leaves(own)] == \
         [tuple(jparams[k].shape) for k in sorted(jparams)]

@@ -205,7 +205,33 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    copies at full width card vs CPU (the forward at [2, 128] and 8 decode
    steps with their caches): 2 layers within 1e-4; all 24 also against
    the same weights in f64 on the CPU, the card's values held at 4 times
-   the CPU's f32 distance from f64, read in the run.
+   the CPU's f32 distance from f64, read in the run;
+19. the remaining one-card families in bf16, one model on the card at a
+   time, each built after the last is freed (``memory_allocated``
+   printed before each build, the element count held to the
+   reference's): qwen2.5-32b whole (64 layers, 32,763,876,352 elements,
+   65.53 GB): the prefill step at [4, 512] and [1, 4096] with 64
+   ``flash_attention`` launches counted from 0 (busy share, device ms
+   by kind), K3 against ``impl="ref"`` at bf16's floor read in the run
+   (the plain bf16 prefill against the same weights walked in f32 one
+   layer at a time: no logit further apart than twice its distance,
+   every argmax equal), the serve path (``generate`` at B = 4, 128-token
+   prompts, 32 greedy tokens) against both prefills at that floor;
+   phi3.5-moe cut to 16 layers (21,069,172,736 elements) on both
+   dispatches (16 launches each; the prefill bitwise repeatable; the
+   first layer's routing bitwise alike), K3 and the scatter dispatch
+   held position by position before each row's first routing flip
+   (every flip within the runs' gate gap), its serve path; qwen2-vl-72b
+   cut to 16 layers (16,534,380,544 elements) with 1,024 stub patches
+   before 512 tokens at B = 2 on M-RoPE positions (16 launches), at
+   bf16's floor, its serve path (text only); seamless-m4t-large-v2 whole
+   (1,632,233,472 elements) through the serve CLI at ``--full`` (no
+   kernel), then encode [4, 1024] frames + decode_train [4, 128]; a
+   2-layer f32 cut of each card vs CPU within 1e-4 (the forward with its
+   patches or frames, 4 decode steps on f32 caches; phi3.5-moe's on both
+   dispatches, rows held until a routing flip); K3 at qwen2.5's [4, 512,
+   40 | 8, 128] and qwen2-vl's [2, 1536, 64 | 8, 128] against its plain
+   version, timed beside SDPA and its bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -3595,6 +3621,23 @@ REC_GEMM = LMT_KINDS[1][1]     # cuBLAS kernel names
 REC_GEMM_F32 = r"f32f32|sgemm"  # of those, the f32 products' (TF32 off)
 
 
+def device_by_kind(by_kernel) -> dict:
+    """(calls, device ms) of a profile's kernels by kind: K2, K3, the
+    cuBLAS GEMMs in f32 (TF32 off) and in bf16 by kernel name, and the
+    rest."""
+    kinds = {k: [0, 0.0] for k in ("K2", "K3", "f32 GEMMs", "bf16 GEMMs",
+                                    "other")}
+    for name, (n, t) in by_kernel.items():
+        kind = ("K2" if "rglru_scan" in name else
+                "K3" if FA_MMA_KERNEL in name else
+                "other" if not re.search(REC_GEMM, name) else
+                "f32 GEMMs" if re.search(REC_GEMM_F32, name) else
+                "bf16 GEMMs")
+        kinds[kind][0] += n
+        kinds[kind][1] += t
+    return kinds
+
+
 def rec_prefill(torch, fak, rgk, model, params, tokens, card):
     """recurrentgemma-9b's prefill step (``forward(impl="flash",
     last_only=True)``): K2's and K3's counts set to 0 just before the
@@ -3633,16 +3676,7 @@ def rec_prefill(torch, fak, rgk, model, params, tokens, card):
         walls.append((time.perf_counter() - t0) * 1e3)
         check(counts() == (REC_K2, REC_K3), "launches of a warm prefill")
     prof_wall, device, busy_ms, by_kernel = lm_profiled(torch, step)
-    kinds = {k: [0, 0.0] for k in ("K2", "K3", "f32 GEMMs", "bf16 GEMMs",
-                                    "other")}
-    for name, (n, t) in by_kernel.items():
-        kind = ("K2" if "rglru_scan" in name else
-                "K3" if FA_MMA_KERNEL in name else
-                "other" if not re.search(REC_GEMM, name) else
-                "f32 GEMMs" if re.search(REC_GEMM_F32, name) else
-                "bf16 GEMMs")
-        kinds[kind][0] += n
-        kinds[kind][1] += t
+    kinds = device_by_kind(by_kernel)
     check((kinds["K2"][0], kinds["K3"][0]) == (REC_K2, REC_K3),
           f"K2, K3 kernel calls in a profiled prefill: {kinds}")
     warm = statistics.median(walls)
@@ -3739,7 +3773,8 @@ def f64_mode(torch):
 
 def cut_card_vs_cpu(torch, model, params, tokens, steps: int, what: str,
                     impls=("flash", "ref"), k2=None,
-                    exact: bool = False) -> dict:
+                    exact: bool = False, extra=None,
+                    f32_caches: bool = False) -> dict:
     """An f32 model on the card against its copy on the CPU: the last
     logits of ``forward`` at each impl (with ``k2``, ``rglru_scan``'s
     launches on the card counted: one a ``rec`` layer at ``"flash"``, none
@@ -3750,9 +3785,13 @@ def cut_card_vs_cpu(torch, model, params, tokens, steps: int, what: str,
     (:func:`f64_mode`), and both f32 runs are read against it: each value
     of the card's, against the CPU's and against f64, is then held at
     COND_MULT times the CPU's own f32 distance from f64, and never under
-    LM_F32_TOL."""
+    LM_F32_TOL.  ``extra`` adds entries to the forward's batch (a
+    frontend's stub embeddings); with ``f32_caches`` both devices' caches
+    are f32 (:func:`f32_cache`)."""
     v = model.cfg.vocab_size
     cpu_params = tree_to(params, "cpu")
+    batch = {"tokens": tokens, **(extra or {})}
+    cpu_batch = {k: t.cpu() for k, t in batch.items()}
     n_rec = model.cfg.pattern().count("rec")
     out = {}
     if exact:
@@ -3773,25 +3812,26 @@ def cut_card_vs_cpu(torch, model, params, tokens, steps: int, what: str,
     for impl in impls:
         if k2 is not None:
             k2.reset_launches()
-        on_card = model.forward(params, {"tokens": tokens}, impl=impl,
-                                last_only=True)
+        on_card = model.forward(params, batch, impl=impl, last_only=True)
         torch.cuda.synchronize()
         if k2 is not None:
             want = n_rec if impl == "flash" else 0
             check(k2.LAUNCHES["rglru_scan"] == want,
                   f"{what} forward({impl}): {k2.LAUNCHES['rglru_scan']} "
                   f"rglru_scan launches, not {want}")
-        on_cpu = model.forward(cpu_params, {"tokens": tokens.cpu()},
-                               impl=impl, last_only=True)
+        on_cpu = model.forward(cpu_params, cpu_batch, impl=impl,
+                               last_only=True)
         f64 = None
         if exact:
             with mode:
-                f64 = model.forward(params64, {"tokens": tokens.cpu()},
-                                    impl=impl, last_only=True)[..., :v]
+                f64 = model.forward(params64, cpu_batch, impl=impl,
+                                    last_only=True)[..., :v]
         note_all(f"forward_{impl}", on_card.cpu()[..., :v], on_cpu[..., :v],
                  f64)
     card_c = model.init_cache(tokens.shape[0], steps, params=params)
     cpu_c = model.init_cache(tokens.shape[0], steps, params=cpu_params)
+    if f32_caches:
+        card_c, cpu_c = f32_cache(torch, card_c), f32_cache(torch, cpu_c)
     if exact:
         with mode:
             c64 = model.init_cache(tokens.shape[0], steps, params=params64)
@@ -3824,6 +3864,17 @@ def cut_card_vs_cpu(torch, model, params, tokens, steps: int, what: str,
         check(out[k][0] <= bar, f"{what} {k}: {out[k][0]} over {bar}")
     return {k: {"max_abs_err": e, "max_abs": m, "bar": bars.get(k)}
             for k, (e, m) in out.items()}
+
+
+def f32_cache(torch, caches):
+    """The caches with every bf16 k/v buffer in f32.  An f32 model's
+    decode writes its k/v into bf16 caches (the reference's layout), and
+    a value the card and the CPU compute 1e-6 apart can round to bf16 an
+    ulp apart: 7.8e-3 at 4.3 in qwen2.5-32b's f32 cut, which moved the
+    next logits by 1.4e-3 (NVIDIA H100 80GB HBM3).  The card-vs-CPU
+    decode of an f32 cut with attention keeps them in f32 on both
+    devices, as the CPU tests keep an f32 model's caches."""
+    return tree_to(caches, torch.float32)
 
 
 def rec_bf16_floor(torch, cfg, params, token_sets) -> dict:
@@ -4094,6 +4145,676 @@ def phase_recurrent_lm(torch, fak, rgk, ref, card, ptxas):
     return out, rows
 
 
+# phase 19: the remaining one-card model families at full width in bf16:
+# qwen2.5-32b whole (64 dense attn layers, QKV bias, 40 | 8 heads of 128),
+# phi3.5-moe cut to 16 of its 32 layers (16 experts, top-2; both
+# dispatches), qwen2-vl-72b cut to 16 of its 80 layers (1,024 stub patch
+# embeddings before the text, M-RoPE positions, 64 | 8 heads of 128) and
+# seamless-m4t-large-v2 whole (24 + 24 encoder-decoder layers on 1,024
+# stub frame embeddings; no kernel, as the reference's encoder-decoder)
+FAM_QWEN, FAM_MOE, FAM_VL, FAM_ED = ("qwen2p5_32b", "phi3p5_moe_42b",
+                                     "qwen2_vl_72b", "seamless_m4t_large_v2")
+# lm_param_shapes' elements (the reference's, at each depth run here)
+FAM_ELEMENTS = {FAM_QWEN: 32_763_876_352, FAM_MOE: 21_069_172_736,
+                FAM_VL: 16_534_380_544, FAM_ED: 1_632_233_472}
+FAM_LAYERS = {FAM_MOE: 16, FAM_VL: 16}   # depth cuts (32 and 80 published)
+FAM_K3 = {FAM_QWEN: 64, FAM_MOE: 16, FAM_VL: 16, FAM_ED: 0}
+VL_PREFILL = (2, 1024, 512)    # B, stub patches, text tokens
+ED_PREFILL = (4, 1024, 128)    # B, stub frames, teacher-forced tokens
+FAM_CUT = 2                    # layers of each f32 cut (encoder: 2 + 2)
+FAM_CUT_TOKENS = (2, 128)      # B, S of the f32 cuts' forward
+FAM_CUT_FRONT = 64             # the f32 cuts' patches / frames
+FAM_CUT_STEPS = 4              # decode steps card vs CPU of each f32 cut
+MOE_IMPLS = ("einsum", "scatter")
+# two bf16 paths each no further from the f32 result than the plain bf16
+# prefill (the floor read in the run) lie at most twice that apart
+FLOOR_MULT = 2.0
+# K3 at the two new prefill shapes (phi3.5-moe's is granite's shape: its
+# 16 launches go on phase 15's row)
+FAM_FA_CASES = (
+    ("flash_attention_lm_qwen2p5", (4, 512, 40, 8, 128), None, FAM_QWEN),
+    ("flash_attention_lm_qwen2_vl", (2, 1536, 64, 8, 128), None, FAM_VL))
+
+
+class RoutingSpy:
+    """Records the router's softmax gates [b, s, e] and the top-k expert
+    choices of every ``moe`` block call (``models/moe.py`` ``_choose``,
+    which both dispatches call) while entered, in call order, on the
+    host.  Given ``replay`` (another run's ``choices``), each call takes
+    that run's experts in place of its own argmaxes: its gates, and so its
+    gate values and aux loss, are its own; its dispatch, capacity drops
+    and queue positions follow the replayed choices.  Two runs that round
+    apart then route alike, and differ by their rounding alone."""
+
+    def __init__(self, replay=None):
+        from repro_torch.models import moe
+        self.moe, self.replay = moe, replay
+        self.gates, self.choices = [], []
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        choose, replay = self.moe._choose, iter(self.replay or ())
+
+        def spy(router_w, x, cfg):
+            if self.replay is None:
+                out = choose(router_w, x, cfg)
+            else:
+                gates = torch.softmax(torch.einsum(
+                    "bsd,de->bse", x.float(), router_w), dim=-1)
+                idxs = [i.to(gates.device) for i in next(replay)]
+                masks = [F.one_hot(i, cfg.n_experts).float() for i in idxs]
+                gvals = [torch.sum(gates * m, dim=-1) for m in masks]
+                aux = cfg.n_experts * torch.sum(
+                    torch.mean(masks[0], dim=(0, 1)) *
+                    torch.mean(gates, dim=(0, 1))) * cfg.router_aux_coef
+                out = gates, idxs, masks, gvals, aux
+            self.gates.append(out[0].detach().float().cpu())
+            self.choices.append([i.detach().cpu() for i in out[1]])
+            return out
+
+        self.choose, self.moe._choose = choose, spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._choose = self.choose
+
+
+def routing_compare(torch, a, b, k: int) -> dict:
+    """Two runs' top-``k`` expert sets, call by call: the share of (token,
+    call) sets that agree, each batch row's first position where a set
+    differs in any call (S where none), and each flip's gate margin (the
+    smaller of the two runs' gaps between their k-th and (k+1)-th gate)
+    beside the two runs' gate gap at that token (the largest difference of
+    a gate).  A flip is accepted only where its margin is within that
+    gap: the runs' gates order the experts apart."""
+    check(len(a) == len(b) > 0, f"routing calls {len(a)} and {len(b)}")
+    bsz, s, _ = a[0].shape
+    first = [s] * bsz
+    agree = total = 0
+    flips = []
+    for ga, gb in zip(a, b):
+        sa, ia = ga.sort(dim=-1, descending=True, stable=True)
+        sb, ib = gb.sort(dim=-1, descending=True, stable=True)
+        same = (ia[..., :k].sort(-1).values ==
+                ib[..., :k].sort(-1).values).all(-1)
+        agree += int(same.sum())
+        total += same.numel()
+        for r, p in (~same).nonzero().tolist():
+            first[r] = min(first[r], p)
+            margin = min(float(sa[r, p, k - 1] - sa[r, p, k]),
+                         float(sb[r, p, k - 1] - sb[r, p, k]))
+            gap = float((ga[r, p] - gb[r, p]).abs().max())
+            flips.append((margin, gap))
+    out = {"share": agree / total, "flips": len(flips), "first": first,
+           "s": s,
+           "rows_without_flip": sum(f == s for f in first),
+           "min_flip_margin": min((m for m, _ in flips), default=None),
+           "gap_at_min_margin": min(flips)[1] if flips else None}
+    for margin, gap in flips:
+        check(margin <= gap, f"a routing flip at margin {margin} over the "
+              f"runs' gate gap {gap}")
+    return out
+
+
+def routing_line(what: str, r: dict) -> str:
+    extra = (f", least flip margin {r['min_flip_margin']:.3e} (gate gap "
+             f"{r['gap_at_min_margin']:.3e})" if r["flips"] else "")
+    return (f"  {what}: top-2 sets agree {100 * r['share']:.3f} %, "
+            f"{r['flips']} flips{extra}; rows without a flip "
+            f"{r['rows_without_flip']}/{len(r['first'])}")
+
+
+def fam_build(torch, arch: str, card) -> tuple:
+    """The model and its params on the card from seed 0, after printing
+    what is allocated; the element count held to the reference's."""
+    from repro_torch.models.model import build
+
+    cfg = get_cfg(arch)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = build(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device="cuda")
+    torch.cuda.synchronize()
+    n, nbytes = tree_bytes(params)
+    want = FAM_ELEMENTS[arch]
+    out = {"allocated_before": before, "seconds": time.perf_counter() - t0,
+           "elements": n, "reference_elements": want, "bytes": nbytes,
+           "n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+           "param_count": cfg.param_count(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print(f"  built {cfg.name}: {cfg.n_layers} layers"
+          + (f" + {cfg.enc_layers} encoder layers" if cfg.enc_layers else "")
+          + f", d_model {cfg.d_model}, {n:,} elements (the reference's "
+          f"{want:,}; param_count {cfg.param_count():,}), "
+          f"{nbytes / 1e9:.2f} GB in {out['seconds']:.2f} s; allocated "
+          f"before it {before / 1e9:.2f} GB, max "
+          f"{out['max_memory_allocated'] / 1e9:.2f} GB  ({card})")
+    check(n == want, f"{cfg.name}: {n} elements, the reference's {want}")
+    return model, params, out
+
+
+def get_cfg(arch: str):
+    """The architecture's ``config()`` at the depth phase 19 runs."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+
+    cfg = get_arch(arch)
+    if arch in FAM_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=FAM_LAYERS[arch])
+    return cfg
+
+
+def fam_batch(torch, cfg, b: int, s: int, n_front: int, seed: int) -> dict:
+    """Tokens [b, s] and, where the config has a frontend, ``n_front``
+    stub embeddings [b, n_front, d] in the model's dtype, drawn from
+    ``seed`` on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                     generator=gen, device="cuda")}
+    if n_front:
+        batch["frontend"] = torch.randn(
+            b, n_front, cfg.d_model, generator=gen, device="cuda").to(
+            getattr(torch, cfg.dtype))
+    return batch
+
+
+def fam_prefill(torch, fak, model, params, batch, card, what: str,
+                k3: int):
+    """A prefill step (``forward(impl="flash", last_only=True)``): K3's
+    count set to 0 just before the main-path call and read just after
+    (``k3`` launches); three warm calls by the host clock, counted again;
+    one profiled call (busy share, device ms by kind, K3's calls)."""
+
+    def step():
+        return model.forward(params, batch, impl="flash", last_only=True)
+
+    fak.reset_launches()
+    logits = step()
+    torch.cuda.synchronize()
+    launches = fak.LAUNCHES["flash_attention"]
+    check(launches == k3, f"{what}: {launches} flash_attention launches, "
+          f"not {k3}")
+    check(bool(torch.isfinite(logits[..., :model.cfg.vocab_size]).all()),
+          f"{what}: non-finite logits")
+    walls = []
+    for _ in range(3):
+        fak.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check(fak.LAUNCHES["flash_attention"] == k3,
+              f"{what}: launches of a warm prefill")
+    prof_wall, device, busy_ms, by_kernel = lm_profiled(torch, step)
+    kinds = device_by_kind(by_kernel)
+    check(kinds["K3"][0] == k3, f"{what}: {kinds['K3'][0]} K3 kernel calls "
+          f"in a profiled prefill, not {k3}")
+    warm = statistics.median(walls)
+    out = {"launches": launches, "warm_wall_ms": walls,
+           "warm_wall_ms_median": warm, "profiled_wall_ms": prof_wall,
+           "device_busy_ms": busy_ms, "device_busy_share": busy_ms / prof_wall,
+           "device_ops": len(device),
+           "device_ms_by_kind": {k: {"calls": n, "ms": t}
+                                 for k, (n, t) in kinds.items()},
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print(f"  {what}: {launches} flash_attention launches a call; warm wall "
+          f"{warm:.2f} ms ({', '.join(f'{w:.2f}' for w in walls)}); "
+          f"profiled {prof_wall:.2f} ms, device busy {busy_ms:.2f} ms "
+          f"(share {busy_ms / prof_wall:.3f}, {len(device)} ops); max "
+          f"allocated {out['max_memory_allocated'] / 1e9:.2f} GB  ({card})")
+    for kind, (n, t) in kinds.items():
+        if n:
+            print(f"    device {kind}: {n} calls, {t:.3f} ms "
+                  f"({100 * t / busy_ms:.1f} % of busy)")
+    return logits, out
+
+
+def f32_walk(torch, model, params, batch, last_only: bool = True):
+    """The plain prefill's (``impl="ref"``) logits (the last position's, or
+    every one) of the bf16 params run in f32, one layer cast to f32 at a
+    time (an exact cast), so no f32 copy of the model is held: bf16's own
+    rounding is what the bf16 run adds to it."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    x = L.embed(params["embed"], batch["tokens"]).float()
+    if "frontend" in batch:
+        x = torch.cat([batch["frontend"].float(), x], dim=1)
+    pos = model._vlm_positions(batch)
+    if pos is None:
+        b, s = x.shape[:2]
+        pos = T._positions(cfg, torch.arange(
+            s, dtype=torch.int32, device=x.device).expand(b, s))
+    for si, (kinds, reps) in enumerate(cfg.segments()):
+        for r in range(reps):
+            layer = tree_to(T._index(params["stack"][si], r), torch.float32)
+            for i, kind in enumerate(kinds):
+                x, _, _ = T.apply_block(layer[f"b{i}"], kind, x, pos, cfg32,
+                                        mode="prefill", impl="ref")
+            del layer
+    head = {k: tree_to(params[k], torch.float32)
+            for k in ("final_ln", "head", "embed") if k in params}
+    return T.lm_logits(head, cfg32, x[:, -1:] if last_only else x)
+
+
+def fam_floor(torch, model, params, batch, what: str) -> tuple:
+    """bf16's floor read in the run: the plain prefill's last logits
+    (``impl="ref"``) against the same weights run in f32
+    (:func:`f32_walk`).  Returns (the plain logits, the :func:`lm_close`
+    record of the pair)."""
+    v = model.cfg.vocab_size
+    plain = model.forward(params, batch, impl="ref", last_only=True)
+    f32 = f32_walk(torch, model, params, batch)
+    floor = lm_close(torch, plain[..., :v], f32[..., :v], LM_BF16_TOL,
+                     f"{what}: bf16's floor, impl=ref bf16 vs the f32 walk",
+                     gate=False)
+    return plain, floor
+
+
+def at_floor(torch, got, want, floor: dict, what: str,
+             ties: bool = False) -> dict:
+    """``got`` against ``want`` (both bf16 paths' last logits) at bf16's
+    floor: no element further apart than FLOOR_MULT times the plain path's
+    largest distance from f32 (``floor``: two paths each as close to exact
+    as the plain one lie at most twice that apart), and every argmax
+    equal; with ``ties``, every argmax of a row whose top-2 logits lie
+    further apart than twice the pair's largest difference (a closer pair
+    may reorder within it).  The count past LM_BF16_TOL is recorded beside
+    the floor's."""
+    out = lm_close(torch, got, want, LM_BF16_TOL, what, gate=False)
+    bar, err = FLOOR_MULT * floor["max_abs_err"], out["max_abs_err"]
+    eq = got.argmax(-1) == want.argmax(-1)
+    if ties:
+        top2 = want.topk(2, dim=-1).values
+        eq |= top2[..., 0] - top2[..., 1] <= 2 * err
+    out.update({"floor_bar": bar, "floor_beyond": floor["beyond"]})
+    print(f"    max|err| {err:.3e} against the floor's bar {bar:.3e} "
+          f"({FLOOR_MULT:g} x {floor['max_abs_err']:.3e}); {out['beyond']} "
+          f"beyond {LM_BF16_TOL} (the floor's {floor['beyond']})")
+    check(err <= bar, f"{what}: {err} past bf16's floor {bar}")
+    check(bool(eq.all()), f"{what}: an argmax differs")
+    return out
+
+
+def fam_flash_vs_ref(torch, model, params, batch, flash, what: str) -> dict:
+    """The prefill step on K3 against the plain prefill (``impl="ref"``)
+    at bf16's floor (:func:`at_floor`)."""
+    v = model.cfg.vocab_size
+    plain, floor = fam_floor(torch, model, params, batch, what)
+    return {"ref_vs_f32": floor, "flash_vs_ref": at_floor(
+        torch, flash[..., :v], plain[..., :v], floor,
+        f"{what}: impl=flash vs impl=ref (bf16)")}
+
+
+def moe_checks(torch, model, params, batch, last, spies, what: str) -> dict:
+    """phi3.5-moe's prefill in bf16 on both dispatches.  Left to route
+    freely, 16 layers of top-2 routing turn bf16's rounding into routing
+    flips (each within the runs' gate gap, :func:`routing_compare`) that
+    move every later position of the row: K3's prefill (``last["einsum"]``)
+    against the plain one, and the scatter dispatch against the einsum
+    one, are recorded so.  Then each is held at bf16's floor
+    (:func:`at_floor`, every row) with every run replaying the einsum
+    prefill's expert choices (:class:`RoutingSpy`): the plain prefill,
+    the same weights walked in f32 (the floor), the scatter dispatch."""
+    from repro_torch.models import transformer as T
+
+    v, k = model.cfg.vocab_size, model.cfg.experts_per_token
+    with RoutingSpy() as free_ref:
+        model.forward(params, batch, impl="ref", last_only=True)
+    out = {"routing_flash_vs_ref": routing_compare(
+        torch, free_ref.gates, spies["einsum"].gates, k),
+        "routing_scatter_vs_einsum": routing_compare(
+        torch, spies["einsum"].gates, spies["scatter"].gates, k)}
+    for key in ("routing_flash_vs_ref", "routing_scatter_vs_einsum"):
+        print(routing_line(f"{what}: {key[8:]}, routed freely", out[key]))
+    replay = spies["einsum"].choices
+    with RoutingSpy(replay):
+        plain = model.forward(params, batch, impl="ref", last_only=True)
+    with RoutingSpy(replay):
+        f32 = f32_walk(torch, model, params, batch)
+    floor = lm_close(torch, plain[..., :v], f32[..., :v], LM_BF16_TOL,
+                     f"{what}: bf16's floor, impl=ref bf16 vs the f32 walk "
+                     "(routing replayed)", gate=False)
+    out["ref_vs_f32"] = floor
+    out["flash_vs_ref"] = at_floor(
+        torch, last["einsum"][..., :v], plain[..., :v], floor,
+        f"{what}: impl=flash vs impl=ref (bf16, routing replayed)")
+    try:
+        T.MOE_IMPL[0] = "scatter"
+        with RoutingSpy(replay):
+            scatter = model.forward(params, batch, impl="flash",
+                                    last_only=True)
+    finally:
+        T.MOE_IMPL[0] = "einsum"
+    # the dispatches round the combine apart (one bf16 rounding of a
+    # two-term sum, against three): a row whose top-2 logits lie closer
+    # than that difference may reorder (on an H100 80GB HBM3, one row of
+    # four: a gap of 0.061 under a difference of 0.211)
+    out["scatter_vs_einsum"] = at_floor(
+        torch, scatter[..., :v], last["einsum"][..., :v], floor,
+        f"{what}: scatter vs einsum dispatch (bf16, routing replayed)",
+        ties=True)
+    return out
+
+
+def fam_serve(torch, model, params, card, what: str,
+              forward_floor: bool) -> dict:
+    """The serve path (``generate``: 128-token prompts at B = 4, 32 greedy
+    tokens): ms a prefill_scan step and a decode step, tok/s, peak, one
+    profiled decode step.  With ``forward_floor`` (where the text-only
+    prefill step computes the scan's math: not a MoE, whose prefill step
+    drops tokens past an expert's capacity that a one-token step never
+    does) its last prefill logits against the prefill step's and the
+    plain prefill's at bf16's floor at the prompts (:func:`at_floor`)."""
+    from repro_torch.launch.serve import generate
+
+    v = model.cfg.vocab_size
+    prompts = lm_tokens(torch, model.cfg, LM_PREFILL[0], LM_PROMPT, seed=2)
+    torch.cuda.reset_peak_memory_stats()
+    gen = generate(model, params, prompts, LM_NEW)
+    serve = {"batch": LM_PREFILL[0], "prompt": LM_PROMPT, "new": LM_NEW,
+             "prefill_scan_s": gen["prefill_s"], "decode_s": gen["decode_s"],
+             "tok_per_s": LM_PREFILL[0] * LM_NEW / gen["decode_s"],
+             "decode_step_ms": gen["decode_s"] / LM_NEW * 1e3,
+             "prefill_scan_step_ms": gen["prefill_s"] / LM_PROMPT * 1e3,
+             "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    check(tuple(gen["tokens"].shape) == (LM_PREFILL[0], LM_NEW) and bool(
+        ((gen["tokens"] >= 0) & (gen["tokens"] < v)).all()),
+        f"{what}: greedy tokens")
+    check(bool(torch.isfinite(gen["prefill_logits"][..., :v]).all()),
+          f"{what}: non-finite prefill_scan logits")
+    if forward_floor:
+        batch = {"tokens": prompts}
+        plain, serve["ref_vs_f32"] = fam_floor(
+            torch, model, params, batch, f"{what} prompts")
+        flash = model.forward(params, batch, impl="flash", last_only=True)
+        for key, want, impl in (("scan_vs_forward_ref", plain, "ref"),
+                                ("scan_vs_forward", flash, "flash")):
+            serve[key] = at_floor(
+                torch, gen["prefill_logits"][..., :v], want[..., :v],
+                serve["ref_vs_f32"], f"{what}: prefill_scan last logits vs "
+                f"forward({impl}, last_only) (bf16)")
+        del plain, flash
+    last = LM_PROMPT + LM_NEW - 1
+    wall, device, busy_ms, _ = lm_profiled(torch, lambda: model.decode_step(
+        params, gen["tokens"][:, -1:], gen["caches"], last))
+    serve["decode_profile"] = {"wall_ms": wall, "device_busy_ms": busy_ms,
+                               "device_busy_share": busy_ms / wall,
+                               "device_ops": len(device)}
+    print(f"  {what} serve path: prefill_scan of {LM_PROMPT} tokens x "
+          f"{LM_PREFILL[0]} in {gen['prefill_s']:.3f} s "
+          f"({serve['prefill_scan_step_ms']:.2f} ms a step); {LM_NEW} greedy "
+          f"tokens in {gen['decode_s']:.3f} s ({serve['decode_step_ms']:.2f} "
+          f"ms a step, {serve['tok_per_s']:.1f} tok/s); one profiled decode "
+          f"step {wall:.2f} ms, busy {busy_ms:.2f} ms (share "
+          f"{busy_ms / wall:.3f}, {len(device)} ops); max allocated "
+          f"{serve['max_memory_allocated'] / 1e9:.2f} GB  ({card})")
+    del gen
+    return serve
+
+
+def fam_cut(torch, arch: str, what: str, extra_front: int = 0,
+            impls=("flash", "ref")) -> dict:
+    """The architecture's f32 cut (FAM_CUT layers at full width; the
+    encoder-decoder's encoder cut alike) on the card against its copy on
+    the CPU (:func:`cut_card_vs_cpu`, with ``extra_front`` stub patches or
+    frames in the forward)."""
+    import dataclasses
+
+    from repro_torch.models.model import build
+
+    cfg = get_cfg(arch)
+    cut = dataclasses.replace(cfg, n_layers=FAM_CUT, dtype="float32",
+                              enc_layers=FAM_CUT if cfg.enc_layers else 0)
+    model = build(cut)
+    params = model.init(0, device="cuda")
+    batch = fam_batch(torch, cut, *FAM_CUT_TOKENS, extra_front, seed=4)
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    out = cut_card_vs_cpu(torch, model, params, batch["tokens"],
+                          FAM_CUT_STEPS, what, impls=impls, extra=extra,
+                          f32_caches=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_cut(torch, what: str) -> dict:
+    """phi3.5-moe's f32 cut on the card against the CPU on both
+    dispatches: the forward's last logits (K3's f32 row kernel on the
+    card), then FAM_CUT_STEPS decode steps with their caches; a row is held
+    within LM_F32_TOL until the two devices route one of its tokens apart,
+    each such flip within the runs' gate gap (:func:`routing_compare`)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build
+
+    cfg = dataclasses.replace(get_cfg(FAM_MOE), n_layers=FAM_CUT,
+                              dtype="float32")
+    model = build(cfg)
+    params = model.init(0, device="cuda")
+    cpu_params = tree_to(params, "cpu")
+    tokens = lm_tokens(torch, cfg, *FAM_CUT_TOKENS, seed=4)
+    v, k = cfg.vocab_size, cfg.experts_per_token
+    out = {}
+    try:
+        for impl in MOE_IMPLS:
+            T.MOE_IMPL[0] = impl
+            with RoutingSpy() as a:
+                card_l = model.forward(params, {"tokens": tokens},
+                                       impl="flash", last_only=True).cpu()
+            with RoutingSpy() as b:
+                cpu_l = model.forward(cpu_params, {"tokens": tokens.cpu()},
+                                      impl="flash", last_only=True)
+            r = routing_compare(torch, a.gates, b.gates, k)
+            rows = [i for i, f in enumerate(r["first"]) if f == r["s"]]
+            err = max_abs(card_l[rows, :, :v], cpu_l[rows, :, :v]) \
+                if rows else 0.0
+            out[f"forward_{impl}"] = {"max_abs_err": err, "rows": len(rows),
+                                      "routing": r}
+            print(routing_line(f"{what} forward ({impl}), card vs CPU", r))
+    finally:
+        T.MOE_IMPL[0] = "einsum"
+    b = tokens.shape[0]
+    card_c = f32_cache(torch, model.init_cache(b, FAM_CUT_STEPS,
+                                               params=params))
+    cpu_c = f32_cache(torch, model.init_cache(b, FAM_CUT_STEPS,
+                                              params=cpu_params))
+    rows = list(range(b))
+    dec = {"logits": 0.0, "caches": 0.0}
+    for t in range(FAM_CUT_STEPS):
+        with RoutingSpy() as a:
+            lc, _ = model.decode_step(params, tokens[:, t:t + 1], card_c, t)
+        with RoutingSpy() as bb:
+            lp, _ = model.decode_step(cpu_params, tokens[:, t:t + 1].cpu(),
+                                      cpu_c, t)
+        r = routing_compare(torch, a.gates, bb.gates, k)
+        rows = [i for i in rows if r["first"][i] == 1]
+        if not rows:
+            break
+        dec["logits"] = max(dec["logits"], max_abs(lc.cpu()[rows, :, :v],
+                                                   lp[rows, :, :v]))
+        for x, y in zip(tree_list(card_c), tree_list(cpu_c)):
+            dec["caches"] = max(dec["caches"], max_abs(x.cpu()[:, rows],
+                                                       y[:, rows]))
+    dec["rows_held"] = len(rows)
+    out["decode"] = dec
+    print(f"  {what}, card vs CPU (f32): " + ", ".join(
+        f"forward_{i} max|err| {out[f'forward_{i}']['max_abs_err']:.2e} "
+        f"over {out[f'forward_{i}']['rows']} rows" for i in MOE_IMPLS)
+        + f"; {FAM_CUT_STEPS} decode steps: logits {dec['logits']:.2e}, "
+        f"caches {dec['caches']:.2e} over {len(rows)} rows (tolerance "
+        f"{LM_F32_TOL})")
+    for i in MOE_IMPLS:
+        check(out[f"forward_{i}"]["rows"] > 0 and
+              out[f"forward_{i}"]["max_abs_err"] <= LM_F32_TOL,
+              f"{what} forward ({i}) card vs CPU: {out[f'forward_{i}']}")
+    check(rows and dec["logits"] <= LM_F32_TOL and
+          dec["caches"] <= LM_F32_TOL, f"{what} decode card vs CPU: {dec}")
+    del params, cpu_params, card_c, cpu_c
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(torch, fak, ref, card, ptxas) -> tuple:
+    """Phase 19: qwen2.5-32b, phi3.5-moe (16 layers), qwen2-vl-72b (16
+    layers) and seamless-m4t-large-v2 at full width in bf16 on the card,
+    one at a time: the build (elements beside the reference's), the
+    prefill step on K3 (64, 16, 16 and 0 launches) against ``impl="ref"``
+    at bf16's floor, the serve path at B = 4, a 2-layer f32 cut card vs
+    CPU; phi3.5-moe on both dispatches; K3 at qwen2.5's and qwen2-vl's
+    prefill shapes beside SDPA and its bound."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer as T
+
+    out = {}
+    t_phase = time.perf_counter()
+
+    # qwen2.5-32b, nothing cut: 65.5 GB of bf16 weights, the card alone
+    model, params, info = fam_build(torch, FAM_QWEN, card)
+    name = model.cfg.name
+    q = out[FAM_QWEN] = {"build": info}
+    batch = fam_batch(torch, model.cfg, *LM_PREFILL, 0, seed=1)
+    logits, q["prefill"] = fam_prefill(
+        torch, fak, model, params, batch, card,
+        f"{name} prefill {list(LM_PREFILL)}", FAM_K3[FAM_QWEN])
+    q["prefill"].update(fam_flash_vs_ref(torch, model, params, batch, logits,
+                                         f"{name} {list(LM_PREFILL)}"))
+    del logits, batch
+    torch.cuda.reset_peak_memory_stats()
+    batch = fam_batch(torch, model.cfg, *LM_LONG_PREFILL, 0, seed=5)
+    _, q["long_prefill"] = fam_prefill(
+        torch, fak, model, params, batch, card,
+        f"{name} prefill {list(LM_LONG_PREFILL)}", FAM_K3[FAM_QWEN])
+    del batch
+    q["serve"] = fam_serve(torch, model, params, card, name, True)
+    del params, model
+    q["cut_f32"] = fam_cut(torch, FAM_QWEN, f"{name} cut to {FAM_CUT} "
+                           f"layers {list(FAM_CUT_TOKENS)}")
+    q["seconds"] = time.perf_counter() - t_phase
+
+    # phi3.5-moe at 16 of 32 layers (42.1 GB), on both dispatches
+    t0 = time.perf_counter()
+    model, params, info = fam_build(torch, FAM_MOE, card)
+    name = model.cfg.name
+    m = out[FAM_MOE] = {"build": info}
+    batch = fam_batch(torch, model.cfg, *LM_PREFILL, 0, seed=1)
+    last, spies = {}, {}
+    try:
+        for impl in MOE_IMPLS:
+            T.MOE_IMPL[0] = impl
+            last[impl], m[f"prefill_{impl}"] = fam_prefill(
+                torch, fak, model, params, batch, card,
+                f"{name} prefill {list(LM_PREFILL)} ({impl})",
+                FAM_K3[FAM_MOE])
+            with RoutingSpy() as spies[impl]:
+                again = model.forward(params, batch, impl="flash",
+                                      last_only=True)
+            check(torch.equal(again, last[impl]), f"{name} ({impl}): the "
+                  "prefill step is not bitwise repeatable")
+    finally:
+        T.MOE_IMPL[0] = "einsum"
+    check(torch.equal(spies["einsum"].gates[0], spies["scatter"].gates[0]),
+          f"{name}: the first layer routes apart on the two dispatches")
+    m["bf16"] = moe_checks(torch, model, params, batch, last, spies,
+                           f"{name} {list(LM_PREFILL)}")
+    del last, spies, again, batch
+    m["serve"] = fam_serve(torch, model, params, card, name, False)
+    del params, model
+    m["cut_f32"] = moe_cut(torch, f"{name} cut to {FAM_CUT} layers "
+                           f"{list(FAM_CUT_TOKENS)}")
+    m["seconds"] = time.perf_counter() - t0
+
+    # qwen2-vl-72b at 16 of 80 layers (33.1 GB): stub patches, M-RoPE
+    t0 = time.perf_counter()
+    model, params, info = fam_build(torch, FAM_VL, card)
+    name = model.cfg.name
+    vl = out[FAM_VL] = {"build": info}
+    b, n_front, n_text = VL_PREFILL
+    batch = fam_batch(torch, model.cfg, b, n_text, n_front, seed=1)
+    logits, vl["prefill"] = fam_prefill(
+        torch, fak, model, params, batch, card,
+        f"{name} prefill [{b}, {n_front} patches + {n_text} tokens]",
+        FAM_K3[FAM_VL])
+    vl["prefill"].update(fam_flash_vs_ref(
+        torch, model, params, batch, logits, f"{name} {list(VL_PREFILL)}"))
+    del logits, batch
+    vl["serve"] = fam_serve(torch, model, params, card, name, True)
+    del params, model
+    vl["cut_f32"] = fam_cut(torch, FAM_VL, f"{get_cfg(FAM_VL).name} cut to "
+                            f"{FAM_CUT} layers {list(FAM_CUT_TOKENS)} + "
+                            f"{FAM_CUT_FRONT} patches", FAM_CUT_FRONT)
+    vl["seconds"] = time.perf_counter() - t0
+
+    # seamless-m4t-large-v2, nothing cut: the serve CLI (zero encoder
+    # output, as the reference's), then encode + teacher-forced decode
+    t0 = time.perf_counter()
+    fak.reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cli = serve_cli.main(["--arch", FAM_ED, "--full"])
+    torch.cuda.synchronize()
+    cfg = get_cfg(FAM_ED)
+    toks = cli["tokens"]
+    first = cli["prefill_logits"][:, 0, :cfg.vocab_size].argmax(-1)
+    check(tuple(toks.shape) == (4, 32) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all())
+        and torch.equal(toks[:, 0], first), f"{cfg.name} CLI tokens")
+    check(fak.LAUNCHES["flash_attention"] == 0,
+          f"the {cfg.name} serve CLI launched flash_attention")
+    ed = out[FAM_ED] = {"cli": {
+        "prefill_s": cli["prefill_s"], "decode_s": cli["decode_s"],
+        "tok_per_s": cli["tok_per_s"],
+        "decode_step_ms": cli["decode_s"] / 32 * 1e3,
+        "prefill_scan_step_ms": cli["prefill_s"] / 16 * 1e3,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}}
+    print(f"  {cfg.name} serve CLI --full (B 4, 16-token prompts, 32 "
+          f"tokens): prefill_scan {cli['prefill_s']:.3f} s "
+          f"({ed['cli']['prefill_scan_step_ms']:.2f} ms a step), decode "
+          f"{ed['cli']['decode_step_ms']:.2f} ms a step, "
+          f"{cli['tok_per_s']:.1f} tok/s, max allocated "
+          f"{ed['cli']['max_memory_allocated'] / 1e9:.3f} GB; no kernel "
+          f"launched  ({card})")
+    del cli, toks
+    model, params, ed["build"] = fam_build(torch, FAM_ED, card)
+    b, n_front, n_tok = ED_PREFILL
+    batch = fam_batch(torch, cfg, b, n_tok, n_front, seed=1)
+    logits, ed["forward"] = fam_prefill(
+        torch, fak, model, params, batch, card,
+        f"{cfg.name} encode [{b}, {n_front} frames] + decode_train "
+        f"[{b}, {n_tok}]", FAM_K3[FAM_ED])
+    full = model.forward(params, batch)
+    check(tuple(full.shape) == (b, n_tok, full.shape[-1]) and bool(
+        torch.isfinite(full[..., :cfg.vocab_size]).all()),
+        f"{cfg.name}: the teacher-forced logits")
+    del logits, full, batch, params, model
+    ed["cut_f32"] = fam_cut(torch, FAM_ED, f"{cfg.name} cut to {FAM_CUT} + "
+                            f"{FAM_CUT} layers {list(FAM_CUT_TOKENS)} + "
+                            f"{FAM_CUT_FRONT} frames", FAM_CUT_FRONT,
+                            impls=("ref",))
+    ed["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    rows = [check_lm_kernel(torch, fak, ref, kname, case, window,
+                            out[arch]["prefill"]["launches"],
+                            ptxas["flash_attention_mma"])
+            for kname, case, window, arch in FAM_FA_CASES]
+    for row in rows:
+        row["sdpa_ratio"] = row["ms"] / row["library_ms"]
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4287,6 +5008,18 @@ def main() -> int:
                                               ptxas)
     kernels += rec_rows
 
+    print(f"== 19. the remaining one-card families at full width, bf16: "
+          f"{FAM_QWEN} (whole), {FAM_MOE} ({FAM_LAYERS[FAM_MOE]} layers, "
+          f"both dispatches), {FAM_VL} ({FAM_LAYERS[FAM_VL]} layers, stub "
+          f"patches on M-RoPE), {FAM_ED} (whole)  ({card})")
+    with torch.no_grad():
+        families, fam_rows = phase_families(torch, fak, ref, card, ptxas)
+    kernels += fam_rows
+    for k in kernels:
+        if k["name"] == "flash_attention_lm_granite":
+            k["launches_phi3p5_moe"] = \
+                families[FAM_MOE]["prefill_einsum"]["launches"]
+
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -4298,7 +5031,7 @@ def main() -> int:
         "serve": serve, "serve_launches": serve_launches,
         "model_grid": grid, "privacy": privacy, "plan_frontier": plans,
         "population": population, "lm": lm, "fl_ops": fl_ops,
-        "lm_train": lm_train, "recurrent_lm": rec_lm,
+        "lm_train": lm_train, "recurrent_lm": rec_lm, "families": families,
         "total_s": time.perf_counter() - t_all,
     }
     OUT_DIR.mkdir(exist_ok=True)

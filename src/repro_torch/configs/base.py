@@ -218,14 +218,10 @@ ARCH_ALIASES = {
 # architectures whose config module the port does not have yet, and the
 # slice of the port each waits for
 WAITING = {
-    "phi3p5_moe_42b": "the mixture-of-experts slice (models/moe.py)",
-    "llama4_maverick_400b": "the mixture-of-experts slice (models/moe.py) "
-                            "and the sharding slice (400B over several cards)",
-    "seamless_m4t_large_v2": "the encoder-decoder slice (models/encdec.py)",
-    "mistral_large_123b": "the sharding slice (123B over several cards)",
-    "qwen2_vl_72b": "the VLM slice (M-RoPE frontend) and the sharding slice "
-                    "(72B over several cards)",
-    "qwen2p5_32b": "the sharding slice (65 GB of bf16 weights)",
+    "llama4_maverick_400b": "the sharding slice (789 GB of bf16 weights "
+                            "over several cards)",
+    "mistral_large_123b": "the sharding slice (245 GB of bf16 weights over "
+                          "several cards)",
 }
 
 

@@ -4,8 +4,10 @@ Prefill (full-causal or sliding-window) self-attention, on plain torch
 (``impl="ref"``, the reference's jnp einsums) or on the ``flash_attention``
 kernel (``impl="flash"``: the CUDA kernel for CUDA tensors, its plain
 version for CPU tensors; ``kernels/ops.py``), and one-token decode against
-a full or rolling KV cache.  ``encoder_attention``, ``cross_attention``
-and ``project_enc_kv`` wait for the encoder-decoder slice.
+a full or rolling KV cache.  The encoder-decoder's ``encoder_attention``
+(bidirectional), ``cross_attention`` (against K/V projected once by
+``project_enc_kv``) run on plain torch, with no ``impl``, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -95,6 +97,35 @@ def attention(params, x, positions, cfg, *, window: Optional[int] = None,
     else:
         out = _sdpa(q, k, v, causal_mask(x.shape[1], window, x.device))
     return dense(params["wo"], out.reshape(out.shape[:2] + (-1,)))
+
+
+def encoder_attention(params, x, positions, cfg) -> torch.Tensor:
+    """Bidirectional self-attention (the audio encoder).  x: [B,T,d]."""
+    hd = cfg.resolved_head_dim
+    q = _split_heads(dense(params["wq"], x), cfg.n_heads, hd)
+    k = _split_heads(dense(params["wk"], x), cfg.n_kv_heads, hd)
+    v = _split_heads(dense(params["wv"], x), cfg.n_kv_heads, hd)
+    q, k = _rope(q, k, positions, cfg)
+    out = _sdpa(q, k, v, None)
+    return dense(params["wo"], out.reshape(out.shape[:2] + (-1,)))
+
+
+def cross_attention(params, x, enc_kv, cfg) -> torch.Tensor:
+    """Decoder -> encoder attention.  enc_kv: the (k, v) pair
+    [B,T,Hkv,hd] of :func:`project_enc_kv`."""
+    hd = cfg.resolved_head_dim
+    q = _split_heads(dense(params["wq"], x), cfg.n_heads, hd)
+    k, v = enc_kv
+    out = _sdpa(q, k, v, None)
+    return dense(params["wo"], out.reshape(out.shape[:2] + (-1,)))
+
+
+def project_enc_kv(params, enc_out, cfg):
+    """The cross-attention's (k, v) [B,T,Hkv,hd] of the encoder output."""
+    hd = cfg.resolved_head_dim
+    k = _split_heads(dense(params["wk"], enc_out), cfg.n_kv_heads, hd)
+    v = _split_heads(dense(params["wv"], enc_out), cfg.n_kv_heads, hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

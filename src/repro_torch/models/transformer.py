@@ -1,6 +1,7 @@
 """Decoder-only transformer stack: the port's copy of
-``repro/models/transformer.py`` for the ``attn``, ``rec`` (RG-LRU) and
-``ssd`` (Mamba-2) block kinds.
+``repro/models/transformer.py`` for the ``attn``, ``moe`` (attention and
+a mixture of experts), ``rec`` (RG-LRU) and ``ssd`` (Mamba-2) block
+kinds.
 
 Layers are stacked per *segment* (``ModelConfig.segments``): a segment is
 a super-block of block kinds repeated N times, and its params are stacked
@@ -17,12 +18,20 @@ or each group of ``remat_group`` repeats when that divides the segment
 same regions but saves the outputs of the products without batch dims
 (``aten.mm``/``addmm``: the dense projections) and recomputes the rest,
 the counterpart of ``dots_with_no_batch_dims_saveable``.  ``lm_loss`` is
-the next-token cross-entropy.  In decode every block writes its new state
-into the stacked caches through their views (the attention's k/v slots,
-the recurrent blocks' ``h``/``ssm`` and ``conv``).  A ``rec`` block takes
-``impl`` in prefill and train, as the reference's does (``"flash"``: the
-``rglru_scan`` kernel); an ``ssd`` block runs its chunk scan on the
-scan's plain version and launches no kernel, as the reference's LM does.  The block kind ``moe`` waits for its slice.
+the next-token cross-entropy plus the ``moe`` blocks' aux loss, which
+``apply_stack`` sums over the layers as the reference's does.  In decode
+every block writes its new state into the stacked caches through their
+views (the attention's k/v slots, the recurrent blocks' ``h``/``ssm``
+and ``conv``).  A ``rec`` block takes ``impl`` in prefill and train, as
+the reference's does (``"flash"``: the ``rglru_scan`` kernel); an
+``ssd`` block runs its chunk scan on the scan's plain version and
+launches no kernel, as the reference's LM does.  A ``moe`` block's
+experts run on the dispatch ``MOE_IMPL[0]`` names (``"einsum"`` or
+``"scatter"``; ``models/moe.py``), a one-element list so a caller can
+flip it without threading a kwarg through every block, as in the
+reference.  ``lm_forward`` takes ``extra_embeds``, a multimodal
+frontend's embeddings prepended to the tokens' (the VLM's stub patches);
+``lm_loss`` drops their logits.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.sharding import (ParamMeta, add_axis, map_meta, pm,
@@ -43,11 +53,9 @@ from repro_torch.models.sharding import (ParamMeta, add_axis, map_meta, pm,
 VOCAB_PAD_TO = 256
 NEG_INF = attn_lib.NEG_INF
 
-# block kinds the port does not have yet, and the slice each waits for
-WAITING_KINDS = {
-    "moe": "the mixture-of-experts slice (models/moe.py)",
-}
-KINDS = ("attn", "rec", "ssd")
+# MoE dispatch: "einsum" (GShard one-hot) or "scatter" (index-based)
+MOE_IMPL = ["einsum"]
+KINDS = ("attn", "moe", "rec", "ssd")
 MODES = ("train", "prefill", "decode")
 REMATS = ("none", "full", "dots")
 # the products "dots" saves: those without batch dims (the dense
@@ -60,10 +68,6 @@ def padded_vocab(cfg) -> int:
 
 
 def _check_kind(kind: str) -> None:
-    if kind in WAITING_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: it waits for "
-            f"{WAITING_KINDS[kind]}")
     if kind not in KINDS:
         raise ValueError(kind)
 
@@ -79,14 +83,14 @@ def init_block(gen, cfg, kind: str):
     if kind == "ssd":
         return {"ln": L.init_rmsnorm(gen, d, cfg),
                 "ssd": ssm_lib.init_ssd(gen, cfg)}
-    init_mixer = (attn_lib.init_attention if kind == "attn"
-                  else rglru_lib.init_rglru)
-    return {
-        "ln1": L.init_rmsnorm(gen, d, cfg),
-        kind: init_mixer(gen, cfg),
-        "ln2": L.init_rmsnorm(gen, d, cfg),
-        "mlp": L.init_mlp(gen, cfg),
-    }
+    if kind == "rec":
+        mixer = {"rec": rglru_lib.init_rglru(gen, cfg)}
+    else:
+        mixer = {"attn": attn_lib.init_attention(gen, cfg)}
+    ffn = ({"moe": moe_lib.init_moe(gen, cfg)} if kind == "moe"
+           else {"mlp": L.init_mlp(gen, cfg)})
+    return {"ln1": L.init_rmsnorm(gen, d, cfg), **mixer,
+            "ln2": L.init_rmsnorm(gen, d, cfg), **ffn}
 
 
 def _attn_window(cfg, window_override):
@@ -98,7 +102,8 @@ def _attn_window(cfg, window_override):
 def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
                 cache=None, index: Optional[int] = None,
                 window_override=None, impl: str = "ref"):
-    """Returns (x, new_cache).  In decode ``cache`` is written in place
+    """Returns (x, new_cache, aux): ``aux`` is a ``moe`` block's aux loss,
+    else 0.  In decode ``cache`` is written in place
     (``attention.decode_attention``, ``rglru_decode_step``,
     ``ssd_decode_step``); the stack keeps no prefill cache, as the
     reference's drops it."""
@@ -111,7 +116,7 @@ def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
                                                    cfg)
         else:
             s, _ = ssm_lib.ssd_block(params["ssd"], h, cfg)
-        return x + s, new_cache
+        return x + s, new_cache, 0.0
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         if mode == "decode":
@@ -129,8 +134,10 @@ def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
                                impl=impl)
     x = x + a
     h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
-    x = x + L.mlp(params["mlp"], h, cfg.act)
-    return x, new_cache
+    if kind == "moe":
+        m, aux = moe_lib.moe_mlp(params["moe"], h, cfg, impl=MOE_IMPL[0])
+        return x + m, new_cache, aux
+    return x + L.mlp(params["mlp"], h, cfg.act), new_cache, 0.0
 
 
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
@@ -150,24 +157,27 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 
+def stack_layers(reps: int, init_one):
+    """``reps`` layers of ``init_one()`` (a ParamMeta tree) stacked along
+    a leading "layers" axis.  Layers are drawn one at a time and copied
+    into the stacked tensors, so no f32 draw of a whole stacked leaf is
+    ever held."""
+    stacked = None
+    for r in range(reps):
+        one = init_one()
+        if stacked is None:
+            stacked = add_axis(map_meta(lambda m: ParamMeta(
+                m.value.new_empty((reps,) + tuple(m.value.shape)),
+                m.axes), one), "layers")
+        _copy_into(split_meta(stacked)[0], split_meta(one)[0], r)
+    return stacked
+
+
 def init_stack(gen, cfg):
-    """Per-segment stacked param trees (with ParamMeta).  Layers are drawn
-    one at a time and copied into the stacked tensors, so no f32 draw of a
-    whole stacked leaf is ever held."""
-    out = []
-    for kinds, reps in cfg.segments():
-        stacked = None
-        for r in range(reps):
-            one = {f"b{i}": init_block(gen, cfg, kind)
-                   for i, kind in enumerate(kinds)}
-            if stacked is None:
-                stacked = add_axis(map_meta(lambda m: ParamMeta(
-                    m.value.new_empty((reps,) + tuple(m.value.shape)),
-                    m.axes), one), "layers")
-            vals = split_meta(one)[0]
-            _copy_into(split_meta(stacked)[0], vals, r)
-        out.append(stacked)
-    return out
+    """Per-segment stacked param trees (with ParamMeta)."""
+    return [stack_layers(reps, lambda kinds=kinds: {
+        f"b{i}": init_block(gen, cfg, kind) for i, kind in enumerate(kinds)})
+        for kinds, reps in cfg.segments()]
 
 
 def _copy_into(stacked, layer, r: int) -> None:
@@ -230,8 +240,9 @@ def apply_stack(stack_params, cfg, x, positions, *, mode: str, caches=None,
                 index: Optional[int] = None, window_override=None,
                 impl: str = "ref", remat: str = "none",
                 remat_group: int = 1):
-    """Run all segments.  Returns (x, caches): in decode the stacked
-    caches, written in place; else None.  ``remat`` and ``remat_group``
+    """Run all segments.  Returns (x, caches, aux): in decode the stacked
+    caches, written in place, else None; ``aux`` the sum of the ``moe``
+    blocks' aux losses (0 without one).  ``remat`` and ``remat_group``
     apply in mode ``"train"`` only, as in the reference."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
@@ -239,27 +250,31 @@ def apply_stack(stack_params, cfg, x, positions, *, mode: str, caches=None,
         raise ValueError(f"remat {remat!r}: one of {REMATS}")
     if mode != "train":
         remat = "none"
+    aux_total = 0.0
     for si, (kinds, reps) in enumerate(cfg.segments()):
         layers = _unbind(stack_params[si], reps)
         g = remat_group if (mode == "train" and remat_group > 1
                             and reps % remat_group == 0) else 1
 
         def group(h, r0, layers=layers, kinds=kinds, si=si):
+            aux = 0.0
             for r in range(r0, r0 + g):
                 cl = _index(caches[si], r) if mode == "decode" else None
                 for i, kind in enumerate(kinds):
-                    h, _ = apply_block(
+                    h, _, a = apply_block(
                         layers[r][f"b{i}"], kind, h, positions, cfg,
                         mode=mode,
                         cache=cl[f"b{i}"] if cl is not None else None,
                         index=index, window_override=window_override,
                         impl=impl)
-            return h
+                    aux = aux + a
+            return h, aux
 
         run = _remat(group, remat)
         for r0 in range(0, reps, g):
-            x = run(x, r0)
-    return x, (caches if mode == "decode" else None)
+            x, aux = run(x, r0)
+            aux_total = aux_total + aux
+    return x, (caches if mode == "decode" else None), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -307,42 +322,56 @@ def _positions(cfg, pos: torch.Tensor) -> torch.Tensor:
     return pos
 
 
-def lm_forward(params, cfg, tokens, positions=None, *, mode: str = "prefill",
-               remat: str = "none", window_override=None, impl: str = "ref",
-               last_only: bool = False, remat_group: int = 1) -> torch.Tensor:
-    """Train or prefill forward.  tokens: [B,S] int.  ``mode`` is
-    ``"prefill"`` (the port's default: serving) or ``"train"`` (the
-    reference's default), which applies ``remat``/``remat_group``.
-    ``last_only``: logits for the final position only (the serving
-    prefill).  Returns logits [B,S,V] or [B,1,V] (the reference also returns
-    an aux loss, zero without MoE)."""
+def lm_forward(params, cfg, tokens, positions=None, *, extra_embeds=None,
+               mode: str = "prefill", remat: str = "none",
+               window_override=None, impl: str = "ref",
+               last_only: bool = False, remat_group: int = 1):
+    """Train or prefill forward.  tokens: [B,S] int.  ``extra_embeds``:
+    optional [B,S_front,d] frontend embeddings (VLM patches) prepended to
+    the token embeddings.  ``mode`` is ``"prefill"`` (the port's default:
+    serving) or ``"train"`` (the reference's default), which applies
+    ``remat``/``remat_group``.  ``last_only``: logits for the final
+    position only (the serving prefill).  Returns (logits [B,S(+S_front),V]
+    or [B,1,V], the ``moe`` blocks' aux loss: 0 without one)."""
     x = L.embed(params["embed"], tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     if positions is None:
-        b, s = tokens.shape
+        b, s = x.shape[:2]
         positions = _positions(cfg, torch.arange(
             s, dtype=torch.int32, device=tokens.device).expand(b, s))
-    x, _ = apply_stack(params["stack"], cfg, x, positions, mode=mode,
-                       window_override=window_override, impl=impl,
-                       remat=remat, remat_group=remat_group)
+    x, _, aux = apply_stack(params["stack"], cfg, x, positions, mode=mode,
+                            window_override=window_override, impl=impl,
+                            remat=remat, remat_group=remat_group)
     if last_only:
         x = x[:, -1:]
-    return lm_logits(params, cfg, x)
+    return lm_logits(params, cfg, x), aux
 
 
-def lm_loss(params, cfg, tokens, labels, *, remat: str = "full",
-            impl: str = "ref", remat_group: int = 1) -> torch.Tensor:
-    """Next-token cross-entropy over the padded vocab (its padding is
-    masked to −1e30), mean over the labels that are not ``-100``.  labels:
-    [B,S] int.  The reference adds the MoE aux loss, 0 for the ``attn``,
-    ``rec`` and ``ssd`` kinds."""
-    logits = lm_forward(params, cfg, tokens, mode="train", remat=remat,
-                        impl=impl, remat_group=remat_group)
+def xent(logits, labels) -> torch.Tensor:
+    """Mean next-token cross-entropy of f32 ``logits`` [B,S,V] against
+    ``labels`` [B,S] int, over the labels that are not ``-100``."""
     labels = labels.long()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     nll = (lse - gold) * mask
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def lm_loss(params, cfg, tokens, labels, *, remat: str = "full",
+            impl: str = "ref", extra_embeds=None, remat_group: int = 1,
+            positions=None) -> torch.Tensor:
+    """Next-token cross-entropy over the padded vocab (its padding is
+    masked to −1e30), mean over the labels that are not ``-100``, plus the
+    ``moe`` blocks' aux loss.  labels: [B,S] int, the text tokens' (the
+    logits of ``extra_embeds`` are dropped)."""
+    logits, aux = lm_forward(params, cfg, tokens, positions,
+                             extra_embeds=extra_embeds, mode="train",
+                             remat=remat, impl=impl, remat_group=remat_group)
+    if extra_embeds is not None:
+        logits = logits[:, extra_embeds.shape[1]:]
+    return xent(logits, labels) + aux
 
 
 def lm_decode_step(params, cfg, token, caches, index: int, positions=None,
@@ -353,9 +382,9 @@ def lm_decode_step(params, cfg, token, caches, index: int, positions=None,
     if positions is None:
         positions = _positions(cfg, torch.full(
             token.shape, index, dtype=torch.int32, device=token.device))
-    x, caches = apply_stack(params["stack"], cfg, x, positions, mode="decode",
-                            caches=caches, index=index,
-                            window_override=window_override)
+    x, caches, _ = apply_stack(params["stack"], cfg, x, positions,
+                               mode="decode", caches=caches, index=index,
+                               window_override=window_override)
     return lm_logits(params, cfg, x), caches
 
 

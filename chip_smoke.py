@@ -220,8 +220,9 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    phi3.5-moe cut to 16 layers (21,069,172,736 elements) on both
    dispatches (16 launches each; the prefill bitwise repeatable; the
    first layer's routing bitwise alike), K3 and the scatter dispatch
-   held position by position before each row's first routing flip
-   (every flip within the runs' gate gap), its serve path; qwen2-vl-72b
+   held at bf16's floor on the einsum run's replayed expert choices
+   (free flips recorded, each within the runs' gate gap), its serve
+   path; qwen2-vl-72b
    cut to 16 layers (16,534,380,544 elements) with 1,024 stub patches
    before 512 tokens at B = 2 on M-RoPE positions (16 launches), at
    bf16's floor, its serve path (text only); seamless-m4t-large-v2 whole
@@ -229,9 +230,31 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    kernel), then encode [4, 1024] frames + decode_train [4, 128]; a
    2-layer f32 cut of each card vs CPU within 1e-4 (the forward with its
    patches or frames, 4 decode steps on f32 caches; phi3.5-moe's on both
-   dispatches, rows held until a routing flip); K3 at qwen2.5's [4, 512,
-   40 | 8, 128] and qwen2-vl's [2, 1536, 64 | 8, 128] against its plain
-   version, timed beside SDPA and its bound.
+   dispatches, rows held until a routing flip); then the two whose
+   whole weights need several cards, cut in depth: mistral-large-123b at
+   16 of 88 layers (22,951,636,992 elements, 45.90 GB) as qwen2.5 (16
+   launches; no long prefill) and llama4-maverick-400b at 2 of 48, one
+   ("attn", "moe") pair (18,429,404,160 elements; top-1 over 128
+   experts, 5 slots an expert a sequence) as phi3.5-moe (2 launches on
+   each dispatch; the bound of reading its 32.2 GB of experts printed;
+   the f32 walk casts 16 experts at a time), its f32 check a pair with
+   the experts cut to 8; K3 at qwen2.5's [4, 512, 40 | 8, 128],
+   qwen2-vl's [2, 1536, 64 | 8, 128] and mistral's [4, 512, 96 | 8, 128]
+   against its plain version, timed beside SDPA and its bound;
+20. federated training of the MoE, VLM and encoder-decoder families:
+   ``launch/train.py``'s ``train`` at phase 17's settings (the CLI's
+   defaults with ``--dp``) on phi3.5-moe at 2 layers, qwen2-vl-72b at 1
+   layer (1,024 stub patches a row) and seamless-m4t-large-v2 whole
+   (1,024 stub frames a row), one at a time, each at the deepest cut
+   the card holds: K1a/K1b once a privatised slot (6, counted from 0),
+   finite losses, the eval loss before and after, the warm round wall,
+   peak memory, one profiled round; K1 at each family's row [1, P]
+   (2,864,861,184, 3,369,109,504 and 1,632,233,472 elements: the first
+   past 2^31) against its plain versions as phase 17, also in place; an
+   f32 check of each (1 layer, full d_model, a cut vocabulary: a check
+   only) card vs CPU on the same draws: a round without DP and the first
+   noised round within 1e-4, the second within 8 times the larger of the
+   card's grad_accum and state gaps.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -3257,17 +3280,19 @@ def lm_train_profiled(torch, fn):
                             for k, (n, t) in top]}
 
 
-def lm_train_k1(torch, dpk, ref, launches, card):
+def lm_train_k1(torch, dpk, ref, launches, card, p: int = LMT_ROW,
+                tag: str = "lm_train"):
     """K1a and K1b at the LM update's row [1, P] against their plain
     versions (``sumsq_rows`` to a relative 1e-6 and bitwise repeatable;
-    ``scale_noise_rows`` bitwise), timed by CUDA events over 5 calls each
-    (ms a call: host dispatch is ~20 us of it) beside the plain versions,
-    ``vector_norm`` / ``addcmul`` on σ·n and the bytes bound; ``sumsq_rows``
-    also on the cluster plan, the one a row of this width took before the
-    split plan (8 blocks)."""
+    ``scale_noise_rows`` bitwise, compared a slice of columns at a time:
+    at P > 2^31 the whole plain output would not fit beside the kernel's),
+    timed by CUDA events over 5 calls each (ms a call: host dispatch is
+    ~20 us of it) beside the plain versions, ``vector_norm`` / ``addcmul``
+    on σ·n and the bytes bound; ``sumsq_rows`` also on the cluster plan,
+    the one a row of this width took before the split plan (8 blocks).
+    Rows ``sumsq_rows_<tag>`` and ``scale_noise_rows_<tag>``."""
     from repro_torch.core.dp import gaussian_sigma
 
-    p = LMT_ROW
     gen = torch.Generator(device="cuda").manual_seed(17)
     x = torch.randn(1, p, generator=gen, device="cuda") * 1e-3
     nz = torch.randn(1, p, generator=gen, device="cuda")
@@ -3285,10 +3310,16 @@ def lm_train_k1(torch, dpk, ref, launches, card):
     sigma = gaussian_sigma(50.0, 1e-5, 10.0)
     scale = ref.clip_scale(torch.sqrt(sq_ref), 10.0)
     o = dpk.scale_noise_rows(x, nz, scale, sigma)
-    o_ref = ref.scale_noise_rows_ref(x, nz, scale, sigma)
-    check(torch.equal(o, o_ref), f"scale_noise_rows is not bitwise its "
-          f"plain version at [1, {p}]")
-    del o, o_ref
+    step = 1 << 28
+    check(all(torch.equal(o[:, a:a + step], ref.scale_noise_rows_ref(
+        x[:, a:a + step], nz[:, a:a + step], scale, sigma))
+        for a in range(0, p, step)),
+        f"scale_noise_rows is not bitwise its plain version at [1, {p}]")
+    # in place, as the serial round noises its update row
+    xi = x.clone()
+    check(torch.equal(dpk.scale_noise_rows(xi, nz, scale, sigma, out=xi), o),
+          f"scale_noise_rows in place differs at [1, {p}]")
+    del o, xi
     torch.cuda.empty_cache()
 
     def ms(fn):
@@ -3311,13 +3342,13 @@ def lm_train_k1(torch, dpk, ref, launches, card):
     b_sq, by_sq = sumsq_bound(1, p)
     b_sn, by_sn = bound(12 * p + 4, 3 * p)
     rows = [
-        {"name": "sumsq_rows_lm_train", **common,
+        {"name": f"sumsq_rows_{tag}", **common,
          "replaces": "src/repro/kernels/dp_clip_noise.py:62",
          "launches": launches["sumsq_rows"],
          "max_abs_err": float((sq.double() - sq_ref.double()).abs()),
          "rel_err": rel, "cluster_plan_rel_err": rel_cluster,
          "plan": list(plan), "bound_ms": b_sq, "bound_by": by_sq, **t_sq},
-        {"name": "scale_noise_rows_lm_train", **common,
+        {"name": f"scale_noise_rows_{tag}", **common,
          "replaces": "src/repro/kernels/dp_clip_noise.py:81",
          "launches": launches["scale_noise_rows"], "max_abs_err": 0.0,
          "bound_ms": b_sn, "bound_by": by_sn, **t_sn}]
@@ -4154,11 +4185,27 @@ def phase_recurrent_lm(torch, fak, rgk, ref, card, ptxas):
 # stub frame embeddings; no kernel, as the reference's encoder-decoder)
 FAM_QWEN, FAM_MOE, FAM_VL, FAM_ED = ("qwen2p5_32b", "phi3p5_moe_42b",
                                      "qwen2_vl_72b", "seamless_m4t_large_v2")
+# and the two whose whole weights need several cards (245 and 789 GB in
+# bf16), at full width cut in depth: mistral-large-123b (dense, 96 | 8
+# heads of 128, a GQA group of 12) to 16 of its 88 layers and
+# llama4-maverick-400b to 2 of its 48, one ("attn", "moe") pair (128
+# experts of d_ff 8192, top-1, capacity factor 1.25: 5 slots an expert a
+# sequence of 512)
+FAM_MISTRAL, FAM_LLAMA4 = "mistral_large_123b", "llama4_maverick_400b"
 # lm_param_shapes' elements (the reference's, at each depth run here)
 FAM_ELEMENTS = {FAM_QWEN: 32_763_876_352, FAM_MOE: 21_069_172_736,
-                FAM_VL: 16_534_380_544, FAM_ED: 1_632_233_472}
-FAM_LAYERS = {FAM_MOE: 16, FAM_VL: 16}   # depth cuts (32 and 80 published)
-FAM_K3 = {FAM_QWEN: 64, FAM_MOE: 16, FAM_VL: 16, FAM_ED: 0}
+                FAM_VL: 16_534_380_544, FAM_ED: 1_632_233_472,
+                FAM_MISTRAL: 22_951_636_992, FAM_LLAMA4: 18_429_404_160}
+# depth cuts (32, 80, 88 and 48 layers published)
+FAM_LAYERS = {FAM_MOE: 16, FAM_VL: 16, FAM_MISTRAL: 16, FAM_LLAMA4: 2}
+FAM_K3 = {FAM_QWEN: 64, FAM_MOE: 16, FAM_VL: 16, FAM_ED: 0,
+          FAM_MISTRAL: 16, FAM_LLAMA4: 2}
+# llama4's f32 card-vs-CPU check: its ("attn", "moe") pair at full width
+# with the experts cut 128 -> 8 (one f32 moe layer of 128 experts is 64
+# GB); a check only, in no table of configurations
+LLAMA4_CHECK_EXPERTS = 8
+# the f32 walk casts a moe layer's experts this many at a time
+FAM_EXPERT_CHUNK = 16
 VL_PREFILL = (2, 1024, 512)    # B, stub patches, text tokens
 ED_PREFILL = (4, 1024, 128)    # B, stub frames, teacher-forced tokens
 FAM_CUT = 2                    # layers of each f32 cut (encoder: 2 + 2)
@@ -4169,11 +4216,12 @@ MOE_IMPLS = ("einsum", "scatter")
 # two bf16 paths each no further from the f32 result than the plain bf16
 # prefill (the floor read in the run) lie at most twice that apart
 FLOOR_MULT = 2.0
-# K3 at the two new prefill shapes (phi3.5-moe's is granite's shape: its
-# 16 launches go on phase 15's row)
+# K3 at the new prefill shapes (phi3.5-moe's is granite's shape: its 16
+# launches go on phase 15's row; llama4's is qwen2.5's: its 2 on that row)
 FAM_FA_CASES = (
     ("flash_attention_lm_qwen2p5", (4, 512, 40, 8, 128), None, FAM_QWEN),
-    ("flash_attention_lm_qwen2_vl", (2, 1536, 64, 8, 128), None, FAM_VL))
+    ("flash_attention_lm_qwen2_vl", (2, 1536, 64, 8, 128), None, FAM_VL),
+    ("flash_attention_lm_mistral", (4, 512, 96, 8, 128), None, FAM_MISTRAL))
 
 
 class RoutingSpy:
@@ -4248,7 +4296,7 @@ def routing_compare(torch, a, b, k: int) -> dict:
             gap = float((ga[r, p] - gb[r, p]).abs().max())
             flips.append((margin, gap))
     out = {"share": agree / total, "flips": len(flips), "first": first,
-           "s": s,
+           "s": s, "k": k,
            "rows_without_flip": sum(f == s for f in first),
            "min_flip_margin": min((m for m, _ in flips), default=None),
            "gap_at_min_margin": min(flips)[1] if flips else None}
@@ -4261,7 +4309,7 @@ def routing_compare(torch, a, b, k: int) -> dict:
 def routing_line(what: str, r: dict) -> str:
     extra = (f", least flip margin {r['min_flip_margin']:.3e} (gate gap "
              f"{r['gap_at_min_margin']:.3e})" if r["flips"] else "")
-    return (f"  {what}: top-2 sets agree {100 * r['share']:.3f} %, "
+    return (f"  {what}: top-{r['k']} sets agree {100 * r['share']:.3f} %, "
             f"{r['flips']} flips{extra}; rows without a flip "
             f"{r['rows_without_flip']}/{len(r['first'])}")
 
@@ -4378,12 +4426,15 @@ def fam_prefill(torch, fak, model, params, batch, card, what: str,
 def f32_walk(torch, model, params, batch, last_only: bool = True):
     """The plain prefill's (``impl="ref"``) logits (the last position's, or
     every one) of the bf16 params run in f32, one layer cast to f32 at a
-    time (an exact cast), so no f32 copy of the model is held: bf16's own
-    rounding is what the bf16 run adds to it."""
+    time (an exact cast; a moe layer's experts FAM_EXPERT_CHUNK at a time:
+    llama4's 128 in f32 are 64 GB), so no f32 copy of the model is held:
+    bf16's own rounding is what the bf16 run adds to it."""
     import dataclasses
 
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+
+    from repro_torch.models import moe as M
 
     cfg = model.cfg
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -4395,13 +4446,39 @@ def f32_walk(torch, model, params, batch, last_only: bool = True):
         b, s = x.shape[:2]
         pos = T._positions(cfg, torch.arange(
             s, dtype=torch.int32, device=x.device).expand(b, s))
-    for si, (kinds, reps) in enumerate(cfg.segments()):
-        for r in range(reps):
-            layer = tree_to(T._index(params["stack"][si], r), torch.float32)
-            for i, kind in enumerate(kinds):
-                x, _, _ = T.apply_block(layer[f"b{i}"], kind, x, pos, cfg32,
-                                        mode="prefill", impl="ref")
-            del layer
+    experts = M._experts_forward
+
+    def experts_by_chunk(p, xe, cfg_):
+        """The experts' products with their bf16 weights cast to f32
+        FAM_EXPERT_CHUNK experts at a time (each expert's product is its
+        own: the same math as the whole cast)."""
+        out = torch.empty_like(xe)
+        for e0 in range(0, xe.shape[0], FAM_EXPERT_CHUNK):
+            e1 = e0 + FAM_EXPERT_CHUNK
+            out[e0:e1] = experts({k: p[k][e0:e1].float() for k in
+                                  ("wi", "wg", "wo") if k in p},
+                                 xe[e0:e1], cfg_)
+        return out
+
+    M._experts_forward = experts_by_chunk
+    try:
+        for si, (kinds, reps) in enumerate(cfg.segments()):
+            for r in range(reps):
+                layer = {}
+                for bk, blk in T._index(params["stack"][si], r).items():
+                    layer[bk] = tree_to({k: v for k, v in blk.items()
+                                         if k != "moe"}, torch.float32)
+                    if "moe" in blk:  # the experts stay bf16 here
+                        layer[bk]["moe"] = {k: v if k in ("wi", "wg", "wo")
+                                            else v.float()
+                                            for k, v in blk["moe"].items()}
+                for i, kind in enumerate(kinds):
+                    x, _, _ = T.apply_block(layer[f"b{i}"], kind, x, pos,
+                                            cfg32, mode="prefill",
+                                            impl="ref")
+                del layer
+    finally:
+        M._experts_forward = experts
     head = {k: tree_to(params[k], torch.float32)
             for k in ("final_ln", "head", "embed") if k in params}
     return T.lm_logits(head, cfg32, x[:, -1:] if last_only else x)
@@ -4588,25 +4665,26 @@ def fam_cut(torch, arch: str, what: str, extra_front: int = 0,
     return out
 
 
-def moe_cut(torch, what: str) -> dict:
-    """phi3.5-moe's f32 cut on the card against the CPU on both
-    dispatches: the forward's last logits (K3's f32 row kernel on the
-    card), then FAM_CUT_STEPS decode steps with their caches; a row is held
-    within LM_F32_TOL until the two devices route one of its tokens apart,
-    each such flip within the runs' gate gap (:func:`routing_compare`)."""
+def moe_cut(torch, arch: str, what: str, **cut) -> dict:
+    """A MoE's f32 cut (FAM_CUT layers at full width, with ``cut``'s
+    fields replaced) on the card against the CPU on both dispatches: the
+    forward's last logits (K3's f32 row kernel on the card), then
+    FAM_CUT_STEPS decode steps with their caches; a row is held within
+    LM_F32_TOL until the two devices route one of its tokens apart, each
+    such flip within the runs' gate gap (:func:`routing_compare`)."""
     import dataclasses
 
     from repro_torch.models import transformer as T
     from repro_torch.models.model import build
 
-    cfg = dataclasses.replace(get_cfg(FAM_MOE), n_layers=FAM_CUT,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_cfg(arch), n_layers=FAM_CUT,
+                              dtype="float32", **cut)
     model = build(cfg)
     params = model.init(0, device="cuda")
     cpu_params = tree_to(params, "cpu")
     tokens = lm_tokens(torch, cfg, *FAM_CUT_TOKENS, seed=4)
     v, k = cfg.vocab_size, cfg.experts_per_token
-    out = {}
+    out = {"elements": tree_bytes(params)[0], "n_experts": cfg.n_experts}
     try:
         for impl in MOE_IMPLS:
             T.MOE_IMPL[0] = impl
@@ -4666,48 +4744,60 @@ def moe_cut(torch, what: str) -> dict:
     return out
 
 
-def phase_families(torch, fak, ref, card, ptxas) -> tuple:
-    """Phase 19: qwen2.5-32b, phi3.5-moe (16 layers), qwen2-vl-72b (16
-    layers) and seamless-m4t-large-v2 at full width in bf16 on the card,
-    one at a time: the build (elements beside the reference's), the
-    prefill step on K3 (64, 16, 16 and 0 launches) against ``impl="ref"``
-    at bf16's floor, the serve path at B = 4, a 2-layer f32 cut card vs
-    CPU; phi3.5-moe on both dispatches; K3 at qwen2.5's and qwen2-vl's
-    prefill shapes beside SDPA and its bound."""
-    from repro_torch.launch import serve as serve_cli
-    from repro_torch.models import transformer as T
-
-    out = {}
-    t_phase = time.perf_counter()
-
-    # qwen2.5-32b, nothing cut: 65.5 GB of bf16 weights, the card alone
-    model, params, info = fam_build(torch, FAM_QWEN, card)
+def fam_dense(torch, fak, arch: str, card, long_prefill: bool = False):
+    """A dense family at its depth in bf16: the build, the prefill step at
+    [4, 512] on K3 (FAM_K3 launches) against ``impl="ref"`` at bf16's
+    floor, with ``long_prefill`` the step at [1, 4096] too, the serve path
+    at B = 4 against both prefills, then the f32 cut card vs CPU."""
+    t0 = time.perf_counter()
+    model, params, info = fam_build(torch, arch, card)
     name = model.cfg.name
-    q = out[FAM_QWEN] = {"build": info}
+    q = {"build": info}
     batch = fam_batch(torch, model.cfg, *LM_PREFILL, 0, seed=1)
     logits, q["prefill"] = fam_prefill(
         torch, fak, model, params, batch, card,
-        f"{name} prefill {list(LM_PREFILL)}", FAM_K3[FAM_QWEN])
+        f"{name} prefill {list(LM_PREFILL)}", FAM_K3[arch])
     q["prefill"].update(fam_flash_vs_ref(torch, model, params, batch, logits,
                                          f"{name} {list(LM_PREFILL)}"))
     del logits, batch
-    torch.cuda.reset_peak_memory_stats()
-    batch = fam_batch(torch, model.cfg, *LM_LONG_PREFILL, 0, seed=5)
-    _, q["long_prefill"] = fam_prefill(
-        torch, fak, model, params, batch, card,
-        f"{name} prefill {list(LM_LONG_PREFILL)}", FAM_K3[FAM_QWEN])
-    del batch
+    if long_prefill:
+        torch.cuda.reset_peak_memory_stats()
+        batch = fam_batch(torch, model.cfg, *LM_LONG_PREFILL, 0, seed=5)
+        _, q["long_prefill"] = fam_prefill(
+            torch, fak, model, params, batch, card,
+            f"{name} prefill {list(LM_LONG_PREFILL)}", FAM_K3[arch])
+        del batch
     q["serve"] = fam_serve(torch, model, params, card, name, True)
     del params, model
-    q["cut_f32"] = fam_cut(torch, FAM_QWEN, f"{name} cut to {FAM_CUT} "
+    q["cut_f32"] = fam_cut(torch, arch, f"{name} cut to {FAM_CUT} "
                            f"layers {list(FAM_CUT_TOKENS)}")
-    q["seconds"] = time.perf_counter() - t_phase
+    q["seconds"] = time.perf_counter() - t0
+    return q
 
-    # phi3.5-moe at 16 of 32 layers (42.1 GB), on both dispatches
+
+def fam_moe(torch, fak, arch: str, card, **check_cut) -> dict:
+    """A MoE family at its depth in bf16 on both dispatches: the build,
+    the prefill step at [4, 512] on K3 (FAM_K3 launches each; bitwise
+    repeatable; the first layer's routing bitwise alike on the two),
+    :func:`moe_checks` (free routing flips recorded, K3 and the scatter
+    dispatch at bf16's floor on replayed expert choices), the serve path
+    at B = 4, then the f32 cut card vs CPU (``check_cut``'s fields
+    replaced)."""
+    from repro_torch.models import transformer as T
+
     t0 = time.perf_counter()
-    model, params, info = fam_build(torch, FAM_MOE, card)
+    model, params, info = fam_build(torch, arch, card)
     name = model.cfg.name
-    m = out[FAM_MOE] = {"build": info}
+    m = {"build": info}
+    expert_bytes = sum(t.numel() * t.element_size() for seg in params["stack"]
+                       for blk in seg.values() if "moe" in blk
+                       for k, t in blk["moe"].items() if k != "router")
+    m["expert_bytes"] = expert_bytes
+    m["expert_read_bound_ms"] = expert_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  {name}: the experts' weights are {expert_bytes / 1e9:.2f} GB, "
+          f"read in full by every prefill and every decode step: "
+          f"{m['expert_read_bound_ms']:.2f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, the bound of each")
     batch = fam_batch(torch, model.cfg, *LM_PREFILL, 0, seed=1)
     last, spies = {}, {}
     try:
@@ -4715,8 +4805,7 @@ def phase_families(torch, fak, ref, card, ptxas) -> tuple:
             T.MOE_IMPL[0] = impl
             last[impl], m[f"prefill_{impl}"] = fam_prefill(
                 torch, fak, model, params, batch, card,
-                f"{name} prefill {list(LM_PREFILL)} ({impl})",
-                FAM_K3[FAM_MOE])
+                f"{name} prefill {list(LM_PREFILL)} ({impl})", FAM_K3[arch])
             with RoutingSpy() as spies[impl]:
                 again = model.forward(params, batch, impl="flash",
                                       last_only=True)
@@ -4731,9 +4820,34 @@ def phase_families(torch, fak, ref, card, ptxas) -> tuple:
     del last, spies, again, batch
     m["serve"] = fam_serve(torch, model, params, card, name, False)
     del params, model
-    m["cut_f32"] = moe_cut(torch, f"{name} cut to {FAM_CUT} layers "
-                           f"{list(FAM_CUT_TOKENS)}")
+    label = ", ".join(f"{k} {v}" for k, v in check_cut.items())
+    m["cut_f32"] = moe_cut(torch, arch, f"{name} cut to {FAM_CUT} layers "
+                           f"{list(FAM_CUT_TOKENS)}"
+                           + (f" ({label}: a check only)" if label else ""),
+                           **check_cut)
     m["seconds"] = time.perf_counter() - t0
+    return m
+
+
+def phase_families(torch, fak, ref, card, ptxas) -> tuple:
+    """Phase 19: qwen2.5-32b, phi3.5-moe (16 layers), qwen2-vl-72b (16
+    layers), seamless-m4t-large-v2, mistral-large-123b (16 layers) and
+    llama4-maverick-400b (2 layers) at full width in bf16 on the card,
+    one at a time: the build (elements beside the reference's), the
+    prefill step on K3 (64, 16, 16, 0, 16 and 2 launches) against
+    ``impl="ref"`` at bf16's floor, the serve path at B = 4, an f32 cut
+    card vs CPU; the MoEs on both dispatches; K3 at qwen2.5's, qwen2-vl's
+    and mistral's prefill shapes beside SDPA and its bound."""
+    from repro_torch.launch import serve as serve_cli
+
+    out = {}
+    t_phase = time.perf_counter()
+
+    # qwen2.5-32b, nothing cut: 65.5 GB of bf16 weights, the card alone
+    out[FAM_QWEN] = fam_dense(torch, fak, FAM_QWEN, card, long_prefill=True)
+
+    # phi3.5-moe at 16 of 32 layers (42.1 GB), on both dispatches
+    out[FAM_MOE] = fam_moe(torch, fak, FAM_MOE, card)
 
     # qwen2-vl-72b at 16 of 80 layers (33.1 GB): stub patches, M-RoPE
     t0 = time.perf_counter()
@@ -4805,6 +4919,14 @@ def phase_families(torch, fak, ref, card, ptxas) -> tuple:
     ed["seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
+    # mistral-large-123b at 16 of 88 layers (45.9 GB), llama4-maverick at
+    # 2 of 48 (36.9 GB; its moe layer reads 32.2 GB of expert weights in
+    # every prefill and every decode step)
+    out[FAM_MISTRAL] = fam_dense(torch, fak, FAM_MISTRAL, card)
+    out[FAM_LLAMA4] = fam_moe(torch, fak, FAM_LLAMA4, card,
+                              n_experts=LLAMA4_CHECK_EXPERTS)
+    torch.cuda.empty_cache()
+
     rows = [check_lm_kernel(torch, fak, ref, kname, case, window,
                             out[arch]["prefill"]["launches"],
                             ptxas["flash_attention_mma"])
@@ -4812,6 +4934,275 @@ def phase_families(torch, fak, ref, card, ptxas) -> tuple:
     for row in rows:
         row["sdpa_ratio"] = row["ms"] / row["library_ms"]
     out["seconds"] = time.perf_counter() - t_phase
+    return out, rows
+
+
+# phase 20: federated training of the MoE, VLM and encoder-decoder
+# families through the train CLI's train() at its defaults with --dp
+# (phase 17's settings), bf16, one model on the card at a time: phi3.5-moe
+# at 2 of its 32 layers, qwen2-vl-72b at 1 of its 80 (1,024 stub patches a
+# row on M-RoPE positions) and seamless-m4t-large-v2 whole (1,024 stub
+# frames a row); each family's cuts from the deepest, the next taken only
+# if the card runs out
+TF_FAMILIES = (FAM_MOE, FAM_VL, FAM_ED)
+TF_CUTS = {FAM_MOE: (2, 1), FAM_VL: (1,), FAM_ED: (None,)}
+# the update's flat row at the first cut (lm_param_shapes' elements, the
+# norm scales and the vocab padding included) and the reference's
+# param_count there (train() prints it; seamless's leaves out its encoder
+# norms, cross-attention's and the padding: 1,531,342,848)
+TF_ROW = {FAM_MOE: 2_864_861_184, FAM_VL: 3_369_109_504,
+          FAM_ED: 1_632_233_472}
+TF_PARAMS = {FAM_MOE: 2_863_136_768, FAM_VL: 3_369_074_688,
+             FAM_ED: 1_531_342_848}
+# The f32 card-vs-CPU checks (checks only, in no table of configurations):
+# each family at full d_model and heads, 1 layer (seamless 1 + 1), 64 stub
+# patches or frames a row as phase 19's f32 cuts, the vocabulary cut to
+# 8,192, phi3.5-moe's experts to 4 (top-2 kept) and qwen2-vl's d_ff to a
+# quarter, ~0.4 B elements at most.  At the training cuts the f32 round
+# would not fit the card (qwen2-vl's 1 layer: 13.5 GB of f32 weights,
+# ~7 copies at the round's peak with the [2, P] noise), and the CPU takes
+# ~100 ns an element for the 3 rounds (phi3.5-moe's check: 45.0 s for
+# 423,653,376 elements on an H100 host)
+TF_CHECK = {
+    FAM_MOE: {"n_layers": 1, "n_experts": 4, "vocab_size": 8192},
+    FAM_VL: {"n_layers": 1, "frontend_tokens": FAM_CUT_FRONT,
+             "vocab_size": 8192, "d_ff": 29568 // 4},
+    FAM_ED: {"n_layers": 1, "enc_layers": 1, "enc_seq": FAM_CUT_FRONT,
+             "vocab_size": 8192}}
+TF_CHECK_SEED = 1
+
+
+def tf_cfg(arch: str, layers):
+    """The architecture's ``config()`` at ``layers`` (None: whole)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+
+    cfg = get_arch(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def tf_card_vs_cpu(torch, arch: str, card) -> dict:
+    """The family's f32 check (TF_CHECK) on the card against the CPU from
+    the same state, the same data (the train CLI's, frontend included)
+    and the same ``SerialDraws`` (the DP noise drawn on the card, one row
+    a slot): a round without DP, then 2 serial rounds with clipped DP;
+    sel_mask and failed equal, the round without DP and the first noised
+    round within LMT_TOL, the second within LMT_REASSOC_MULT times its
+    gap read on the card: the larger of phase 17's re-association gap
+    (the same round at grad_accum 2; the CPU's is ~1e-7) and the state
+    gap (the same round from the CPU's state before it, moved to the
+    card: how far the card's own round amplifies the first round's f32
+    difference).  Every reading is printed before any bar is checked."""
+    import dataclasses
+
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.launch.train import round_batches, train_fl_config
+    from repro_torch.models.model import build
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(tf_cfg(arch, None), dtype="float32",
+                              **TF_CHECK[arch])
+    model = build(cfg)
+    fls = {"dp": train_fl_config(dp=True), "plain": train_fl_config()}
+    n = fls["dp"].n_clients
+
+    def step(dev, kind, ga=1):
+        return rounds_lib.make_serial_round(
+            lambda p, b: model.loss(p, b, remat="none"), fls[kind], n,
+            device=dev, grad_accum=ga)
+
+    seed = TF_CHECK_SEED
+    params = model.init(seed, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    card0 = rounds_lib.init_serial_state(
+        params, fls["dp"], torch.Generator(device="cuda").manual_seed(seed))
+    cpu0 = card0._replace(
+        params=tree_to(params, "cpu"),
+        util=type(card0.util)(*(t.cpu() for t in card0.util)),
+        kctl=type(card0.kctl)(*(t.cpu() for t in card0.kctl)),
+        rng=torch.Generator().manual_seed(seed),
+        fault=type(card0.fault)(*(t.cpu() for t in card0.fault)))
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    readings, mismatch = [], []
+    cpu_s = 0.0
+    states = {"plain": (card0, cpu0), "dp": (card0, cpu0)}
+    for kind, r in (("plain", 0), ("dp", 0), ("dp", 1)):
+        fl = fls[kind]
+        data = {k: torch.as_tensor(v) for k, v in round_batches(
+            cfg, fl, 2, 64, 100 * seed + r).items()}
+        data_c = {k: v.cuda() for k, v in data.items()}
+        draws = rounds_lib.draw_serial_round(gen, n, LMT_SLOTS, 1,
+                                             fl.selection)
+        if kind == "dp":
+            draws = draws._replace(dp_noise=torch.randn(
+                LMT_SLOTS, n_params, generator=gen, device="cuda"))
+        card_st, cpu_st = states[kind]
+        card_new, mc = step("cuda", kind)(card_st, data_c, draws=draws)
+        t1 = time.perf_counter()
+        cpu_new, mh = step("cpu", kind)(cpu_st, data, draws=draws.to("cpu"))
+        cpu_s += time.perf_counter() - t1
+        bars = {}
+        if r > 0:
+            mine = lmt_round_values(card_new, mc)
+            ga = lmt_diff(lmt_round_values(*step("cuda", kind, 2)(
+                card_st, data_c, draws=draws)), mine)
+            swapped = card_st._replace(
+                params=tree_to(cpu_st.params, "cuda"),
+                **{f: type(getattr(cpu_st, f))(*(
+                    t.cuda() for t in getattr(cpu_st, f)))
+                   for f in ("util", "kctl", "fault")})
+            state_gap = lmt_diff(lmt_round_values(*step("cuda", kind)(
+                swapped, data_c, draws=draws)), mine)
+            del swapped, mine
+            for k in ga:
+                gap = max(ga[k], state_gap[k])
+                bars[k] = max(LMT_TOL, LMT_REASSOC_MULT * gap)
+                readings.append((f"{kind} round {r} {k} gaps on the card: "
+                                 f"grad_accum {ga[k]:.2e}, state "
+                                 f"{state_gap[k]:.2e}", gap, None))
+        states[kind] = card_new, cpu_new
+        del draws, data_c
+        if not (torch.equal(mc.sel_mask.cpu(), mh.sel_mask)
+                and torch.equal(mc.failed.cpu(), mh.failed)):
+            mismatch.append(f"{kind} round {r}")
+        for k, err in lmt_diff(lmt_round_values(card_new, mc),
+                               lmt_round_values(cpu_new, mh)).items():
+            readings.append((f"{kind} round {r} {k}", err,
+                             bars.get(k, LMT_TOL)))
+    del states, card0, cpu0
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    cut = ", ".join(f"{k} {v}" for k, v in TF_CHECK[arch].items())
+    print(f"  {cfg.name} f32 check ({cut}; {n_params:,} params; a check "
+          f"only) card vs CPU on the same "
+          f"draws, a round without DP and {LMT_CUT_ROUNDS} with DP in "
+          f"{seconds:.1f} s ({cpu_s:.1f} s of CPU rounds): sel_mask and "
+          f"failed {'equal' if not mismatch else 'DIFFER: ' + ', '.join(mismatch)}; "
+          f"relative errors against their bars (LMT_TOL {LMT_TOL}; after "
+          f"a noised round {LMT_REASSOC_MULT:g} x the larger of the card's "
+          f"grad_accum and state gaps):")
+    for what, err, bar in readings:
+        print(f"    {what}: {err:.2e}"
+              + ("" if bar is None else f" (bar {bar:.2e})"))
+    check(not mismatch, f"{cfg.name}: sel_mask/failed differ card vs CPU: "
+          f"{mismatch}")
+    for what, err, bar in readings:
+        if bar is not None:
+            check(err <= bar, f"{cfg.name} {what}: {err:.3e} over its bar "
+                  f"{bar:.3e}")
+    return {"params": n_params, "cut": TF_CHECK[arch], "seed": seed,
+            "readings": [{"what": w, "err": e, "bar": b}
+                         for w, e, b in readings],
+            "seconds": seconds, "cpu_round_s": cpu_s}
+
+
+def tf_train(torch, dpk, arch: str, card) -> dict:
+    """One family through ``train`` at the CLI's defaults with ``--dp`` at
+    the deepest of its TF_CUTS the card holds: K1a/K1b once a privatised
+    slot (counted from 0 just before), finite losses, the eval loss
+    before and after, the warm round wall and peak, one profiled round
+    (busy share, spans, device ms by kind, heaviest kernels)."""
+    from repro_torch.launch.train import round_batches, train
+
+    out = {"out_of_memory": []}
+    for layers in TF_CUTS[arch]:
+        cfg = tf_cfg(arch, layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        dpk.reset_launches()
+        try:
+            res = train(cfg, rounds=LMT_ROUNDS, dp=True, seed=0,
+                        device="cuda")
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError as err:
+            peak = torch.cuda.max_memory_allocated()
+            out["out_of_memory"].append({"layers": layers, "peak": peak,
+                                         "error": str(err)[:400]})
+            print(f"  {cfg.name} at {layers} layers: out of card memory at "
+                  f"a peak of {peak / 1e9:.2f} GB: {str(err)[:400]}  "
+                  f"({card})")
+            torch.cuda.empty_cache()
+    else:
+        check(False, f"{arch}: no cut in {TF_CUTS[arch]} fits the card")
+    launches = dict(dpk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    model, step, state = res["model"], res["step"], res["state"]
+    n, nbytes = tree_bytes(state.params)
+    if layers == TF_CUTS[arch][0]:
+        check(cfg.param_count() == TF_PARAMS[arch] and n == TF_ROW[arch],
+              f"{cfg.name}: {cfg.param_count()} params ({n} elements), the "
+              f"reference's {TF_PARAMS[arch]} ({TF_ROW[arch]})")
+    losses = ([res["initial_eval_loss"], res["final_eval_loss"]]
+              + [r["local_loss"] for r in res["rounds"]])
+    check(all(math.isfinite(v) for v in losses), f"{cfg.name} losses "
+          f"{losses}")
+    slots = LMT_ROUNDS * LMT_SLOTS
+    check(launches == {"sumsq_rows": slots, "scale_noise_rows": slots},
+          f"{cfg.name}: K1 launches {launches} for {slots} privatised slots")
+    walls = [r["wall_s"] * 1e3 for r in res["rounds"]]
+    out.update(layers=cfg.n_layers, enc_layers=cfg.enc_layers,
+               param_count=cfg.param_count(), row=n, param_bytes=nbytes,
+               launches=launches, eval_loss=losses[:2],
+               rounds=res["rounds"], round_wall_ms=walls,
+               warm_round_wall_ms=statistics.median(walls[1:]),
+               max_memory_allocated=peak)
+    data = {k: torch.as_tensor(v, device="cuda") for k, v in round_batches(
+        cfg, res["fl"], 2, 64, 7).items()}
+
+    def one_round():
+        nonlocal state
+        state, _ = step(state, data)
+
+    out["profile"] = prof = lm_train_profiled(torch, one_round)
+    front = ("" if "frontend" not in data else
+             f", {data['frontend'].shape[3]:,} stub "
+             f"{'frames' if cfg.enc_layers else 'patches'} a row")
+    print(f"  {cfg.name} at {cfg.n_layers} layers"
+          + (f" + {cfg.enc_layers} encoder layers" if cfg.enc_layers else "")
+          + f"{front}: train() printed {cfg.param_count():,} params "
+          f"(param_count, the reference's), a row of {n:,} elements "
+          f"(lm_param_shapes; {nbytes / 1e9:.2f} GB bf16); eval loss "
+          f"{losses[0]:.4f} -> {losses[1]:.4f}; round walls "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms (warm "
+          f"{out['warm_round_wall_ms']:.1f}); K1 launches {launches}; peak "
+          f"allocated {peak / 1e9:.2f} GB; profiled round "
+          f"{prof['wall_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms (share "
+          f"{prof['device_busy_share']:.3f}, {prof['device_ops']} ops)  "
+          f"({card})")
+    for name, ms in sorted(prof["spans_host_ms"].items()):
+        print(f"    span {name}: {ms:.2f} ms host")
+    for kind, ms in prof["device_ms_by_kind"].items():
+        print(f"    device {kind}: {ms:.2f} ms")
+    for k in prof["top_kernels"]:
+        print(f"    kernel {k['name']}: {k['calls']} calls, "
+              f"{k['device_ms']:.3f} ms")
+    del res, model, step, state, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_families(torch, dpk, ref, card) -> tuple:
+    """Phase 20: phi3.5-moe, qwen2-vl-72b and seamless-m4t-large-v2 trained
+    through ``launch/train.py``'s ``train`` (:func:`tf_train`), one at a
+    time; K1 at each family's row [1, P] against its plain versions
+    (:func:`lm_train_k1`: the first rows past 2^31 elements, where the
+    split plan's int64 offsets are held); the f32 check card vs CPU
+    (:func:`tf_card_vs_cpu`)."""
+    out, rows = {}, []
+    for arch in TF_FAMILIES:
+        t0 = time.perf_counter()
+        fam = out[arch] = tf_train(torch, dpk, arch, card)
+        rows += lm_train_k1(torch, dpk, ref, fam["launches"], card,
+                            p=fam["row"], tag=f"lm_train_{arch}")
+        torch.cuda.empty_cache()
+        fam["card_vs_cpu"] = tf_card_vs_cpu(torch, arch, card)
+        fam["seconds"] = time.perf_counter() - t0
     return out, rows
 
 
@@ -5008,10 +5399,12 @@ def main() -> int:
                                               ptxas)
     kernels += rec_rows
 
-    print(f"== 19. the remaining one-card families at full width, bf16: "
+    print(f"== 19. the remaining families at full width, bf16: "
           f"{FAM_QWEN} (whole), {FAM_MOE} ({FAM_LAYERS[FAM_MOE]} layers, "
           f"both dispatches), {FAM_VL} ({FAM_LAYERS[FAM_VL]} layers, stub "
-          f"patches on M-RoPE), {FAM_ED} (whole)  ({card})")
+          f"patches on M-RoPE), {FAM_ED} (whole), {FAM_MISTRAL} "
+          f"({FAM_LAYERS[FAM_MISTRAL]} layers), {FAM_LLAMA4} "
+          f"({FAM_LAYERS[FAM_LLAMA4]} layers, both dispatches)  ({card})")
     with torch.no_grad():
         families, fam_rows = phase_families(torch, fak, ref, card, ptxas)
     kernels += fam_rows
@@ -5019,6 +5412,17 @@ def main() -> int:
         if k["name"] == "flash_attention_lm_granite":
             k["launches_phi3p5_moe"] = \
                 families[FAM_MOE]["prefill_einsum"]["launches"]
+        if k["name"] == "flash_attention_lm_qwen2p5":
+            k["launches_llama4"] = \
+                families[FAM_LLAMA4]["prefill_einsum"]["launches"]
+
+    print(f"== 20. LM training of the MoE, VLM and encoder-decoder "
+          f"families: the train CLI's defaults with --dp on {FAM_MOE} "
+          f"({TF_CUTS[FAM_MOE][0]} layers), {FAM_VL} ({TF_CUTS[FAM_VL][0]} "
+          f"layer, stub patches) and {FAM_ED} (whole, stub frames), bf16, "
+          f"{LMT_ROUNDS} rounds each  ({card})")
+    train_families, tf_rows = phase_train_families(torch, dpk, ref, card)
+    kernels += tf_rows
 
     steady = walls[1:]
     record = {
@@ -5032,6 +5436,7 @@ def main() -> int:
         "model_grid": grid, "privacy": privacy, "plan_frontier": plans,
         "population": population, "lm": lm, "fl_ops": fl_ops,
         "lm_train": lm_train, "recurrent_lm": rec_lm, "families": families,
+        "train_families": train_families,
         "total_s": time.perf_counter() - t_all,
     }
     OUT_DIR.mkdir(exist_ok=True)

@@ -215,25 +215,10 @@ ARCH_ALIASES = {
     "paper-mlp": "paper_mlp",
 }
 
-# architectures whose config module the port does not have yet, and the
-# slice of the port each waits for
-WAITING = {
-    "llama4_maverick_400b": "the sharding slice (789 GB of bf16 weights "
-                            "over several cards)",
-    "mistral_large_123b": "the sharding slice (245 GB of bf16 weights over "
-                          "several cards)",
-}
-
-
-def get_arch(arch: str, smoke: bool = False):
-    """``config()`` (or ``smoke_config()``) of repro_torch.configs.<arch>;
-    an architecture the port has no module for yet raises, naming the
-    slice it waits for."""
+def get_arch(arch: str, smoke: bool = False) -> ModelConfig:
+    """Load ``config()`` (or ``smoke_config()``) from
+    repro_torch.configs.<arch>."""
     arch = ARCH_ALIASES.get(arch, arch)
-    if arch in WAITING:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported yet: it waits for "
-            f"{WAITING[arch]}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.smoke_config() if smoke else mod.config()
 

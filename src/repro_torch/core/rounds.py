@@ -1041,8 +1041,9 @@ def make_serial_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                             noise_buf = torch.empty(n_params, device=device)
                         noise = noise_buf.normal_(generator=state.rng)
                 if fl.dp_enabled and fl.dp_mode == "clipped":
+                    # noised where it lies: no second [P] row
                     flat, norm = kops.dp_clip_noise(flat, noise, pr.dp_clip,
-                                                    sigma)
+                                                    sigma, out=flat)
                     delta = unflatten_rows(flat, state.params)
                 elif fl.dp_enabled:
                     delta, norm = dp_lib.privatize_update(

@@ -191,6 +191,10 @@ def get_strategy(name: str) -> Callable:
     return _STRATEGIES[name]
 
 
+def strategy_names():
+    return tuple(_STRATEGIES)
+
+
 _SCORES = {
     "adaptive_utility": score_adaptive_utility,
     "random": score_random,

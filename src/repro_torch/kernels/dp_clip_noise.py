@@ -24,7 +24,7 @@ them.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -177,12 +177,16 @@ def _launch_sumsq(x: torch.Tensor, plan: SumsqPlan) -> torch.Tensor:
 
 
 def scale_noise_rows(x: torch.Tensor, noise: torch.Tensor,
-                     scale: torch.Tensor, sigma) -> torch.Tensor:
+                     scale: torch.Tensor, sigma,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``o = x·scale[r] + σ·noise`` over ``[R, P]`` f32; ``scale [R]``;
     ``sigma`` a float, or a ``[R]`` f32 tensor with one σ a row (a sweep's
-    lanes, each with its own ε)."""
+    lanes, each with its own ε).  ``o`` goes into ``out`` where given,
+    which may be ``x`` itself: each element is read once, then written,
+    by the same thread (an LM's update row is noised where it lies)."""
     if x.device.type == "cpu":
-        return ref.scale_noise_rows_ref(x, noise, scale, sigma)
+        o = ref.scale_noise_rows_ref(x, noise, scale, sigma)
+        return o if out is None else out.copy_(o)
     _require_cuda(x, "scale_noise_rows")
     r, p = x.shape
     _check_rows("x", x, x.device)
@@ -191,8 +195,10 @@ def scale_noise_rows(x: torch.Tensor, noise: torch.Tensor,
     per_row = isinstance(sigma, torch.Tensor)
     if per_row:
         _check_rows("sigma", sigma, x.device, (r,))
+    if out is None:
+        out = torch.empty_like(x)
+    _check_rows("out", out, x.device, (r, p))
     lib = _load()
-    out = torch.empty_like(x)
     stream = _nvcc.stream_of(x)
     if per_row:
         err = lib.dpcn_scale_noise_rows_sigma(

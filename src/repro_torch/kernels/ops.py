@@ -16,6 +16,8 @@ plain versions, so no by-backend switch is needed.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import dp_clip_noise as _dp
@@ -35,21 +37,25 @@ combine_decode_partials = combine_partials
 rglru_scan = _rg.rglru_scan
 
 
-def dp_clip_noise_rows(x: torch.Tensor, noise: torch.Tensor, clip, sigma):
+def dp_clip_noise_rows(x: torch.Tensor, noise: torch.Tensor, clip, sigma,
+                       out: Optional[torch.Tensor] = None):
     """Per-row clip to L2 ``clip`` + σ-scaled noise over the stacked
     updates ``x [R, P]``: one shared norm per row (client-level DP).
-    ``clip`` and ``sigma`` are floats or ``[R]`` tensors.  Two kernel
-    launches on the card.  Returns ``(out, pre_clip_norm [R])``."""
+    ``clip`` and ``sigma`` are floats or ``[R]`` tensors; the result goes
+    into ``out`` where given (``x`` itself too).  Two kernel launches on
+    the card.  Returns ``(out, pre_clip_norm [R])``."""
     norm = torch.sqrt(_dp.sumsq_rows(x))
-    out = _dp.scale_noise_rows(x, noise, clip_scale(norm, clip), sigma)
+    out = _dp.scale_noise_rows(x, noise, clip_scale(norm, clip), sigma, out)
     return out, norm
 
 
 def dp_clip_noise(x: torch.Tensor, noise: torch.Tensor, clip: float,
-                  sigma: float):
-    """One flat update ``x [N]``.  Returns ``(out [N], norm)``."""
-    out, norm = dp_clip_noise_rows(x.reshape(1, -1), noise.reshape(1, -1),
-                                   clip, sigma)
+                  sigma: float, out: Optional[torch.Tensor] = None):
+    """One flat update ``x [N]`` (into ``out [N]`` where given, ``x``
+    itself too).  Returns ``(out [N], norm)``."""
+    out, norm = dp_clip_noise_rows(
+        x.reshape(1, -1), noise.reshape(1, -1), clip, sigma,
+        None if out is None else out.view(1, -1))
     return out.reshape(x.shape), norm[0]
 
 

@@ -8,6 +8,12 @@ Without ``--full`` it serves the architecture's smoke config.  The default
 architecture is ``mamba2_130m``, as the reference's.  It runs on the card
 unless given ``--device cpu``.  Prompts and sampling draw from a
 ``torch.Generator`` seeded by ``--seed`` + 1 (the params from ``--seed``).
+
+At ``--full`` four architectures' bf16 weights need several cards whole,
+as the reference's pod does, and run out of memory on one 80 GB card:
+mistral-large-123b (245 GB), llama4-maverick-400b (789 GB), qwen2-vl-72b
+(145 GB) and phi3.5-moe (84 GB).  Cut them in depth
+(``dataclasses.replace(config(), n_layers=...)``) to serve them on one.
 """
 from __future__ import annotations
 

@@ -12,8 +12,22 @@ The reference's flags and printed lines, plus ``--device``: the card
 unless ``cpu`` is asked, raising without one.  Params come from a
 ``torch.Generator`` seeded by ``--seed`` and the round state's generator
 from ``--seed`` + 1; tokens from the NumPy streams of ``data/tokens.py``,
-bitwise the reference's.  :func:`train` runs a :class:`ModelConfig` that
-its caller built; :func:`main` returns its record.
+and the stub frontend embeddings of a VLM or an encoder-decoder from
+NumPy too (:func:`round_batches`, :func:`eval_batch`), all bitwise the
+reference's.  :func:`train` runs a :class:`ModelConfig` that its caller
+built; :func:`main` returns its record.
+
+Every architecture trains at its smoke config on the CPU or one card.  At
+``--full`` the weights alone of four need several cards, as the
+reference's pod does: mistral-large-123b (245 GB in bf16),
+llama4-maverick-400b (789 GB), qwen2-vl-72b (145 GB) and phi3.5-moe (84
+GB).  The serial round holds ~16–18 bytes a parameter at its peak
+(phi3.5-moe cut to 2 layers: 48.7 GB for 2.86 B parameters on an H100):
+seamless-m4t-large-v2 (1.6 B) and mamba2-130m train whole on one 80 GB
+card, granite-3-8b, qwen2.5-32b and recurrentgemma-9b need several too,
+and phi3-mini-3.8b (~65 GB by that ratio) is not measured.  Where one
+card runs out of memory, cut the model in depth
+(``dataclasses.replace(config(), n_layers=...)``) and call :func:`train`.
 """
 from __future__ import annotations
 
@@ -34,6 +48,46 @@ from repro_torch.models.model import build
 def _tensors(data: dict, device) -> dict:
     return {k: torch.as_tensor(np.asarray(v), device=device)
             for k, v in data.items()}
+
+
+def has_frontend(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` takes ``batch["frontend"]``: an encoder-decoder's
+    frames, or a frontend's stub tokens (a VLM's patches)."""
+    return cfg.enc_layers > 0 or (cfg.frontend != "none"
+                                  and bool(cfg.frontend_tokens))
+
+
+def _frontend_len(cfg: ModelConfig) -> int:
+    return cfg.enc_seq if cfg.enc_layers else cfg.frontend_tokens
+
+
+def round_batches(cfg: ModelConfig, fl: FLConfig, batch: int, seq: int,
+                  seed: int) -> dict:
+    """One round's data as NumPy arrays, the reference CLI's
+    ``_round_batches``: tokens and labels ``[K, local_steps, batch, seq]``
+    and, where :func:`has_frontend`, ``frontend`` ``[K, local_steps,
+    batch, n, d_model]`` f32 normals from ``default_rng(seed)``."""
+    k, steps = fl.serial_clients_in_step, fl.local_steps_in_step
+    data = lm_round_batches(cfg.vocab_size, k, steps, batch, seq, seed)
+    if has_frontend(cfg):
+        data["frontend"] = np.random.default_rng(seed).normal(
+            0, 1, (k, steps, batch, _frontend_len(cfg),
+                   cfg.d_model)).astype(np.float32)
+    return data
+
+
+def eval_batch(cfg: ModelConfig, batch: int, seq: int, seed: int) -> dict:
+    """The eval batch as NumPy arrays, the reference CLI's
+    ``_eval_batch``: tokens and labels from ``seed`` + 999 and, where
+    :func:`has_frontend`, ``frontend`` ``[batch, n, d_model]`` f32 normals
+    from ``default_rng(0)`` whatever the seed, as the reference draws
+    them."""
+    data = lm_eval_batch(cfg.vocab_size, batch, seq, seed + 999)
+    if has_frontend(cfg):
+        data["frontend"] = np.random.default_rng(0).normal(
+            0, 1, (batch, _frontend_len(cfg), cfg.d_model)).astype(
+            np.float32)
+    return data
 
 
 def _sync(device: torch.device) -> None:
@@ -78,8 +132,7 @@ def train(cfg: ModelConfig, *, rounds: int = 3, clients: int = 8,
         lambda p, b: model.loss(p, b, remat="none"), fl, clients,
         device=device)
 
-    eval_b = _tensors(lm_eval_batch(cfg.vocab_size, batch, seq, seed + 999),
-                      device)
+    eval_b = _tensors(eval_batch(cfg, batch, seq, seed), device)
 
     def ev(p) -> float:
         with torch.no_grad():
@@ -88,9 +141,8 @@ def train(cfg: ModelConfig, *, rounds: int = 3, clients: int = 8,
     out = {"initial_eval_loss": ev(state.params), "rounds": []}
     print(f"  initial eval loss: {out['initial_eval_loss']:.4f}")
     for r in range(rounds):
-        data = _tensors(lm_round_batches(
-            cfg.vocab_size, fl.serial_clients_in_step,
-            fl.local_steps_in_step, batch, seq, seed * 100 + r), device)
+        data = _tensors(round_batches(cfg, fl, batch, seq, seed * 100 + r),
+                        device)
         _sync(device)
         t0 = time.perf_counter()
         state, m = step(state, data)

@@ -161,7 +161,12 @@ def stack_layers(reps: int, init_one):
     """``reps`` layers of ``init_one()`` (a ParamMeta tree) stacked along
     a leading "layers" axis.  Layers are drawn one at a time and copied
     into the stacked tensors, so no f32 draw of a whole stacked leaf is
-    ever held."""
+    ever held; a single layer is stacked as a view, without a copy (one
+    of llama4's 18 B-element ``("attn", "moe")`` pairs would otherwise
+    be held twice)."""
+    if reps == 1:
+        return add_axis(map_meta(lambda m: ParamMeta(
+            m.value.unsqueeze(0), m.axes), init_one()), "layers")
     stacked = None
     for r in range(reps):
         one = init_one()

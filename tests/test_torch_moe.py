@@ -287,3 +287,121 @@ def test_full_config_moe_tree():
                                             n_layers=16))
     assert sum(t.numel() for t in jax.tree.leaves(cut.param_shapes())) == \
         21_069_172_736
+
+
+# ---------------------------------------------------------------------------
+# top-1 routing: llama4-maverick's ("attn", "moe") pair
+# ---------------------------------------------------------------------------
+
+LLAMA4 = "llama4_maverick_400b"
+
+
+def _llama4_cfgs(dtype: str, **kw):
+    jc = dataclasses.replace(j_base.get_arch(LLAMA4, smoke=True),
+                             dtype=dtype, **kw)
+    return jc, t_base.ModelConfig(**dataclasses.asdict(jc))
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.25])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", IMPLS)
+def test_top1_route_and_moe_mlp_match_jax(impl, dtype, capacity_factor):
+    """llama4's top-1 routing (4 experts in the smoke config): ``route``'s
+    dispatch equal to the reference's, its combine (the renormalised gate
+    of a kept token is exactly 1) and aux at f32's bar, and ``moe_mlp`` on
+    each dispatch against the reference's.  At a capacity factor of 0.25
+    (2 slots an expert for 32 tokens) most tokens overflow and are
+    dropped, the same ones in both, and get zeros; at 1.25 (10 slots)
+    fewer, where routing favours an expert.  The full config's capacity is the reference's: 5 slots an
+    expert for a sequence of 512 over 128 experts."""
+    jc, tc = _llama4_cfgs(dtype, capacity_factor=capacity_factor)
+    assert tc.experts_per_token == 1
+    jp, tp = _moe_params(jc)
+    jx, tx = _x(dtype)
+    jd, jcomb, jaux = j_moe.route(jp["router"], jx, jc)
+    td, tcomb, taux = t_moe.route(tp["router"], tx, tc)
+    c = t_moe._capacity(tc, 32)
+    assert c == j_moe._capacity(jc, 32) == int(capacity_factor * 8)
+    np.testing.assert_array_equal(_np(td), np.asarray(jd))
+    _close(tcomb, jcomb, "float32")
+    _close(taux, jaux, "float32")
+    kept = td.sum(dim=(2, 3)) > 0
+    # at most c tokens an expert a row are kept: 2 rows of 32 tokens
+    assert int((~kept).sum()) >= 2 * 32 - 2 * 4 * c
+    np.testing.assert_array_equal(_np(tcomb.sum(dim=(2, 3))[kept]), 1.0)
+    jy, jaux2 = j_moe.moe_mlp(jp, jx, jc, impl=impl)
+    ty, taux2 = t_moe.moe_mlp(tp, tx, tc, impl=impl)
+    _close(ty, jy, dtype, scaled=True)
+    _close(taux2, jaux2, "float32")
+    assert bool((ty[~kept] == 0).all())
+    full = t_base.get_arch(LLAMA4)
+    assert t_moe._capacity(full, 512) == \
+        j_moe._capacity(j_base.get_arch(LLAMA4), 512) == 5
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_llama4_smoke_lm_loss_and_grads_match_jax(impl):
+    """llama4's smoke LM (a dense ``attn`` layer, then a top-1 ``moe``
+    layer) in f32 on each dispatch: the forward on both attention impls
+    and ``Model.loss`` (cross-entropy + aux) with its gradients against
+    ``jax.value_and_grad`` of the reference's at 1e-5 (the gradients
+    scaled by their largest magnitude), under remat "none" and
+    "full"."""
+    jm, jp, tm, tp = _lm(LLAMA4, "float32")
+    assert tm.cfg.pattern() == ("attn", "moe")
+    j_tr.MOE_IMPL[0] = t_tr.MOE_IMPL[0] = impl
+    toks = _tokens(tm.cfg, 2, 24, seed=5)
+    v = tm.cfg.vocab_size
+    for attn_impl in ("ref", "flash"):
+        want = jm.forward(jp, {"tokens": jnp.asarray(toks)}, impl=attn_impl)
+        got = tm.forward(tp, {"tokens": torch.as_tensor(toks)},
+                         impl=attn_impl)
+        _close(got[..., :v], np.asarray(want)[..., :v], "float32")
+    labels = np.roll(toks, -1, axis=1)
+    labels[:, -2:] = -100
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(labels)}
+    jl, jg = jax.value_and_grad(lambda p: jm.loss(p, jb, remat="none"))(jp)
+    for remat in ("none", "full"):
+        tq = jax.tree.map(lambda t: t.clone().requires_grad_(True), tp)
+        loss = tm.loss(tq, tb, remat=remat)
+        loss.backward()
+        _close(loss, jl, "float32")
+        for g, j in zip([t.grad for t in jax.tree.leaves(tq)],
+                        jax.tree.leaves(jg)):
+            _close(g, j, "float32", scaled=True)
+
+
+def test_llama4_trees_and_convert():
+    """llama4's full tree on the meta device: the reference's shapes and
+    dtypes, dense and MoE layers in one ("attn", "moe") segment of 24
+    repeats, the f32 router beside bf16 experts, 394.67 B elements;
+    18,429,404,160 at the 2 layers the card runs.  ``lm_params_from_jax``
+    carries the smoke LM's mixed tree (f32 router, bf16 everything else)
+    bitwise, dtype by dtype."""
+    jc = j_base.get_arch(LLAMA4)
+    tm = t_model.build(t_base.get_arch(LLAMA4))
+    shapes = tm.param_shapes()
+    leaves = jax.tree.leaves(shapes)
+    jleaves = jax.tree.leaves(j_tr.lm_param_shapes(jc))
+    assert [(tuple(t.shape), str(t.dtype)[6:]) for t in leaves] == \
+        [(tuple(j.shape), str(j.dtype)) for j in jleaves]
+    assert sum(t.numel() for t in leaves) == 394_674_017_280
+    seg = shapes["stack"][0]
+    assert set(seg) == {"b0", "b1"} and "moe" in seg["b1"] and \
+        "moe" not in seg["b0"]
+    moe = seg["b1"]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert tuple(moe["wi"].shape) == (24, 128, 5120, 8192)
+    assert {moe[k].dtype for k in ("wi", "wg", "wo")} == {torch.bfloat16}
+    cut = t_model.build(dataclasses.replace(t_base.get_arch(LLAMA4),
+                                            n_layers=2))
+    assert sum(t.numel() for t in jax.tree.leaves(cut.param_shapes())) == \
+        18_429_404_160
+    _, jp, _, tp = _lm(LLAMA4, "bfloat16")
+    dtypes = set()
+    for j, t in zip(jax.tree.leaves(jp), jax.tree.leaves(tp)):
+        assert str(t.dtype)[6:] == str(j.dtype)
+        dtypes.add(str(j.dtype))
+        np.testing.assert_array_equal(_np(t), np.asarray(j, np.float32))
+    assert dtypes == {"float32", "bfloat16"}

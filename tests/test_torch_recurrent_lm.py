@@ -322,17 +322,19 @@ def test_block_trees_match_jax_in_shape_dtype_axes(kind, arch, dtype):
 def test_registry_lifts_both_architectures():
     """Both configs equal the reference's, full and smoke; neither kind
     nor architecture waits any more; no block kind waits (``moe`` is
-    ported too), and the architectures that still wait raise."""
+    ported too), and no architecture waits: mistral-large and llama4's
+    configs equal the reference's too."""
     for arch in ARCHS:
         for smoke in (False, True):
             assert dataclasses.asdict(t_base.get_arch(arch, smoke)) == \
                 dataclasses.asdict(j_base.get_arch(arch, smoke))
-        assert arch not in t_base.WAITING
     assert {"rec", "ssd", "moe"} <= set(t_tr.KINDS)
     assert not hasattr(t_tr, "WAITING_KINDS")
-    for arch in t_base.WAITING:
-        with pytest.raises(NotImplementedError, match="waits for"):
-            t_base.get_arch(arch)
+    assert not hasattr(t_base, "WAITING")
+    for arch in ("mistral_large_123b", "llama4_maverick_400b"):
+        for smoke in (False, True):
+            assert dataclasses.asdict(t_base.get_arch(arch, smoke)) == \
+                dataclasses.asdict(j_base.get_arch(arch, smoke))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -255,6 +255,21 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    only) card vs CPU on the same draws: a round without DP and the first
    noised round within 1e-4, the second within 8 times the larger of the
    card's grad_accum and state gaps.
+21. the sharding layer (``launch/steps.py``, DTensor placements from the
+   rule tables) on one-device meshes over a world-size-1 NCCL group
+   (in-process store, no network): granite-3-8b whole, the prefill
+   bundle at [4, 512] and the decode bundle (B = 4, a 512-token cache, 8
+   steps) on the (1, 1) and the multi-pod (1, 1, 1) meshes against the
+   unsharded ``forward(impl="ref", last_only=True)`` and ``decode_step``
+   (bitwise, or the first difference printed and phase 15's bf16 bar),
+   both walls printed; the ``client_serial`` train bundle on phase 17's
+   8-layer cut and settings with ``--dp`` against phase 17's
+   ``make_serial_round`` on the same state and draws (bitwise, or within
+   8 times its grad_accum gap), K1a/K1b once a privatised slot on the
+   rank's local row; then ``launch/dryrun.py`` on this torch, each pair
+   in a subprocess of its own on a fake 256-rank group: mistral-large-123b
+   and llama4-maverick-400b at ``prefill_32k`` and ``decode_32k``, their
+   per-rank bytes against 80 GB, flops, collective bytes and wall.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -5206,6 +5221,303 @@ def phase_train_families(torch, dpk, ref, card) -> tuple:
     return out, rows
 
 
+# phase 21: the sharding layer (launch/steps.py, models/shardctx.py) on the
+# card.  One H100, so the sharded code runs for real on a one-device mesh
+# (a world-size-1 NCCL group from an in-process store, no network): the
+# ("data", "model") (1, 1) mesh and the multi-pod (1, 1, 1) form; the
+# 256-rank layouts run through the dry-run (launch/dryrun.py) on a fake
+# group in a subprocess (a card's NCCL group cannot share its process)
+SH_PREFILL = (4, 512)       # B, S of the prefill bundle
+SH_DECODE = (4, 512, 8)     # B, cache length, decode steps
+# the dry-run pairs run here: the serve shapes of the two largest configs
+# on the 16 x 16 mesh.  Their train_4k pairs (the serial round over 16
+# microbatches of 88 and 48 layers) take 13-20 minutes of CPU each under
+# fake tensors, past this script's limit: the CPU dry-run table holds them
+SH_DRY = (("mistral_large_123b", "prefill_32k"),
+          ("mistral_large_123b", "decode_32k"),
+          ("llama4_maverick_400b", "prefill_32k"),
+          ("llama4_maverick_400b", "decode_32k"))
+
+
+def sh_meshes(torch):
+    """The one-device meshes over a world-size-1 NCCL group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import mesh_from_shape
+    torch.cuda.set_device(0)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+    return {"single": mesh_from_shape((1, 1), ("data", "model"), "cuda"),
+            "multi": mesh_from_shape((1, 1, 1), ("pod", "data", "model"),
+                                     "cuda")}
+
+
+def sh_wall(torch, fn, reps: int = 2):
+    """(result of the last call, its wall ms): the first call warms."""
+    out, ms = None, None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return out, ms
+
+
+def sh_equal(torch, got, want, what: str, tol: float = LM_BF16_TOL) -> dict:
+    """Bitwise, or the first difference printed and the pair held to
+    phase 15's bf16 bar."""
+    got, want = got.float(), want.float()
+    if torch.equal(got, want):
+        print(f"  {what}: bitwise equal")
+        return {"bitwise": True}
+    idx = (got != want).nonzero()[0].tolist()
+    print(f"  {what}: not bitwise; first difference at {idx}: "
+          f"{float(got[tuple(idx)]):.6e} vs {float(want[tuple(idx)]):.6e}")
+    return {"bitwise": False, "first_difference": idx,
+            "bar": lm_close(torch, got, want, tol, what)}
+
+
+def sh_serve(torch, meshes, card) -> dict:
+    """(a): granite-3-8b whole in bf16, the prefill bundle at [4, 512] and
+    the decode bundle at B = 4 on a 512-token cache for 8 steps, on each
+    one-device mesh, against the unsharded ``forward(impl="ref",
+    last_only=True)`` and ``decode_step`` on the same weights."""
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build
+
+    cfg = get_arch(LM_ARCH)
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(0, device="cuda")
+    b, s = SH_PREFILL
+    tokens = lm_tokens(torch, cfg, b, s, seed=1)
+    want, plain_ms = sh_wall(torch, lambda: model.forward(
+        params, {"tokens": tokens}, impl="ref", last_only=True))
+    db, c, n_steps = SH_DECODE
+    step_tokens = [lm_tokens(torch, cfg, db, 1, seed=10 + i)
+                   for i in range(n_steps)]
+    caches = model.init_cache(db, c, params=params)
+    t0 = time.perf_counter()
+    want_dec = []
+    for i, tok in enumerate(step_tokens):
+        lg, caches = model.decode_step(params, tok, caches, i)
+        want_dec.append(lg)
+    torch.cuda.synchronize()
+    plain_dec_ms = (time.perf_counter() - t0) * 1e3
+    out = {"prefill_plain_ms": plain_ms, "decode_plain_ms": plain_dec_ms}
+    for kind, mesh in meshes.items():
+        mc = MeshConfig(multi_pod=(kind == "multi"))
+        bp = steps.build_prefill_step(cfg, ShapeConfig("prefill", s, b,
+                                                       "prefill"), mc, mesh)
+        dp = steps.place(params, bp.in_shardings[0], mesh)
+        dbatch = steps.place({"tokens": tokens}, bp.in_shardings[1], mesh)
+        got, ms = sh_wall(torch, lambda: bp.fn(dp, dbatch))
+        row = {"prefill_ms": ms,
+               "prefill": sh_equal(torch, got.to_local(), want,
+                                   f"{kind} mesh prefill bundle vs forward")}
+        bd = steps.build_decode_step(cfg, ShapeConfig("decode", c, db,
+                                                      "decode"), mc, mesh)
+        dcaches = steps.place(model.init_cache(db, c, params=params),
+                              bd.in_shardings[2], mesh)
+        got_dec = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, tok in enumerate(step_tokens):
+            lg, dcaches = bd.fn(dp, steps.place(tok, bd.in_shardings[1], mesh),
+                                dcaches, i)
+            got_dec.append(lg.to_local())
+        torch.cuda.synchronize()
+        row["decode_ms"] = (time.perf_counter() - t0) * 1e3
+        row["decode"] = sh_equal(torch, torch.stack(got_dec),
+                                 torch.stack(want_dec),
+                                 f"{kind} mesh decode bundle vs decode_step, "
+                                 f"{n_steps} steps")
+        row["caches"] = sh_equal(
+            torch, torch.cat([t.to_local().float().flatten()
+                              for t in tree_list(dcaches)]),
+            torch.cat([t.float().flatten() for t in tree_list(caches)]),
+            f"{kind} mesh caches after {n_steps} steps")
+        print(f"  {kind} mesh: prefill [{b}, {s}] bundle {ms:.2f} ms vs "
+              f"unsharded {plain_ms:.2f} ms; decode {n_steps} steps bundle "
+              f"{row['decode_ms']:.2f} ms vs unsharded {plain_dec_ms:.2f} ms "
+              f"(walls, sync'd)  ({card})")
+        out[kind] = row
+        del dp, dbatch, dcaches, got, got_dec
+    del params, caches, want, want_dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def sh_train(torch, dpk, mesh, card) -> dict:
+    """(b): the client_serial train bundle (``plan="client_serial"``) on
+    the (1, 1) mesh, on phase 17's granite cut to 8 layers and the train
+    CLI's settings with --dp, against phase 17's ``make_serial_round`` on
+    the same state and draws: bitwise, or within 8x the round's
+    re-association gap (the same round at grad_accum 2 against 1, read
+    here); K1a and K1b once each per privatised slot on the local row."""
+    import dataclasses
+
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, get_arch
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import (_tensors, round_batches,
+                                          train_fl_config)
+    from repro_torch.models.model import build
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LMT_LAYERS)
+    fl = train_fl_config(8, LMT_SLOTS, 1, 0.005, True)
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(0, device="cuda")
+    data = _tensors(round_batches(cfg, fl, 2, 64, 0), "cuda")
+
+    def loss(p, b):
+        return model.loss(p, b, remat="none")
+
+    def plain_round(grad_accum: int):
+        state = rounds_lib.init_serial_state(
+            params, fl, torch.Generator(device="cuda").manual_seed(1),
+            n_clients=fl.n_clients)
+        step = rounds_lib.make_serial_round(loss, fl, fl.n_clients,
+                                            grad_accum=grad_accum,
+                                            device="cuda")
+        return step(state, data)
+
+    dpk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_m = plain_round(1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_launches = dict(dpk.LAUNCHES)
+
+    bt = steps.build_train_step(cfg, ShapeConfig("train", 64, 2, "train"),
+                                MeshConfig(), mesh, plan="client_serial",
+                                grad_accum=1, remat="none", fl=fl)
+    dparams = steps.place(params, bt.in_shardings[0], mesh)
+    layout = rounds_lib._ShardLayout(dparams)
+    check(layout.n_local == LMT_ROW and layout.n_owned == LMT_ROW,
+          f"local row {layout.n_local} (owned {layout.n_owned}) of "
+          f"{LMT_ROW}")
+    state = rounds_lib.init_serial_state(
+        dparams, fl, torch.Generator(device="cuda").manual_seed(1),
+        n_clients=fl.n_clients)
+    dbatch = steps.place(data, bt.in_shardings[1], mesh)
+    dpk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, got_m = bt.fn(state, dbatch)
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(dpk.LAUNCHES)
+    check(launches == {"sumsq_rows": LMT_SLOTS, "scale_noise_rows": LMT_SLOTS}
+          and plain_launches == launches,
+          f"K1 launches {launches} (unsharded {plain_launches}) for "
+          f"{LMT_SLOTS} privatised slots")
+    check(torch.equal(got_m.sel_mask, want_m.sel_mask)
+          and torch.equal(got_m.failed, want_m.failed),
+          "sharded round's selection and failures")
+    diffs = [float((g.to_local().float() - w.float()).abs().max())
+             for g, w in zip(tree_list(got.params), tree_list(want.params))]
+    out = {"layers": LMT_LAYERS, "row": layout.n_local, "launches": launches,
+           "round_ms": sharded_ms, "plain_round_ms": plain_ms,
+           "max_abs_diff": max(diffs), "bitwise": max(diffs) == 0.0,
+           "norms": [float(x) for x in got_m.update_norms],
+           "plain_norms": [float(x) for x in want_m.update_norms]}
+    if not out["bitwise"]:
+        alt, _ = plain_round(2)
+        gap = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(tree_list(alt.params),
+                                  tree_list(want.params)))
+        out["reassoc_gap"] = gap
+        check(out["max_abs_diff"] <= LMT_REASSOC_MULT * max(gap, LMT_TOL),
+              f"sharded round {out['max_abs_diff']:.3e} past "
+              f"{LMT_REASSOC_MULT} x its re-association gap {gap:.3e}")
+        del alt
+    print(f"  {cfg.name} at {LMT_LAYERS} layers, serial round with DP: "
+          f"sharded (1, 1) {sharded_ms:.1f} ms vs unsharded {plain_ms:.1f} "
+          f"ms (first calls); params max|diff| {out['max_abs_diff']:.3e} "
+          f"({'bitwise' if out['bitwise'] else 'gap ' + str(out.get('reassoc_gap'))}); "
+          f"K1 launches {launches} on a local row of {layout.n_local:,}  "
+          f"({card})")
+    del params, dparams, state, got, want, dbatch, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def sh_dryrun(torch, card) -> dict:
+    """(c): ``launch/dryrun.py`` on this torch, each pair in a subprocess
+    of its own (fake 16 x 16 group, fake tensors), all at once."""
+    import os
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    out_dir = OUT_DIR / "dryrun"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+
+    def one(pair):
+        arch, shape = pair
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out-dir",
+             str(out_dir)], capture_output=True, text=True, env=env,
+            timeout=600)
+        return pair, res, time.perf_counter() - t0
+
+    rows = {}
+    with ThreadPoolExecutor(len(SH_DRY)) as pool:
+        for (arch, shape), res, wall in pool.map(one, SH_DRY):
+            check(res.returncode == 0,
+                  f"dry-run {arch} {shape}: {res.stdout[-1500:]}"
+                  f"{res.stderr[-1500:]}")
+            r = json.loads((out_dir / f"{arch}__{shape}__single.json")
+                           .read_text())
+            mem = r["memory"]
+            rows[f"{arch}/{shape}"] = {
+                "argument_bytes": mem["argument_bytes"],
+                "peak_bytes": mem["peak_bytes"], "flops": r["cost"]["flops"],
+                "collective_bytes": r["collectives"]["total"],
+                "collectives": r["collectives"], "run_s": r["run_s"],
+                "process_s": wall, "torch": r["torch"],
+                "fits_h100_80gb": r["fits_h100_80gb"]}
+            print(f"  dry-run {arch} {shape} (16 x 16, fake tensors, torch "
+                  f"{r['torch']}): per rank args "
+                  f"{mem['argument_bytes'] / 1e9:.2f} GB, est. peak "
+                  f"{mem['peak_bytes'] / 1e9:.2f} GB of 80 "
+                  f"({'fits' if r['fits_h100_80gb'] else 'does not fit'}), "
+                  f"{r['cost']['flops']:.3e} flops, collectives "
+                  f"{r['collectives']['total'] / 1e9:.2f} GB "
+                  f"({r['collectives']['counts']}); step {r['run_s']:.1f} s, "
+                  f"process {wall:.1f} s")
+    return rows
+
+
+def phase_sharding(torch, dpk, card) -> dict:
+    """Phase 21: (a) the serve bundles and (b) the serial train bundle on
+    one-device meshes against the unsharded path, (c) the dry-run of the
+    two largest configs' serve shapes on this torch."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    meshes = sh_meshes(torch)
+    try:
+        with torch.no_grad():
+            out = {"serve": sh_serve(torch, meshes, card)}
+        out["train"] = sh_train(torch, dpk, meshes["single"], card)
+    finally:
+        dist.destroy_process_group()
+    out["dryrun"] = sh_dryrun(torch, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 21: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5424,6 +5736,12 @@ def main() -> int:
     train_families, tf_rows = phase_train_families(torch, dpk, ref, card)
     kernels += tf_rows
 
+    print(f"== 21. sharding: the prefill, decode and serial train bundles "
+          f"on one-device meshes against the unsharded path, and the "
+          f"dry-run of {', '.join(sorted({a for a, _ in SH_DRY}))} on a "
+          f"fake 16 x 16 group  ({card})")
+    sharding = phase_sharding(torch, dpk, card)
+
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -5437,6 +5755,7 @@ def main() -> int:
         "population": population, "lm": lm, "fl_ops": fl_ops,
         "lm_train": lm_train, "recurrent_lm": rec_lm, "families": families,
         "train_families": train_families,
+        "sharding": sharding,
         "total_s": time.perf_counter() - t_all,
     }
     OUT_DIR.mkdir(exist_ok=True)

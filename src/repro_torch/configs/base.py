@@ -3,9 +3,11 @@
 Two halves.  The language-model half: ``ModelConfig`` (the architecture
 description every assigned family shares), ``ShapeConfig`` and
 ``INPUT_SHAPES``, and the registry (``ARCH_IDS``, ``ARCH_ALIASES``,
-``get_arch``, ``get_shape``); an architecture module lives in
-``repro_torch/configs/<id>.py`` with ``config()`` and ``smoke_config()``.
-``MeshConfig`` and ``RunConfig`` wait for the sharding slice.
+``get_arch``, ``get_shape``, ``all_pairs``); an architecture module lives
+in ``repro_torch/configs/<id>.py`` with ``config()`` and
+``smoke_config()``.  ``MeshConfig`` names the production meshes the
+step bundles (``launch/steps.py``) and the dry-run lay a step across;
+``RunConfig`` bundles one run's model, shape, mesh and FL settings.
 
 The federated-learning half: ``FLConfig``, ``FLParams``,
 ``RUNTIME_FIELDS``, ``fl_params``, ``fl_static`` and the sweep engine's
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -227,6 +229,11 @@ def get_shape(name: str) -> ShapeConfig:
     return INPUT_SHAPES[name]
 
 
+def all_pairs() -> Sequence[Tuple[str, str]]:
+    """Every assigned (architecture x input shape) combination (40)."""
+    return [(a, s) for a in ARCH_IDS for s in INPUT_SHAPES]
+
+
 # ---------------------------------------------------------------------------
 # Federated-learning configuration
 # ---------------------------------------------------------------------------
@@ -370,3 +377,47 @@ def params_lanes(cells: Sequence[FLConfig], n_seeds: int,
         torch.tensor([getattr(p, f) for p in per_cell], dtype=torch.float32,
                      device=device).repeat_interleave(n_seeds)
         for f in FLParams._fields))
+
+
+# ---------------------------------------------------------------------------
+# Mesh / run configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A production mesh: 16 × 16 ("data", "model"), or two of them under a
+    leading "pod" axis (2 × 16 × 16, 512 ranks)."""
+
+    multi_pod: bool = False
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (2, 16, 16) if self.multi_pod else (16, 16)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    fl: FLConfig = field(default_factory=FLConfig)
+    # remat policy for the layer stack: "full" | "dots" | "none"
+    remat: str = "full"
+    # microbatches for gradient accumulation inside train_step
+    grad_accum: int = 1
+    attention_impl: str = "ref"  # ref | flash (the flash_attention kernel)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

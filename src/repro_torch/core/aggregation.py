@@ -39,8 +39,7 @@ def apply_server_update(server_opt, params, opt_state, agg_delta):
 def stream_init(params_like, dtype=torch.float32):
     """Zeroed accumulator over ``params_like``'s tree, f32 by default (the
     reference lets a ≥100B config pass bf16), and an f32 weight sum."""
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=dtype,
-                                           device=p.device), params_like)
+    zeros = tree_map(lambda p: torch.zeros_like(p, dtype=dtype), params_like)
     return zeros, torch.zeros((), device=tree_leaves(zeros)[0].device)
 
 

@@ -804,6 +804,16 @@ def make_cohort_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
 # ---------------------------------------------------------------------------
 
 
+def _placed_like(g, p):
+    """A DTensor grad laid out as its param (a partial sum reduced, a
+    replicated one split: FSDP's reduce-scatter); a plain grad as it
+    is."""
+    if not hasattr(p, "placements") or tuple(g.placements) == tuple(
+            p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def value_and_grad(loss_fn: Callable):
     """``jax.value_and_grad`` of ``loss_fn(params, batch)`` over a param
     tree, by autograd: ``(loss, grads)``, each grad in its leaf's dtype
@@ -817,10 +827,21 @@ def value_and_grad(loss_fn: Callable):
             leaves = tree_leaves(p)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                         materialize_grads=True)
-        by_leaf = {id(t): g for t, g in zip(leaves, grads)}
+        by_leaf = {id(t): _placed_like(g, t) for t, g in zip(leaves, grads)}
         return loss.detach(), tree_map(lambda t: by_leaf[id(t)], p)
 
     return vag
+
+
+def _whole(x):
+    """A batch DTensor gathered whole (the microbatches are runs of global
+    rows, which a split over the data ranks does not align with; the
+    model's first ``constrain`` splits each microbatch again); a plain
+    tensor as it is."""
+    if not hasattr(x, "device_mesh"):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
 def microbatched_value_and_grad(loss_fn: Callable, grad_accum: int):
@@ -833,12 +854,12 @@ def microbatched_value_and_grad(loss_fn: Callable, grad_accum: int):
         return vag
 
     def accumulated(params, batch):
-        mb = tree_map(lambda x: x.reshape(
+        mb = tree_map(lambda x: _whole(x).reshape(
             (grad_accum, x.shape[0] // grad_accum) + tuple(x.shape[1:])),
             batch)
         first = tree_leaves(params)[0]
         loss_acc = torch.zeros((), device=first.device)
-        g_acc = tree_map(lambda p: torch.zeros(p.shape, device=p.device),
+        g_acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                          params)
         for i in range(grad_accum):
             loss, g = vag(params, tree_map(lambda x: x[i], mb))
@@ -858,10 +879,13 @@ def _local_train_tree_fn(loss_fn: Callable, grad_accum: int = 1):
     truncation) from landing, so params stay in their storage dtype.
     Returns ``(delta, loss at the first step, loss at the last)``: the f32
     update as one flat ``[P]`` buffer in leaf order, the row the DP kernel
-    reads (:func:`unflatten_rows` gives its tree of views)."""
+    reads (:func:`unflatten_rows` gives its tree of views).  With a
+    :class:`_ShardLayout` (DTensor params) the row is the rank's local
+    one, in the layout's order."""
     vag = microbatched_value_and_grad(loss_fn, grad_accum)
 
-    def local_train(global_params, step_batches, effective_steps, lr):
+    def local_train(global_params, step_batches, effective_steps, lr,
+                    layout=None):
         opt = tree_sgd(lr)
         p = global_params
         losses = []
@@ -873,6 +897,12 @@ def _local_train_tree_fn(loss_fn: Callable, grad_accum: int = 1):
             p = tree_map(lambda a, b: torch.where(live, b, a), p, new_p)
             del new_p
             losses.append(loss)
+        if layout is not None:
+            flat = layout.row()
+            for d, a, b in zip(layout.views(flat), tree_leaves(p),
+                               tree_leaves(global_params)):
+                d.copy_(_placed_like(a, b).to_local()).sub_(b.to_local())
+            return flat, _plain(losses[0]), _plain(losses[-1])
         leaves = tree_leaves(global_params)
         flat = torch.empty(sum(t.numel() for t in leaves),
                            device=leaves[0].device)
@@ -883,6 +913,132 @@ def _local_train_tree_fn(loss_fn: Callable, grad_accum: int = 1):
         return flat, losses[0], losses[-1]
 
     return local_train
+
+
+def _plain(x):
+    """A replicated DTensor's value as a plain tensor (a plain one as it
+    is)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+class _ShardLayout:
+    """Where each param leaf's local shard lies in a rank's flat row, for
+    the serial round on DTensor params.
+
+    The row holds the leaves' local shards (f32, each flattened): first
+    those this rank *owns* (it is the first replica of its shard: mesh
+    coordinate 0 on every axis the leaf is replicated over), then the
+    rest, each group in leaf order.  The owned prefix is what the DP
+    norm reads, so the all-reduced Σx² counts every element of the
+    global update once however many ranks replicate it."""
+
+    def __init__(self, params):
+        from repro_torch.models.shardctx import local_box
+        self.leaves = tree_leaves(params)
+        self.mesh = self.leaves[0].device_mesh
+        coord = self.mesh.get_coordinate()
+        boxes = [local_box(t.shape, self.mesh, t.placements)
+                 for t in self.leaves]
+        self.local_shapes = [tuple(b[0]) for b in boxes]
+        self.box_offsets = [tuple(b[1]) for b in boxes]
+        owned = [all(c == 0 for c, p in zip(coord, t.placements)
+                     if not p.is_shard()) for t in self.leaves]
+        order = ([i for i, o in enumerate(owned) if o]
+                 + [i for i, o in enumerate(owned) if not o])
+        self.row_offsets = [0] * len(self.leaves)
+        off = 0
+        for i in order:
+            self.row_offsets[i] = off
+            off += math.prod(self.local_shapes[i])
+        self.n_local = off
+        self.n_owned = sum(math.prod(self.local_shapes[i])
+                           for i, o in enumerate(owned) if o)
+        # each leaf's start in the global row (leaf order) and the mesh
+        # coordinates that name its shard (those of the axes it is split
+        # over): ranks with equal shard ids hold equal values
+        self.global_offsets, g = [], 0
+        for t in self.leaves:
+            self.global_offsets.append(g)
+            g += t.numel()
+        self.shard_ids = [tuple(c for c, p in zip(coord, t.placements)
+                                if p.is_shard()) for t in self.leaves]
+        self.device = self.leaves[0].to_local().device
+
+    def row(self) -> torch.Tensor:
+        return torch.empty(self.n_local, device=self.device)
+
+    def views(self, flat):
+        """The leaves' local shards as views of ``flat``, in leaf order."""
+        return [flat[o:o + math.prod(s)].view(s)
+                for o, s in zip(self.row_offsets, self.local_shapes)]
+
+    def local_noise(self, global_row, out):
+        """``out`` ← each leaf's slice of the global noise row (leaf
+        order, the unsharded round's layout), by global offset."""
+        for v, t, g, box, s in zip(self.views(out), self.leaves,
+                                   self.global_offsets, self.box_offsets,
+                                   self.local_shapes):
+            full = global_row[g:g + t.numel()].view(tuple(t.shape))
+            v.copy_(full[tuple(slice(o, o + n) for o, n in zip(box, s))])
+        return out
+
+    def draw_noise(self, rng: torch.Generator, out, round_idx: int,
+                   slot: int):
+        """Standard normals for the local row.  On a one-rank mesh the
+        unsharded round's draw (``out.normal_`` from ``rng``).  Across
+        ranks each leaf's shard draws from a generator seeded, on the
+        host, by ``rng``'s seed, the round, the slot, the leaf and the
+        shard id: replicas of a shard draw the same noise, distinct shards
+        independent noise."""
+        if self.mesh.size() == 1:
+            return out.normal_(generator=rng)
+        base = (rng.initial_seed(), int(round_idx), slot)
+        for i, (v, sid) in enumerate(zip(self.views(out), self.shard_ids)):
+            g = torch.Generator(device=rng.device).manual_seed(
+                hash(base + (i,) + sid) & (2 ** 62 - 1))
+            if v.numel():
+                v.view(-1).copy_(torch.randn(v.numel(), generator=g,
+                                             device=rng.device))
+        return out
+
+    def global_sumsq(self, owned_sumsq: torch.Tensor) -> torch.Tensor:
+        """Σ over the mesh of every rank's owned Σx²."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        nd = self.mesh.ndim
+        return DTensor.from_local(owned_sumsq, self.mesh, [Partial()] * nd,
+                                  run_check=False).redistribute(
+            self.mesh, [Replicate()] * nd).to_local()
+
+    def wrap(self, views, like):
+        """Local shards (leaf order) as DTensors shaped as ``like``'s
+        leaves, in ``like``'s tree."""
+        from torch.distributed.tensor import DTensor
+        by_id = {id(t): DTensor.from_local(v, self.mesh, t.placements,
+                                           run_check=False, shape=t.shape,
+                                           stride=t.stride())
+                 for v, t in zip(views, self.leaves)}
+        return tree_map(lambda t: by_id[id(t)], like)
+
+
+def _sharded_clip_noise(layout: _ShardLayout, flat, noise, clip, sigma):
+    """The DP clip+noise on a rank's local row: K1a on the owned prefix,
+    the Σx² all-reduced over the mesh, K1b on the whole local row (in
+    place) with the global scale.  Returns (row, global norm)."""
+    from repro_torch.kernels import dp_clip_noise as dpk
+    from repro_torch.kernels.ref import clip_scale
+    owned = flat[:layout.n_owned].view(1, -1)
+    ss = layout.global_sumsq(dpk.sumsq_rows(owned))
+    norm = torch.sqrt(ss)
+    dpk.scale_noise_rows(flat.view(1, -1), noise.view(1, -1),
+                         clip_scale(norm, clip), sigma, flat.view(1, -1))
+    return flat, norm[0]
+
+
+def _sharded_norm(layout: _ShardLayout, flat):
+    """The global L2 norm of a sharded update (no DP)."""
+    owned = flat[:layout.n_owned]
+    return torch.sqrt(layout.global_sumsq(torch.sum(owned * owned)
+                                          .reshape(1)))[0]
 
 
 class SerialDraws(NamedTuple):
@@ -943,7 +1099,8 @@ def init_serial_state(params, fl: FLConfig, gen: torch.Generator,
 def make_serial_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                       ckpt_every_steps: int = 2,
                       dp_use_kernel: Optional[bool] = None,
-                      grad_accum: int = 1, delta_dtype=None, device=None):
+                      grad_accum: int = 1, delta_dtype=None, device=None,
+                      mesh=None):
     """Build ``round_step(state, batches, params=None, update_gate=None, *,
     draws=None) -> (state, metrics)``, the ``client_serial`` plan for one
     run on ``device`` (``cuda`` unless ``"cpu"`` is asked).
@@ -970,12 +1127,27 @@ def make_serial_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
     the reference's switch to its plain version, is refused for a round
     on the card, whose tensors always run the kernels.  Per-client metrics are
     scattered back from the slots; ``failed`` and ``update_norms`` are per
-    slot ``[K]``."""
+    slot ``[K]``.
+
+    With a ``mesh`` (``launch/steps.py`` ``build_train_step``, inside its
+    sharding context) the params, server state and batches are DTensors:
+    each rank trains on its shards, writes its local update into its own
+    row (:class:`_ShardLayout`), runs K1a on the row's owned prefix,
+    all-reduces Σx² and runs K1b on its whole row with the global scale.
+    Given ``draws.dp_noise`` [K, P] (the unsharded round's leaf order),
+    each rank takes its elements by global offset, so the round equals
+    the unsharded one; else each shard draws its own
+    (:meth:`_ShardLayout.draw_noise`).  Clipped DP only: the paper mode's
+    leaf-by-leaf norm raises under a mesh."""
     if dp_use_kernel is False and torch.device(
             "cuda" if device is None else device).type == "cuda":
         raise ValueError("dp_use_kernel=False asks for the plain DP version, "
                          "but a round on the card always runs the kernels")
     device = resolve_device(device)
+    if mesh is not None and fl.dp_enabled and fl.dp_mode != "clipped":
+        raise NotImplementedError(
+            f"dp_mode {fl.dp_mode!r} on a mesh: the sharded serial round "
+            "privatises the flat local row (dp_mode='clipped') only")
     strategy = sel_lib.get_strategy(fl.selection)
     local_train = _local_train_tree_fn(loss_fn, grad_accum)
     slots = int(fl.serial_clients_in_step)
@@ -988,10 +1160,12 @@ def make_serial_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                    draws: Optional[SerialDraws] = None
                    ) -> Tuple[RoundState, RoundMetrics]:
         leaves = tree_leaves(state.params)
-        if leaves[0].device != device:
+        layout = _ShardLayout(state.params) if mesh is not None else None
+        if layout is None and leaves[0].device != device:
             raise ValueError(f"state is on {leaves[0].device}, the round "
                              f"step was built for {device}")
-        n_params = sum(t.numel() for t in leaves)
+        n_params = (sum(t.numel() for t in leaves) if layout is None
+                    else layout.n_local)
         pr = default_params if params is None else params
         server = make_tree_server_optimizer(fl.server_opt, pr.server_lr)
         sigma = _dp_sigma(fl, pr) if fl.dp_enabled else 0.0
@@ -1031,16 +1205,30 @@ def make_serial_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
             with record_function("local_train"):
                 flat, pre, post = local_train(
                     state.params, tree_map(lambda v: v[slot], batches),
-                    eff_steps[slot], pr.local_lr)
+                    eff_steps[slot], pr.local_lr, layout)
             with record_function("dp_privatize"):
                 if fl.dp_enabled:
-                    if draws.dp_noise is not None:
+                    if noise_buf is None and (layout is not None
+                                              or draws.dp_noise is None):
+                        noise_buf = torch.empty(n_params, device=flat.device)
+                    if layout is not None and draws.dp_noise is not None:
+                        noise = layout.local_noise(draws.dp_noise[slot],
+                                                   noise_buf)
+                    elif layout is not None:
+                        noise = layout.draw_noise(state.rng, noise_buf,
+                                                  state.round_idx, slot)
+                    elif draws.dp_noise is not None:
                         noise = draws.dp_noise[slot]
                     else:
-                        if noise_buf is None:
-                            noise_buf = torch.empty(n_params, device=device)
                         noise = noise_buf.normal_(generator=state.rng)
-                if fl.dp_enabled and fl.dp_mode == "clipped":
+                if layout is not None:
+                    if fl.dp_enabled:
+                        flat, norm = _sharded_clip_noise(
+                            layout, flat, noise, pr.dp_clip, sigma)
+                    else:
+                        norm = _sharded_norm(layout, flat)
+                    delta = layout.wrap(layout.views(flat), state.params)
+                elif fl.dp_enabled and fl.dp_mode == "clipped":
                     # noised where it lies: no second [P] row
                     flat, norm = kops.dp_clip_noise(flat, noise, pr.dp_clip,
                                                     sigma, out=flat)

@@ -105,13 +105,28 @@ def raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
 
 
+def require_plain(kernel: str, *tensors) -> None:
+    """A kernel reads a plain tensor's memory: a DTensor reaching a wrapper
+    raises (the caller unwraps its local shard), so neither the kernel nor
+    the CPU's plain version ever runs on a sharded tensor as if it were
+    whole."""
+    for t in tensors:
+        if t is not None and hasattr(t, "device_mesh") and hasattr(
+                t, "placements"):
+            raise TypeError(
+                f"{kernel} got a DTensor; pass its local shard "
+                "(to_local / local_map)")
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def require_no_grad(kernel: str, *tensors) -> None:
     """The kernels have no backward: refuse an operand that would need one,
-    rather than return a result with no ``grad_fn``."""
+    rather than return a result with no ``grad_fn``.  A DTensor is refused
+    too (:func:`require_plain`)."""
+    require_plain(kernel, *tensors)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

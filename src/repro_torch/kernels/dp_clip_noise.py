@@ -146,6 +146,7 @@ def _require_cuda(x: torch.Tensor, kernel: str) -> None:
 def sumsq_rows(x: torch.Tensor) -> torch.Tensor:
     """Σ x² over each row of ``x [R, P]`` f32 -> ``[R]`` f32.  Fixed
     reduction order: the same input gives the same bits every run."""
+    _nvcc.require_plain("sumsq_rows", x)
     if x.device.type == "cpu":
         return ref.sumsq_rows_ref(x)
     out = _launch_sumsq(x, sumsq_plan(*x.shape))
@@ -184,6 +185,7 @@ def scale_noise_rows(x: torch.Tensor, noise: torch.Tensor,
     lanes, each with its own ε).  ``o`` goes into ``out`` where given,
     which may be ``x`` itself: each element is read once, then written,
     by the same thread (an LM's update row is noised where it lies)."""
+    _nvcc.require_plain("scale_noise_rows", x, noise, scale, out)
     if x.device.type == "cpu":
         o = ref.scale_noise_rows_ref(x, noise, scale, sigma)
         return o if out is None else out.copy_(o)

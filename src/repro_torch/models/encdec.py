@@ -22,6 +22,7 @@ import torch
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.shardctx import unshard
 from repro_torch.models.sharding import pm, split_meta
 
 
@@ -87,7 +88,7 @@ def _run_stack(stack, n: int, body, x, remat: str):
     ``remat`` (mode ``"train"``; ``"none"`` otherwise)."""
     if remat not in T.REMATS:
         raise ValueError(f"remat {remat!r}: one of {T.REMATS}")
-    run = T._remat(body, remat)
+    run = T._remat(lambda pl, h: body(unshard(pl), h), remat)
     for pl in T._unbind(stack, n):
         x = run(pl, x)
     return x
@@ -97,34 +98,39 @@ def encode(params, cfg, enc_embeds, *, remat: str = "none") -> torch.Tensor:
     """enc_embeds: [B, T, d] stub-frontend frame embeddings -> [B, T, d]."""
     x = enc_embeds.to(L.dtype_of(cfg))
     positions = _arange_positions(x)
+    x = T._act(x)
 
     def body(pl, h):
-        h = h + attn_lib.encoder_attention(
-            pl["attn"], L.rmsnorm(pl["ln1"], h, cfg.norm_eps), positions, cfg)
-        return h + L.mlp(pl["mlp"], L.rmsnorm(pl["ln2"], h, cfg.norm_eps),
-                         cfg.act)
+        h = T._act(h + attn_lib.encoder_attention(
+            pl["attn"], L.rmsnorm(pl["ln1"], h, cfg.norm_eps), positions,
+            cfg))
+        h = h + L.mlp(pl["mlp"], L.rmsnorm(pl["ln2"], h, cfg.norm_eps),
+                      cfg.act)
+        return T._act(h)
 
     x = _run_stack(params["enc_stack"], cfg.enc_layers, body, x, remat)
-    return L.rmsnorm(params["enc_ln"], x, cfg.norm_eps)
+    return L.rmsnorm(unshard(params["enc_ln"]), x, cfg.norm_eps)
 
 
 def decode_train(params, cfg, tokens, enc_out, *, remat: str = "none",
                  window: Optional[int] = None,
                  last_only: bool = False) -> torch.Tensor:
     """Teacher-forced decoder pass.  Returns logits [B,S,V] (or [B,1,V])."""
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(unshard(params["embed"]), tokens)
     positions = _arange_positions(x)
+    x = T._act(x)
 
     def body(pl, h):
-        h = h + attn_lib.attention(
+        h = T._act(h + attn_lib.attention(
             pl["self_attn"], L.rmsnorm(pl["ln1"], h, cfg.norm_eps), positions,
-            cfg, window=window)
+            cfg, window=window))
         enc_kv = attn_lib.project_enc_kv(pl["cross_attn"], enc_out, cfg)
-        h = h + attn_lib.cross_attention(
+        h = T._act(h + attn_lib.cross_attention(
             pl["cross_attn"], L.rmsnorm(pl["lnx"], h, cfg.norm_eps), enc_kv,
-            cfg)
-        return h + L.mlp(pl["mlp"], L.rmsnorm(pl["ln2"], h, cfg.norm_eps),
-                         cfg.act)
+            cfg))
+        h = h + L.mlp(pl["mlp"], L.rmsnorm(pl["ln2"], h, cfg.norm_eps),
+                      cfg.act)
+        return T._act(h)
 
     x = _run_stack(params["dec_stack"], cfg.n_layers, body, x, remat)
     if last_only:
@@ -175,19 +181,20 @@ def encdec_decode_step(params, cfg, token, caches, index: int, *,
                        window: Optional[int] = None):
     """One-token decode.  token: [B,1]; ``index`` a host int.  Returns
     (logits [B,1,V], caches), the self cache written in place."""
-    x = L.embed(params["embed"], token)
+    x = T._act(L.embed(unshard(params["embed"]), token))
     positions = torch.full(token.shape, index, dtype=torch.int32,
                            device=token.device)
     layers = T._unbind(params["dec_stack"], cfg.n_layers)
     for r, pl in enumerate(layers):
+        pl = unshard(pl)
         a, _ = attn_lib.decode_attention(
             pl["self_attn"], L.rmsnorm(pl["ln1"], x, cfg.norm_eps),
             T._index(caches["self"], r), index, positions, cfg,
             window=window)
-        x = x + a
-        x = x + attn_lib.cross_attention(
+        x = T._act(x + a)
+        x = T._act(x + attn_lib.cross_attention(
             pl["cross_attn"], L.rmsnorm(pl["lnx"], x, cfg.norm_eps),
-            (caches["cross"]["k"][r], caches["cross"]["v"][r]), cfg)
-        x = x + L.mlp(pl["mlp"], L.rmsnorm(pl["ln2"], x, cfg.norm_eps),
-                      cfg.act)
+            (caches["cross"]["k"][r], caches["cross"]["v"][r]), cfg))
+        x = T._act(x + L.mlp(pl["mlp"], L.rmsnorm(pl["ln2"], x, cfg.norm_eps),
+                             cfg.act))
     return T.lm_logits(params, cfg, x), caches

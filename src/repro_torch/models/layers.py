@@ -18,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.shardctx import is_dtensor, local_box
 from repro_torch.models.sharding import pm
 
 
@@ -115,7 +116,46 @@ def init_embedding(gen, vocab: int, d: int, cfg):
 
 
 def embed(params, ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids, params["table"])
+    table = params["table"]
+    if _vocab_sharded(table):
+        return _vocab_parallel_embed(table, ids)
+    return F.embedding(ids, table)
+
+
+def _vocab_sharded(table) -> bool:
+    return is_dtensor(table) and any(p.is_shard(0) for p in table.placements)
+
+
+def _vocab_parallel_embed(table, ids):
+    """The gather from a DTensor table sharded on its vocab dim: each rank
+    looks up the ids in its slice of the vocab and zeroes the rest, and
+    the result is a partial sum over the vocab's mesh axes (reduced where
+    the caller places it).  The ids are replicated over those axes."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    (rows, _), (start, _) = local_box(table.shape, mesh, table.placements)
+    ids_pl = tuple(ids.placements)
+    for p, ip in zip(table.placements, ids_pl):
+        if p.is_shard(0) and not ip.is_replicate():
+            raise ValueError(f"ids {ids.placements} are split over the "
+                             f"vocab's mesh axes {table.placements}")
+    out_pl = tuple(Partial() if p.is_shard(0) else ip
+                   for p, ip in zip(table.placements, ids_pl))
+    # each rank's table grad sums its own batch rows: a partial sum over
+    # the axes that split the ids
+    grad_pl = tuple(Partial() if p.is_replicate() and ip.is_shard() else p
+                    for p, ip in zip(table.placements, ids_pl))
+
+    def local(t, i):
+        rel = i - start
+        inside = (rel >= 0) & (rel < rows)
+        out = F.embedding(rel.clamp(0, rows - 1), t)
+        return out.masked_fill(~inside[..., None], 0)
+
+    return local_map(local, (out_pl,), in_placements=(table.placements, ids_pl),
+                     in_grad_placements=(grad_pl, ids_pl),
+                     device_mesh=mesh)(table, ids)
 
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,9 @@ the encoder-decoder (``enc_layers > 0``: ``models/encdec.py``), so a
 caller never branches on family.  A batch's ``"frontend"`` holds stub
 frontend embeddings: a VLM's patches, prepended to the text tokens on
 M-RoPE positions (:func:`mrope_positions`), or the encoder-decoder's
-audio frames.  ``cache_specs`` and ``input_specs`` wait for the dry-run
-slice.
+audio frames.  ``cache_specs`` and ``input_specs`` give a step's inputs
+as ``meta`` tensors (shapes and dtypes, nothing allocated), for the step
+bundles and the dry-run (``launch/steps.py``, ``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -192,6 +193,55 @@ class Model:
                                        enc_out, window=window)
         return T.stack_cache(self.cfg, batch, cache_len,
                              window_override=window, device=dev)
+
+    def cache_specs(self, batch: int, cache_len: int, *,
+                    window: Optional[int] = None):
+        """The decode cache as ``meta`` tensors (no allocation)."""
+        if self.is_encdec:
+            return self.init_cache(batch, cache_len, window=window,
+                                   params=self.param_shapes())
+        return T.stack_cache(self.cfg, batch, cache_len,
+                             window_override=window, device="meta")
+
+    # -- dry-run input specs --------------------------------------------------
+    def input_specs(self, shape: ShapeConfig):
+        """``meta`` stand-ins for every model input of a step: ``tokens``
+        (and ``labels`` in train; ``frontend`` for the VLM and the
+        encoder-decoder) in train and prefill; ``token`` [B, 1],
+        ``caches`` and ``index`` (0-d int32: the step itself takes a host
+        int) in decode."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        dt = getattr(torch, cfg.dtype)
+        window = effective_window(cfg, shape)
+
+        def sd(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        if shape.mode in ("train", "prefill"):
+            if self.is_encdec:
+                return {
+                    "frontend": sd((b, cfg.enc_seq, cfg.d_model), dt),
+                    "tokens": sd((b, s), i32),
+                    "labels": sd((b, s), i32),
+                }
+            specs = {}
+            n_text = s
+            if cfg.frontend != "none" and cfg.frontend_tokens:
+                n_text = s - cfg.frontend_tokens
+                specs["frontend"] = sd((b, cfg.frontend_tokens, cfg.d_model),
+                                       dt)
+            specs["tokens"] = sd((b, n_text), i32)
+            specs["labels"] = sd((b, n_text), i32)
+            if shape.mode == "prefill":
+                specs.pop("labels")
+            return specs
+        return {
+            "token": sd((b, 1), i32),
+            "caches": self.cache_specs(b, s, window=window),
+            "index": sd((), i32),
+        }
 
 
 def build(cfg: ModelConfig) -> Model:

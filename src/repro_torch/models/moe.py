@@ -17,6 +17,12 @@ renormalised over the kept experts.  Two dispatches, as in the reference:
 The router is f32, the experts' ``wi``/``wg``/``wo`` in ``cfg.dtype``;
 their fan-in is the reference's (``shape[0]``: the expert count for
 ``wi``/``wg``, ``d_ff`` for ``wo``).
+
+On DTensors (a sharded step) the routing runs as DTensor ops, so the aux
+loss's means are over the whole batch, and the experts run in one
+``local_map`` (:func:`_local_experts`): each rank dispatches its batch
+rows to the experts it holds, runs them and combines their outputs into
+a partial sum over the expert axes.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dtype_of, fan_in_init
+from repro_torch.models.shardctx import is_dtensor, local_box
 from repro_torch.models.sharding import pm
 
 
@@ -56,8 +63,7 @@ def _choose(router_w, x, cfg):
     order (expert index ``[b, s]``, its one-hot mask ``[b, s, e]`` and its
     gate ``[b, s]`` each) and the Switch aux loss."""
     e = cfg.n_experts
-    gates = torch.softmax(torch.einsum("bsd,de->bse", x.float(), router_w),
-                          dim=-1)
+    gates = _gates(router_w, x)
     idxs: List[torch.Tensor] = []
     masks: List[torch.Tensor] = []
     gvals: List[torch.Tensor] = []
@@ -74,6 +80,30 @@ def _choose(router_w, x, cfg):
     prob = torch.mean(gates, dim=(0, 1))
     aux = e * torch.sum(frac * prob) * cfg.router_aux_coef
     return gates, idxs, masks, gvals, aux
+
+
+def _gates(router_w, x):
+    """The router's softmax over the experts, f32 ``[b, s, e]``.  On a
+    DTensor ``x`` (batch-split, the router whole on every rank) each rank
+    gates its own rows in a ``local_map``, and the router's grad is a
+    partial sum over the batch axes."""
+    if not is_dtensor(x):
+        return torch.softmax(torch.einsum("bsd,de->bse", x.float(), router_w),
+                             dim=-1)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+    if not all(p.is_replicate() for p in router_w.placements):
+        raise ValueError(f"router {router_w.placements}: whole on every rank")
+    x_pl = tuple(x.placements)
+    if any(not (p.is_replicate() or p.is_shard(0)) for p in x_pl):
+        raise ValueError(f"moe x {x_pl}: split over its batch only")
+    r_pl = tuple(router_w.placements)
+    r_grad = tuple(Partial() if p.is_shard() else r for p, r in zip(x_pl, r_pl))
+    return local_map(
+        lambda xl, rl: torch.softmax(torch.einsum("bsd,de->bse", xl.float(),
+                                                  rl), dim=-1),
+        (x_pl,), in_placements=(x_pl, r_pl), in_grad_placements=(x_pl, r_grad),
+        device_mesh=x.device_mesh)(x, router_w)
 
 
 def _queue_positions(masks):
@@ -126,14 +156,127 @@ def _experts_forward(params, xe: torch.Tensor, cfg) -> torch.Tensor:
 
 def moe_mlp(params, x: torch.Tensor, cfg, impl: str = "einsum"):
     """x: [b, s, d] -> ([b, s, d], aux_loss) on the ``impl`` dispatch."""
+    if impl not in ("einsum", "scatter"):
+        raise ValueError(f"MoE impl {impl!r}: 'einsum' or 'scatter'")
+    if is_dtensor(x):
+        return _moe_mlp_sharded(params, x, cfg, impl)
     if impl == "scatter":
         return _moe_mlp_scatter(params, x, cfg)
-    if impl != "einsum":
-        raise ValueError(f"MoE impl {impl!r}: 'einsum' or 'scatter'")
     dispatch, combine, aux = route(params["router"], x, cfg)
     xe = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x)
     ye = _experts_forward(params, xe, cfg)
     return torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), ye), aux
+
+
+def _moe_mlp_sharded(params, x, cfg, impl: str):
+    """:func:`moe_mlp` on DTensors: ``x`` split over batch axes only, the
+    experts' weights over expert axes only (``wi``/``wg``/``wo`` dim 0).
+    The routing runs as DTensor ops; each rank then dispatches its batch
+    rows to its own experts, runs them and combines their outputs (one
+    ``local_map``), a partial sum over the expert axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    w_names = [k for k in ("wi", "wg", "wo") if k in params]
+    e_dims = {i for i, p in enumerate(params["wi"].placements) if p.is_shard(0)}
+    for k in w_names:
+        bad = [p for i, p in enumerate(params[k].placements)
+               if not (p.is_replicate() or (i in e_dims and p.is_shard(0)))]
+        if bad:
+            raise ValueError(f"moe {k} {params[k].placements}: only the "
+                             "expert dim may be split in a sharded step")
+    b_dims = {i for i, p in enumerate(x.placements) if p.is_shard(0)}
+    if b_dims & e_dims or any(not (p.is_replicate() or p.is_shard(0))
+                              for p in x.placements):
+        raise ValueError(f"moe x {x.placements} on experts split "
+                         f"{params['wi'].placements}")
+    ((e_local, *_), (e0, *_)) = local_box(params["wi"].shape, mesh,
+                                          params["wi"].placements)
+
+    def pl(b_dim, e_dim=None, other=Replicate()):
+        """``Shard(b_dim)`` on the batch axes; on the expert axes
+        ``Shard(e_dim)``, or ``other`` for a tensor without an expert
+        dim; ``Replicate()`` elsewhere."""
+        def one(i):
+            if i in b_dims:
+                return Shard(b_dim)
+            if i in e_dims:
+                return other if e_dim is None else Shard(e_dim)
+            return Replicate()
+        return tuple(one(i) for i in range(mesh.ndim))
+
+    x_pl = pl(0)
+    out_pl = pl(0, other=Partial())
+    w_pls = tuple(tuple(params[k].placements) for k in w_names)
+    weights = [params[k] for k in w_names]
+    # grads of the local pieces: a weight's sums its rank's batch rows
+    # (partial over the batch axes); x's and a token's gate sum the rank's
+    # experts' shares (partial over the expert axes)
+    w_grads = tuple(tuple(Partial() if i in b_dims else p
+                          for i, p in enumerate(w)) for w in w_pls)
+    x_grad = pl(0, other=Partial())
+    if impl == "einsum":
+        dispatch, combine, aux = route(params["router"], x, cfg)
+        # each rank's slice of the experts (a local chunk, no traffic)
+        dispatch = dispatch.redistribute(mesh, pl(0, 2))
+        combine = combine.redistribute(mesh, pl(0, 2))
+
+        def local(disp, comb, xl, *ws):
+            p = dict(zip(w_names, ws))
+            xe = torch.einsum("bsec,bsd->ebcd", disp.to(xl.dtype), xl)
+            ye = _experts_forward(p, xe, cfg)
+            return torch.einsum("bsec,ebcd->bsd", comb.to(xl.dtype), ye)
+
+        out = local_map(local, (out_pl,),
+                        in_placements=(pl(0, 2), pl(0, 2), x_pl) + w_pls,
+                        in_grad_placements=(pl(0, 2), pl(0, 2), x_grad)
+                        + w_grads,
+                        device_mesh=mesh)(dispatch, combine, x, *weights)
+        return out, aux
+
+    b, s, d = x.shape
+    c = _capacity(cfg, s)
+    _, idxs, masks, gvals, aux = _choose(params["router"], x, cfg)
+    keeps, poss = [], []
+    for m, pos in zip(masks, _queue_positions(masks)):
+        pos_tok = torch.sum(pos * m, dim=-1).long()
+        keep = (pos_tok < c) & (torch.sum(m, dim=-1) > 0)
+        keeps.append(keep)
+        poss.append(torch.where(keep, pos_tok, c - 1))
+    k = len(idxs)
+    tok_pl = pl(0)
+
+    def local_scatter(xl, *rest):
+        ws, rest = rest[:len(w_names)], rest[len(w_names):]
+        p = dict(zip(w_names, ws))
+        il, kl, ql, gl = rest[:k], rest[k:2 * k], rest[2 * k:3 * k], rest[3 * k:]
+        bl = xl.shape[0]
+        bi = torch.arange(bl, device=xl.device)[:, None].expand(bl, s)
+        xe = xl.new_zeros((e_local, bl, c, d))
+        mine = []
+        for idx, keep, pos in zip(il, kl, ql):
+            rel = idx - e0
+            here = keep & (rel >= 0) & (rel < e_local)
+            mine.append((rel.clamp(0, e_local - 1), here, pos))
+            contrib = torch.where(here[..., None], xl, torch.zeros_like(xl))
+            xe = xe.index_put((mine[-1][0], bi, pos), contrib, accumulate=True)
+        ye = _experts_forward(p, xe, cfg)
+        outs = []
+        for (rel, here, pos), gv in zip(mine, gl):
+            got = ye[rel, bi, pos]
+            outs.append(got * (gv * here)[..., None].to(got.dtype))
+        return sum(outs)
+
+    # the renormalising denominator uses every kept choice, local or not
+    weights_sum = torch.clamp(sum(gv * kp for gv, kp in zip(gvals, keeps)),
+                              min=1e-9)[..., None].to(x.dtype)
+    out = local_map(local_scatter, (out_pl,),
+                    in_placements=(x_pl,) + w_pls + (tok_pl,) * (4 * k),
+                    in_grad_placements=(x_grad,) + w_grads
+                    + (tok_pl,) * (3 * k) + (x_grad,) * k,
+                    device_mesh=mesh)(x, *weights, *idxs, *keeps, *poss,
+                                      *gvals)
+    return out / weights_sum, aux
 
 
 def _moe_mlp_scatter(params, x: torch.Tensor, cfg):

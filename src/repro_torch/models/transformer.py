@@ -47,6 +47,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.shardctx import active as sharded, constrain, unshard
 from repro_torch.models.sharding import (ParamMeta, add_axis, map_meta, pm,
                                          split_meta)
 
@@ -116,7 +117,7 @@ def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
                                                    cfg)
         else:
             s, _ = ssm_lib.ssd_block(params["ssd"], h, cfg)
-        return x + s, new_cache, 0.0
+        return _act(x + s), new_cache, 0.0
     h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rec":
         if mode == "decode":
@@ -132,12 +133,18 @@ def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
         a = attn_lib.attention(params["attn"], h, positions, cfg,
                                window=_attn_window(cfg, window_override),
                                impl=impl)
-    x = x + a
+    x = _act(x + a)
     h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
     if kind == "moe":
         m, aux = moe_lib.moe_mlp(params["moe"], h, cfg, impl=MOE_IMPL[0])
-        return x + m, new_cache, aux
-    return x + L.mlp(params["mlp"], h, cfg.act), new_cache, 0.0
+        return _act(x + m), new_cache, aux
+    return _act(x + L.mlp(params["mlp"], h, cfg.act)), new_cache, 0.0
+
+
+def _act(x):
+    """The residual stream's placement (batch over the data axes); the
+    identity outside a sharding context."""
+    return constrain(x, "act_batch", "act_seq", None)
 
 
 def init_block_cache(cfg, kind: str, batch: int, cache_len: int,
@@ -267,7 +274,7 @@ def apply_stack(stack_params, cfg, x, positions, *, mode: str, caches=None,
                 cl = _index(caches[si], r) if mode == "decode" else None
                 for i, kind in enumerate(kinds):
                     h, _, a = apply_block(
-                        layers[r][f"b{i}"], kind, h, positions, cfg,
+                        unshard(layers[r][f"b{i}"]), kind, h, positions, cfg,
                         mode=mode,
                         cache=cl[f"b{i}"] if cl is not None else None,
                         index=index, window_override=window_override,
@@ -310,15 +317,22 @@ def init_lm(gen, cfg):
 
 
 def lm_logits(params, cfg, x) -> torch.Tensor:
-    """f32 logits over the padded vocab; the padding is masked to −1e30."""
+    """f32 logits over the padded vocab; the padding is masked to −1e30
+    (in place, or, on a vocab-sharded DTensor, by a mask)."""
+    params = unshard({k: params[k] for k in ("final_ln", "head", "embed")
+                      if k in params})
     x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     if "head" in params:
         logits = torch.matmul(x.float(), params["head"]["w"].float())
     else:
         logits = L.unembed(params["embed"], x)
-    if logits.shape[-1] != cfg.vocab_size:
+    pv = logits.shape[-1]
+    if pv != cfg.vocab_size and sharded():
+        pad = torch.arange(pv, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, NEG_INF)
+    elif pv != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG_INF
-    return logits
+    return constrain(logits, "act_batch", None, "vocab")
 
 
 def _positions(cfg, pos: torch.Tensor) -> torch.Tensor:
@@ -338,13 +352,14 @@ def lm_forward(params, cfg, tokens, positions=None, *, extra_embeds=None,
     ``remat``/``remat_group``.  ``last_only``: logits for the final
     position only (the serving prefill).  Returns (logits [B,S(+S_front),V]
     or [B,1,V], the ``moe`` blocks' aux loss: 0 without one)."""
-    x = L.embed(params["embed"], tokens)
+    x = _act(L.embed(unshard(params["embed"]), tokens))
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     if positions is None:
         b, s = x.shape[:2]
         positions = _positions(cfg, torch.arange(
             s, dtype=torch.int32, device=tokens.device).expand(b, s))
+    x = _act(x)
     x, _, aux = apply_stack(params["stack"], cfg, x, positions, mode=mode,
                             window_override=window_override, impl=impl,
                             remat=remat, remat_group=remat_group)
@@ -358,7 +373,11 @@ def xent(logits, labels) -> torch.Tensor:
     ``labels`` [B,S] int, over the labels that are not ``-100``."""
     labels = labels.long()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    # on vocab-sharded logits each rank's gather is masked to its slice of
+    # the vocab and summed by the constrain (the identity outside a
+    # sharding context)
+    gold = constrain(torch.gather(logits, -1, labels.clamp(min=0)[..., None]),
+                     "act_batch", None, None)[..., 0]
     mask = (labels >= 0).float()
     nll = (lse - gold) * mask
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
@@ -383,7 +402,7 @@ def lm_decode_step(params, cfg, token, caches, index: int, positions=None,
                    *, window_override=None):
     """One-token decode.  token: [B,1] int; ``index`` a host int.  Returns
     (logits [B,1,V], caches), the caches written in place."""
-    x = L.embed(params["embed"], token)
+    x = _act(L.embed(unshard(params["embed"]), token))
     if positions is None:
         positions = _positions(cfg, torch.full(
             token.shape, index, dtype=torch.int32, device=token.device))

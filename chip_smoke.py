@@ -269,7 +269,27 @@ It puts ``src`` on ``sys.path`` itself and imports only ``repro_torch``
    rank's local row; then ``launch/dryrun.py`` on this torch, each pair
    in a subprocess of its own on a fake 256-rank group: mistral-large-123b
    and llama4-maverick-400b at ``prefill_32k`` and ``decode_32k``, their
-   per-rank bytes against 80 GB, flops, collective bytes and wall.
+   per-rank bytes against 80 GB, flops, collective bytes and wall;
+22. the ``client_parallel`` round (the LM ``make_parallel_round``:
+   clients one after another, each update one row of ``[n, P]``, K1 on
+   the rows) and its train bundle, over a world-size-1 NCCL group:
+   (a) the bundle on the (1, 1) mesh on phase 17's granite-3-8b cut to 8
+   layers (bf16) with ``make_fl_config``'s clipped DP, one client a data
+   rank, against the unsharded round on the same weights and draws
+   (bitwise, or within 8 times its grad_accum gap), K1a/K1b once a
+   client, both walls and peaks; (b) the unsharded round at 4 clients on
+   the same cut: walls, busy share, peak, K1 once a round on [4,
+   1,796,280,320] (counted from 0), then K1 at that shape against its
+   plain versions (``sumsq_rows`` on the split plan to a relative 1e-6;
+   ``scale_noise_rows`` in place, bitwise, every element checked against
+   inputs that are closed forms of their index), timed by CUDA events
+   beside ``vector_norm`` / ``addcmul_`` and the bound; a 1-layer f32 cut
+   at 4 clients card vs CPU on the same draws (masks equal, values
+   within 1e-4); (c) the sweep and population engines on one rank
+   re-run phase 7b's grid and phase 14's 10^3 and 10^6 populations,
+   bitwise their histories.  The lane and lane × client meshes need two
+   ranks or more, which one card does not give: they are checked by the
+   gloo suite on the CPU only.
 
 The last line is ``{"ok": true, "device": {...}}``.  A fuller record is
 written to ``chiprun_out/chip_smoke.json``.  Without a card, or without the
@@ -847,6 +867,7 @@ def phase_sweep(torch, fed, fl, dpk, accounted_epsilon, legacy_walls):
             float(np.mean([r.accuracy for r in row])) for row in res],
         "final_auc_mean_per_cell": [
             float(np.mean([r.auc for r in row])) for row in res],
+        "histories": [[r.history for r in row] for row in res],
         "repeat_equal": all(a.history == b.history for ra, rb in
                             zip(res, again) for a, b in zip(ra, rb)),
     }
@@ -2367,7 +2388,8 @@ def phase_population(torch, dpk, card):
                "span_host_ms_per_round": {k: v / POP_ROUNDS
                                           for k, v in spans.items()},
                "predicted_bytes": predicted, "uncounted_bytes": uncounted,
-               "peak_allocated_bytes": peak}
+               "peak_allocated_bytes": peak,
+               "histories": [[r.history for r in row] for row in res]}
         rows.append(row)
         print(f"  N={n:>9,d}: generation {gen_s:.3f} s, cold {cold_s:.3f} s, "
               f"warm round {row['warm_round_ms']:.2f} ms (walls {warm}); acc "
@@ -5503,19 +5525,409 @@ def phase_sharding(torch, dpk, card) -> dict:
     """Phase 21: (a) the serve bundles and (b) the serial train bundle on
     one-device meshes against the unsharded path, (c) the dry-run of the
     two largest configs' serve shapes on this torch."""
-    import torch.distributed as dist
     t0 = time.perf_counter()
-    meshes = sh_meshes(torch)
-    try:
-        with torch.no_grad():
-            out = {"serve": sh_serve(torch, meshes, card)}
-        out["train"] = sh_train(torch, dpk, meshes["single"], card)
-    finally:
-        dist.destroy_process_group()
+    meshes = sh_meshes(torch)   # the group lives on into phase 22
+    with torch.no_grad():
+        out = {"serve": sh_serve(torch, meshes, card)}
+    out["train"] = sh_train(torch, dpk, meshes["single"], card)
     out["dryrun"] = sh_dryrun(torch, card)
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 21: {out['seconds']:.1f} s")
     return out
+
+# Phase 22: the client_parallel round on an LM and its train bundle
+PL_CLIENTS = 4              # clients of the unsharded round at 8 layers
+PL_ROUNDS = 2
+PL_CUT = 1                  # layers of the f32 card-vs-CPU cut
+PL_SEQ, PL_BATCH = 64, 2    # phase 17's sequence and batch a client
+PL_POPS = (1_000, 1_000_000)  # phase 14's populations re-run in (c)
+
+
+def pl_data(torch, cfg, fl, n: int, seed: int, device="cuda"):
+    """The train CLI's tokens for ``n`` clients, ``[n, 1, PL_BATCH,
+    PL_SEQ]``."""
+    import dataclasses
+
+    from repro_torch.launch.train import _tensors, round_batches
+    many = dataclasses.replace(fl, serial_clients_in_step=n)
+    return _tensors(round_batches(cfg, many, PL_BATCH, PL_SEQ, seed), device)
+
+
+def pl_measure(torch, dpk, fn):
+    """``fn()``'s result, wall ms (to a synchronise), K1 launches counted
+    from 0 and peak allocated bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dpk.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3, dict(dpk.LAUNCHES),
+            torch.cuda.max_memory_allocated())
+
+
+def pl_bundle(torch, dpk, mesh, card) -> dict:
+    """(a): the client_parallel train bundle on the (1, 1) mesh (one
+    client on the one data rank) against the unsharded
+    ``make_parallel_round`` on the same weights and generator seed."""
+    import dataclasses
+
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, get_arch
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LMT_LAYERS)
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(0, device="cuda")
+    bt = steps.build_train_step(cfg, ShapeConfig("train", PL_SEQ, PL_BATCH,
+                                                 "train"), MeshConfig(), mesh,
+                                remat="none")
+    fl = bt.meta["fl"]
+    check(bt.meta["plan"] == "client_parallel" and fl.n_clients == 1
+          and fl.dp_enabled and fl.dp_mode == "clipped",
+          f"bundle {bt.meta['plan']}, {fl.n_clients} clients, DP "
+          f"{fl.dp_enabled}/{fl.dp_mode}")
+    data = pl_data(torch, cfg, fl, 1, 0)
+
+    def loss(p, b):
+        return model.loss(p, b, remat="none")
+
+    def plain(grad_accum: int = 1):
+        state = rounds_lib.init_serial_state(
+            params, fl, torch.Generator(device="cuda").manual_seed(1),
+            n_clients=1)
+        return rounds_lib.make_parallel_round(
+            loss, fl, 1, device="cuda", grad_accum=grad_accum,
+            lm=True)(state, data)
+
+    (want, want_m), plain_ms, plain_launches, plain_peak = pl_measure(
+        torch, dpk, plain)
+    dparams = steps.place(params, bt.in_shardings[0], mesh)
+    state = rounds_lib.init_serial_state(
+        dparams, fl, torch.Generator(device="cuda").manual_seed(1),
+        n_clients=1)
+    dbatch = steps.place(data, bt.in_shardings[1], mesh)
+    (got, got_m), ms, launches, peak = pl_measure(
+        torch, dpk, lambda: bt.fn(state, dbatch))
+    check(launches == {"sumsq_rows": 1, "scale_noise_rows": 1}
+          and plain_launches == launches,
+          f"K1 launches {launches} (unsharded {plain_launches}) for one "
+          f"client")
+    check(torch.equal(got_m.sel_mask, want_m.sel_mask)
+          and torch.equal(got_m.failed, want_m.failed),
+          "bundle's selection and failures")
+    check(all(math.isfinite(float(x)) for x in got_m.post_loss),
+          f"bundle losses {got_m.post_loss}")
+    diffs = [float((g.to_local().float() - w.float()).abs().max())
+             for g, w in zip(tree_list(got.params), tree_list(want.params))]
+    out = {"layers": LMT_LAYERS, "launches": launches, "round_ms": ms,
+           "plain_round_ms": plain_ms, "peak_bytes": peak,
+           "plain_peak_bytes": plain_peak, "max_abs_diff": max(diffs),
+           "bitwise": max(diffs) == 0.0 and torch.equal(
+               got_m.update_norms, want_m.update_norms),
+           "norms": [float(x) for x in got_m.update_norms],
+           "plain_norms": [float(x) for x in want_m.update_norms]}
+    if not out["bitwise"]:
+        del got, dparams, state
+        (alt, _), _, _, _ = pl_measure(torch, dpk, lambda: plain(2))
+        gap = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(tree_list(alt.params),
+                                  tree_list(want.params)))
+        out["reassoc_gap"] = gap
+        check(out["max_abs_diff"] <= LMT_REASSOC_MULT * max(gap, LMT_TOL),
+              f"bundle {out['max_abs_diff']:.3e} past {LMT_REASSOC_MULT} x "
+              f"its re-association gap {gap:.3e}")
+    print(f"  (a) {cfg.name} at {LMT_LAYERS} layers, client_parallel bundle "
+          f"(1, 1), one client, clipped DP: {ms:.1f} ms (peak "
+          f"{peak / 1e9:.2f} GB) vs unsharded {plain_ms:.1f} ms (peak "
+          f"{plain_peak / 1e9:.2f} GB), first calls; params max|diff| "
+          f"{out['max_abs_diff']:.3e} "
+          f"({'bitwise' if out['bitwise'] else 'gap ' + str(out.get('reassoc_gap'))}); "
+          f"K1 launches {launches}  ({card})")
+    del params, want, dbatch, data
+    torch.cuda.empty_cache()
+    return out
+
+
+def pl_round(torch, dpk, card) -> dict:
+    """(b): the unsharded LM round at PL_CLIENTS clients on the 8-layer
+    cut with make_fl_config's clipped DP, PL_ROUNDS rounds (K1 counted
+    from 0: once a round on the [n, P] rows), then one profiled round."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LMT_LAYERS)
+    model = build(cfg)
+    torch.cuda.empty_cache()
+    params = model.init(0, device="cuda")
+    fl = steps.make_fl_config(cfg, "client_parallel", PL_CLIENTS)
+    step = rounds_lib.make_parallel_round(
+        lambda p, b: model.loss(p, b, remat="none"), fl, PL_CLIENTS,
+        device="cuda", lm=True)
+    state = rounds_lib.init_serial_state(
+        params, fl, torch.Generator(device="cuda").manual_seed(2),
+        n_clients=PL_CLIENTS)
+    del params
+    data = [pl_data(torch, cfg, fl, PL_CLIENTS, r) for r in range(PL_ROUNDS)]
+    walls, metrics = [], []
+    torch.cuda.reset_peak_memory_stats()
+    dpk.reset_launches()
+    for r in range(PL_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, data[r])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    launches = dict(dpk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {"sumsq_rows": PL_ROUNDS,
+                       "scale_noise_rows": PL_ROUNDS},
+          f"K1 launches {launches} in {PL_ROUNDS} rounds of "
+          f"{PL_CLIENTS} clients (want one a round on the [n, P] rows)")
+    for m in metrics:
+        check(all(math.isfinite(float(x)) for x in m.post_loss)
+              and float(m.sel_mask.sum()) > 0,
+              f"round losses {m.post_loss}, selected {m.sel_mask}")
+    prof = lm_train_profiled(torch, lambda: step(state, data[0]))
+    out = {"clients": PL_CLIENTS, "layers": LMT_LAYERS,
+           "round_ms": walls, "peak_bytes": peak, "launches": launches,
+           "losses": [[float(x) for x in m.post_loss] for m in metrics],
+           "selected": [[float(x) for x in m.sel_mask] for m in metrics],
+           "norms": [[float(x) for x in m.update_norms] for m in metrics],
+           "profile": prof}
+    print(f"  (b) {cfg.name} at {LMT_LAYERS} layers, the unsharded "
+          f"client_parallel round at {PL_CLIENTS} clients with clipped DP: "
+          f"walls {', '.join(f'{w:.1f}' for w in walls)} ms, peak "
+          f"{peak / 1e9:.2f} GB, K1 launches {launches}; profiled round "
+          f"{prof['wall_ms']:.1f} ms, busy {prof['device_busy_share']:.3f}, "
+          f"by kind {dict((k, round(v, 2)) for k, v in prof['device_ms_by_kind'].items())} ms; "
+          f"losses {out['losses']}  ({card})")
+    del state, step, data, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def pl_k1(torch, dpk, ref, launches, card) -> list:
+    """K1 at the round's rows [PL_CLIENTS, LMT_ROW] against its plain
+    versions.  x and the noise are closed forms of each element's index
+    (so any block can be rebuilt): ``sumsq_rows`` on the split plan to a
+    relative LMT_SQ_RTOL of the plain version row by row, bitwise
+    repeatable; ``scale_noise_rows`` in place, every element bitwise the
+    plain version on its rebuilt block.  Timed by CUDA events (5 calls,
+    median of 3) beside the plain versions (over 16 column blocks: at
+    [4, P] their temporaries would not fit beside the rows),
+    ``vector_norm`` and an in-place ``addcmul_`` on σ·n.  Rows
+    ``sumsq_rows_lm_parallel`` and ``scale_noise_rows_lm_parallel``."""
+    from repro_torch.core.dp import gaussian_sigma
+
+    r, p = PL_CLIENTS, LMT_ROW
+    plan = dpk.sumsq_plan(r, p)
+    check(plan.split > 1, f"sumsq plan at [{r}, {p}]: {plan}")
+    step = 1 << 26
+
+    def block(a: int, b: int):
+        k = (torch.arange(a, b, device="cuda")[None]
+             + torch.arange(r, device="cuda")[:, None] * p)
+        return (((k * 7919) % 20011 - 10005).float() * 1e-7,
+                ((k * 104729) % 30011 - 15005).float() * 6.66e-5)
+
+    torch.cuda.empty_cache()
+    x = torch.empty(r, p, device="cuda")
+    nz = torch.empty(r, p, device="cuda")
+    for a in range(0, p, step):
+        x[:, a:a + step], nz[:, a:a + step] = block(a, min(a + step, p))
+    sq = dpk.sumsq_rows(x)
+    sq_ref = torch.stack([ref.sumsq_rows_ref(x[i:i + 1])[0]
+                          for i in range(r)])
+    rel = float(((sq.double() - sq_ref.double()).abs()
+                 / sq_ref.double()).max())
+    check(rel <= LMT_SQ_RTOL, f"sumsq_rows at [{r}, {p}]: relative {rel}")
+    check(torch.equal(sq, dpk.sumsq_rows(x)),
+          f"sumsq_rows not bitwise repeatable at [{r}, {p}]")
+    sigma = gaussian_sigma(8.0, 1e-5, 1.0)
+    scale = ref.clip_scale(torch.sqrt(sq_ref), 1.0)
+    pieces = [(i, a, min(a + p // 4 + 1, p)) for i in range(r)
+              for a in range(0, p, p // 4 + 1)]
+
+    def ms(fn):
+        return eager_ms(fn, iters=5, reps=3)
+
+    def plain_sq():
+        for i, a, b in pieces:
+            ref.sumsq_rows_ref(x[i, a:b][None])
+
+    def plain_sn():
+        for i, a, b in pieces:
+            ref.scale_noise_rows_ref(x[i, a:b][None], nz[i, a:b][None],
+                                     scale[i:i + 1], sigma)
+
+    t_sq = {"ms": ms(lambda: dpk.sumsq_rows(x)), "plain_ms": ms(plain_sq),
+            "library_ms": ms(lambda: torch.linalg.vector_norm(x, dim=1))}
+    dpk.scale_noise_rows(x, nz, scale, sigma, out=x)
+    bad = [a for a in range(0, p, step)
+           if not torch.equal(x[:, a:a + step], ref.scale_noise_rows_ref(
+               *block(a, min(a + step, p)), scale, sigma))]
+    check(not bad, f"scale_noise_rows in place differs from its plain "
+          f"version at [{r}, {p}] in {len(bad)} blocks from column {bad[:3]}")
+    t_sn = {"ms": ms(lambda: dpk.scale_noise_rows(x, nz, scale, sigma,
+                                                  out=x)),
+            "plain_ms": ms(plain_sn), "library_ms": None}
+    nz.mul_(sigma)
+    scale_col = scale[:, None]
+    t_sn["addcmul_ms"] = ms(lambda: nz.addcmul_(x, scale_col))
+    del x, nz
+    torch.cuda.empty_cache()
+    common = {"route": "cuda", "shape": [r, p],
+              "source": "src/repro_torch/kernels/csrc/dp_clip_noise.cu",
+              "timing": "CUDA events, 5 back-to-back calls, median of 3"}
+    b_sq, by_sq = sumsq_bound(r, p)
+    b_sn, by_sn = bound(12 * r * p + 4 * r, 3 * r * p)
+    rows = [
+        {"name": "sumsq_rows_lm_parallel", **common,
+         "replaces": "src/repro/kernels/dp_clip_noise.py:62",
+         "launches": launches["sumsq_rows"],
+         "max_abs_err": float((sq.double() - sq_ref.double()).abs().max()),
+         "rel_err": rel, "plan": list(plan), "bound_ms": b_sq,
+         "bound_by": by_sq, **t_sq},
+        {"name": "scale_noise_rows_lm_parallel", **common,
+         "replaces": "src/repro/kernels/dp_clip_noise.py:81",
+         "launches": launches["scale_noise_rows"], "max_abs_err": 0.0,
+         "bound_ms": b_sn, "bound_by": by_sn, **t_sn}]
+    print(f"  K1 at [{r}, {p:,}] ({card}): sumsq_rows (split plan, "
+          f"{plan.split} blocks a row) rel err {rel:.2e}, bitwise "
+          f"repeatable; {t_sq['ms']:.3f} ms (bound {b_sq:.3f} ms, {by_sq}; "
+          f"plain {t_sq['plain_ms']:.3f}; vector_norm "
+          f"{t_sq['library_ms']:.3f}); scale_noise_rows in place bitwise its "
+          f"plain version, {t_sn['ms']:.3f} ms (bound {b_sn:.3f} ms; plain "
+          f"{t_sn['plain_ms']:.3f}; addcmul_ on σ·n {t_sn['addcmul_ms']:.3f})")
+    return rows
+
+
+def pl_cut(torch, card) -> dict:
+    """(b): a 1-layer f32 cut at granite's width, the round at PL_CLIENTS
+    clients with make_fl_config's clipped DP (coherence on: the cut is
+    under 1e9 params) on the card and on the CPU from the same state and
+    draws: masks and failures equal, every value within LMT_TOL."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core import rounds as rounds_lib
+    from repro_torch.launch import steps
+    from repro_torch.models.model import build
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=PL_CUT,
+                              dtype="float32")
+    model = build(cfg)
+    fl = steps.make_fl_config(cfg, "client_parallel", PL_CLIENTS)
+    params = model.init(5, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    card_state = rounds_lib.init_serial_state(
+        params, fl, torch.Generator(device="cuda").manual_seed(7),
+        n_clients=PL_CLIENTS)
+    cpu_state = card_state._replace(
+        params=tree_to(params, "cpu"),
+        util=type(card_state.util)(*(t.cpu() for t in card_state.util)),
+        kctl=type(card_state.kctl)(*(t.cpu() for t in card_state.kctl)),
+        rng=torch.Generator().manual_seed(7),
+        fault=type(card_state.fault)(*(t.cpu() for t in card_state.fault)))
+    del params
+    draws = rounds_lib.draw_round(
+        [torch.Generator(device="cuda").manual_seed(6)], PL_CLIENTS, 1,
+        n_params, fl.selection).lane(0)
+    out = {}
+    for dev, st, dr in (("cuda", card_state, draws),
+                        ("cpu", cpu_state, draws.to("cpu"))):
+        step = rounds_lib.make_parallel_round(
+            lambda p, b: model.loss(p, b, remat="none"), fl, PL_CLIENTS,
+            device=dev, lm=True)
+        out[dev] = step(st, pl_data(torch, cfg, fl, PL_CLIENTS, 9, dev),
+                        draws=dr)
+    (cs, mc), (hs, mh) = out["cuda"], out["cpu"]
+    same = (torch.equal(mc.sel_mask.cpu(), mh.sel_mask)
+            and torch.equal(mc.failed.cpu(), mh.failed))
+    errs = lmt_diff(lmt_round_values(cs, mc), lmt_round_values(hs, mh))
+    seconds = time.perf_counter() - t0
+    print(f"  (b) {PL_CUT}-layer f32 cut ({n_params:,} params), "
+          f"{PL_CLIENTS} clients with clipped DP and coherence, card vs CPU "
+          f"on the same draws ({seconds:.1f} s): sel_mask and failed "
+          f"{'equal' if same else 'DIFFER'}; relative errors (bar "
+          f"{LMT_TOL}): " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                      errs.items()))
+    check(same, "sel_mask/failed differ card vs CPU")
+    for k, v in errs.items():
+        check(v <= LMT_TOL, f"{k}: {v:.3e} card vs CPU over {LMT_TOL}")
+    del out, cs, hs, card_state, cpu_state, draws
+    torch.cuda.empty_cache()
+    return {"params": n_params, "errors": errs, "seconds": seconds}
+
+
+def pl_engines(torch, fed, fl, sweep, population, card) -> dict:
+    """(c): with a one-rank process group the engines take their unsharded
+    path: phase 7b's grid and phase 14's populations again, bitwise the
+    histories those phases printed."""
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import make_population
+    from repro_torch.train import fl_driver
+
+    check(dist.is_initialized() and dist.get_world_size() == 1,
+          "phase 22 (c) runs under a one-rank process group")
+    t0 = time.perf_counter()
+    res = fl_driver.run_fl_sweep(
+        fed, fl, sweep_cells(fl), seeds=SWEEP_SEEDS, rounds=SWEEP_ROUNDS,
+        eval_every=SWEEP_EVAL, hidden=128, device="cuda")
+    same_sweep = [[r.history for r in row] for row in res] == \
+        sweep["histories"]
+    out = {"sweep_bitwise": same_sweep}
+    for n in PL_POPS:
+        pop = make_population(0, n_clients=n, pool_samples=POP_POOL,
+                              members_per_client=POP_MEMBERS)
+        res = fl_driver.run_fl_population(
+            pop, scale_config(n), seeds=POP_SEEDS, rounds=POP_ROUNDS,
+            eval_every=POP_ROUNDS, device="cuda")
+        want = next(r for r in population["populations"]
+                    if r["n_clients"] == n)["histories"]
+        out[f"population_{n}_bitwise"] = \
+            [[r.history for r in row] for row in res] == want
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  (c) one rank: phase 7b's grid bitwise {same_sweep}; phase 14's "
+          + ", ".join(f"N={n:,} bitwise {out[f'population_{n}_bitwise']}"
+                      for n in PL_POPS)
+          + f" ({out['seconds']:.1f} s).  The lane and lane x client meshes "
+          f"need two ranks or more: not run on the card (one card gives "
+          f"one rank); their check is the gloo suite on the CPU  ({card})")
+    check(all(v for k, v in out.items() if k.endswith("bitwise")),
+          f"an engine's one-rank run differs from its phase: {out}")
+    return out
+
+
+def phase_parallel(torch, dpk, ref, card, fed, fl, sweep, population):
+    """Phase 22: the client_parallel bundle (a), the LM round at 4 clients
+    and K1 at its rows (b), the engines on one rank (c), on phase 21's
+    world-size-1 group, taken down at the end."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    mesh = sh_meshes(torch)["single"]
+    try:
+        out = {"bundle": pl_bundle(torch, dpk, mesh, card)}
+        out["round"] = pl_round(torch, dpk, card)
+        rows = pl_k1(torch, dpk, ref, out["round"]["launches"], card)
+        out["cut"] = pl_cut(torch, card)
+        out["engines"] = pl_engines(torch, fed, fl, sweep, population, card)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 22: {out['seconds']:.1f} s")
+    return out, rows
 
 
 def main() -> int:
@@ -5742,6 +6154,15 @@ def main() -> int:
           f"fake 16 x 16 group  ({card})")
     sharding = phase_sharding(torch, dpk, card)
 
+    print(f"== 22. the client_parallel round on {LM_ARCH} ({LMT_LAYERS} "
+          f"layers, bf16, clipped DP): its train bundle on the (1, 1) mesh "
+          f"against the unsharded round, the round at {PL_CLIENTS} clients "
+          f"and K1 at its rows, a {PL_CUT}-layer f32 cut card vs CPU, the "
+          f"sweep and population engines on one rank  ({card})")
+    parallel, pl_rows = phase_parallel(torch, dpk, ref, card, fed, fl, sweep,
+                                       population)
+    kernels += pl_rows
+
     steady = walls[1:]
     record = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -5755,7 +6176,7 @@ def main() -> int:
         "population": population, "lm": lm, "fl_ops": fl_ops,
         "lm_train": lm_train, "recurrent_lm": rec_lm, "families": families,
         "train_families": train_families,
-        "sharding": sharding,
+        "sharding": sharding, "parallel": parallel,
         "total_s": time.perf_counter() - t_all,
     }
     OUT_DIR.mkdir(exist_ok=True)

@@ -71,17 +71,21 @@ def privatize_update(tree, noise: torch.Tensor, *, mode: str, clip: float,
 
 
 def privatize_rows(deltas: torch.Tensor, noise: torch.Tensor, *, mode: str,
-                   clip, sigma):
+                   clip, sigma, out=None):
     """:func:`privatize_update` for every client at once over the stacked
     flat updates ``deltas [R, P]`` (the counterpart of the reference's
     ``jax.vmap(privatize)``); ``clip`` and ``sigma`` are floats or ``[R]``
-    tensors, one value a row.  Returns ``(noised [R, P], norms [R])``."""
+    tensors, one value a row.  The noised rows go into ``out`` where
+    given (``deltas`` itself too: an LM's rows are noised where they
+    lie).  Returns ``(noised [R, P], norms [R])``."""
     if mode == "paper":
         norms = torch.sqrt(torch.sum(deltas * deltas, dim=1))
         if isinstance(sigma, torch.Tensor):
             sigma = sigma[:, None]
-        return deltas + sigma * noise, norms
+        if out is None:
+            return deltas + sigma * noise, norms
+        return torch.add(deltas, sigma * noise, out=out), norms
     if mode == "clipped":
         return kops.dp_clip_noise_rows(deltas.contiguous(),
-                                       noise.contiguous(), clip, sigma)
+                                       noise.contiguous(), clip, sigma, out)
     raise ValueError(mode)

@@ -19,14 +19,18 @@ masked weighted mean per lane.  The ``plan_code`` lane picks, by
 edge-then-cloud mean of ``hierarchical``; code-0 lanes are bitwise the
 synchronous plan, and no lane draws more random numbers.
 :func:`make_parallel_round` is the one-run view of the same step
-(``L = 1``).  An optional ``update_gate`` (``[L]`` 0/1) withholds a lane's
-release (budget exhaustion under scheduled privacy,
-:func:`_gate_server_update`).
+(``L = 1``) for a detector; at ``lm=True`` it runs the same plan on an
+LM's param tree (:func:`_make_tree_round`: the clients one after another, one
+``[n, P]`` row each, K1 on the rows), on one process or, with a
+:class:`ClientRows`, one client a data rank of a mesh.  An optional
+``update_gate`` (``[L]`` 0/1) withholds a lane's release (budget
+exhaustion under scheduled privacy, :func:`_gate_server_update`).
 
 :func:`make_cohort_round` is the population-scale form: availability,
 scores, the cohort top-k and the failure processes run as ``[L, N]``
 vector ops, and training, DP and aggregation run on the gathered
-``[L, k_max]`` cohort only.
+``[L, k_max]`` cohort only; given a :class:`ClientShard` the ``[L, N]``
+state is this rank's columns of it.
 
 :func:`make_serial_round` is the ``client_serial`` plan, the reference's
 large-model path (``launch/train.py``): one run, one client slot at a
@@ -120,7 +124,8 @@ class RoundDraws(NamedTuple):
     dp_noise: torch.Tensor
 
     def to(self, device) -> "RoundDraws":
-        return RoundDraws(*(t.to(device) for t in self))
+        return RoundDraws(*(None if t is None else t.to(device)
+                            for t in self))
 
     def lane(self, i: int) -> "RoundDraws":
         """Lane ``i`` of a sweep's bundle."""
@@ -335,6 +340,27 @@ def _coherence(deltas: torch.Tensor, agg_delta: torch.Tensor, mask):
     return num / (nrm * agg_norm[:, None]) * mask
 
 
+def _async_mask(contrib_mask, slow, compute, col: FLParams, code):
+    """The ``buffered_async`` plan's (code 1) aggregation mask: every
+    contributor's update lands this round, discounted by how many K-sized
+    buffer flushes precede its arrival: staleness s = ⌊rank/K⌋, weight
+    (1+s)^-pow.  Arrival order comes from the failure processes' slow
+    factors and the compute capacities, not from new draws; on lanes of
+    another code the weight is exactly 1.0.  Over ``[..., n]``."""
+    with record_function("async_buffer"):
+        arrive = fault_proc.arrival_score(slow, compute)
+        arrive = torch.where(contrib_mask > 0, arrive,
+                             torch.full_like(arrive, math.inf))
+        rank = torch.argsort(torch.argsort(arrive, dim=-1, stable=True),
+                             dim=-1, stable=True).float()
+        stale = torch.floor(rank / torch.clamp(
+            as_f32(col.async_buffer, rank), min=1.0))
+        stale_w = torch.pow(1.0 + stale,
+                            -as_f32(col.async_staleness_pow, rank))
+        return contrib_mask * torch.where(code == 1.0, stale_w,
+                                          torch.ones_like(stale_w))
+
+
 def _edge_sum(v: torch.Tensor, n_edges: int) -> torch.Tensor:
     """Sums of ``v [L, n, ...]`` over the clients of each edge, client i
     reporting to edge ``i % n_edges``: ``[L, n_edges, ...]``.  The client
@@ -348,19 +374,91 @@ def _edge_sum(v: torch.Tensor, n_edges: int) -> torch.Tensor:
     return v.reshape(lanes, groups, n_edges, *v.shape[2:]).sum(dim=1)
 
 
+def _edge_weights(w_cli: torch.Tensor, n_edges: int):
+    """The ``hierarchical`` plan's edges for client weights ``w_cli [L,
+    n]``: (each edge's weight ``[L, E]``, 1.0 where it is live (nonzero),
+    the live edges ``[L]``, at least 1)."""
+    edge_w = _edge_sum(w_cli, n_edges)
+    edge_live = (edge_w > 0).float()
+    return edge_w, edge_live, torch.clamp(torch.sum(edge_live, dim=-1),
+                                          min=1.0)
+
+
 def _hier_aggregate(deltas: torch.Tensor, w_cli: torch.Tensor,
                     n_edges: int) -> torch.Tensor:
     """The ``hierarchical`` plan's update ``[L, P]``: each edge takes the
     weighted mean of its clients' ``deltas [L, n, P]`` (weights ``w_cli
     [L, n]``), and the cloud the unweighted mean over live edges (those
     whose weight is nonzero)."""
-    edge_w = _edge_sum(w_cli, n_edges)                        # [L, E]
-    edge_live = (edge_w > 0).float()
-    n_live = torch.clamp(torch.sum(edge_live, dim=-1), min=1.0)
+    edge_w, edge_live, n_live = _edge_weights(w_cli, n_edges)
     esum = _edge_sum(deltas.float() * w_cli[..., None], n_edges)
     edelta = esum / torch.clamp(edge_w, min=1e-9)[..., None]
     return (torch.sum(edelta * edge_live[..., None], dim=1)
             / n_live[:, None])
+
+
+class _Picked(NamedTuple):
+    """What :func:`_select_and_fail` gives back."""
+
+    avail: torch.Tensor           # [..., n] available clients
+    k_eff: torch.Tensor           # [...] the round's K
+    sel_mask: torch.Tensor        # [..., n] selected clients
+    slow: torch.Tensor            # [..., n] slow factors
+    fault: Any                    # the failure processes' next state
+    eff_steps: torch.Tensor       # [..., n] surviving local steps
+    failed: torch.Tensor          # [..., n] bool
+
+
+def _select_and_fail(strategy, fl: FLConfig, state: RoundState, draws,
+                     col: FLParams, k_shape, k_max: int, n: int,
+                     local_steps: int, ckpt_every_steps: int,
+                     device) -> _Picked:
+    """Algorithm 1 lines 3-4 and the failure processes, from the round's
+    draws: the ``client_parallel`` family's shared head (the lane step's
+    ``[L, n]``, ``k_shape = (L,)``, and the param-tree round's ``[n]``,
+    ``k_shape = ()``)."""
+    # ---- GetAvailableClients (Alg.1 line 3) ----
+    avail = (draws.avail_u < as_f32(col.avail_prob, draws.avail_u)).float()
+
+    # ---- ComputeUtility + SelectTopK (line 4) ----
+    # record_function spans name the reference's jax.named_scope phases
+    # in a torch.profiler trace; outside a trace they cost ~1 us each
+    with record_function("selection"):
+        utility = sel_lib.compute_utility(state.util, fl,
+                                          fault_w=col.fault_util_w)
+        k_eff = (state.kctl.k if fl.adaptive_k
+                 else torch.full(k_shape, float(fl.clients_per_round),
+                                 device=device))
+        sel_mask = strategy(draws.sel_noise, state.util, utility, avail,
+                            k_eff, k_max, col.explore_noise)
+
+    # ---- failure injection + checkpoint-recovery truncation ----
+    fail_at, slow, new_fault = fault_proc.fault_step(
+        state.fault, draws.fault_u, draws.fault_steps, col, n, local_steps)
+    eff_steps, failed = _effective_steps(fail_at, local_steps,
+                                         ckpt_every_steps, fl.fault_tolerance)
+    return _Picked(avail, k_eff, sel_mask, slow, new_fault, eff_steps,
+                   failed)
+
+
+def _close_round(fl: FLConfig, pr: FLParams, state: RoundState,
+                 picked: _Picked, params, server_state, pre_loss, post_loss,
+                 global_loss, norms, contrib, coherence
+                 ) -> Tuple[RoundState, RoundMetrics]:
+    """The ``client_parallel`` family's bookkeeping: utility and K from
+    the round's losses, then the next state and the metrics."""
+    failed_f = picked.failed.float()
+    util = sel_lib.update_utility_state(
+        state.util, contrib, pre_loss, post_loss, fl, coherence=coherence,
+        attempted=picked.sel_mask, failed=failed_f)
+    kctl = sel_lib.update_k(state.kctl, global_loss, fl, tol=pr.k_tol,
+                            patience=pr.k_patience)
+    new_state = RoundState(params, server_state, util, kctl,
+                           state.round_idx + 1, state.rng, picked.fault)
+    metrics = RoundMetrics(picked.sel_mask, picked.avail, failed_f, pre_loss,
+                           post_loss, global_loss, picked.k_eff, norms,
+                           picked.slow)
+    return new_state, metrics
 
 
 class _Release(NamedTuple):
@@ -478,54 +576,16 @@ def make_lane_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
             draws = draw_round(state.rng, n, local_steps,
                                n_params if fl.dp_enabled else 0, fl.selection)
 
-        # ---- GetAvailableClients (Alg.1 line 3) ----
-        avail = (draws.avail_u < as_f32(col.avail_prob,
-                                        draws.avail_u)).float()
-
-        # ---- ComputeUtility + SelectTopK (line 4) ----
-        # record_function spans name the reference's jax.named_scope phases
-        # in a torch.profiler trace; outside a trace they cost ~1 us each
-        with record_function("selection"):
-            utility = sel_lib.compute_utility(state.util, fl,
-                                              fault_w=col.fault_util_w)
-            k_eff = (state.kctl.k if fl.adaptive_k
-                     else torch.full((lanes,), float(fl.clients_per_round),
-                                     device=device))
-            sel_mask = strategy(draws.sel_noise, state.util, utility, avail,
-                                k_eff, k_max, col.explore_noise)
-
-        # ---- failure injection + checkpoint-recovery truncation ----
-        fail_at, slow, new_fault = fault_proc.fault_step(
-            state.fault, draws.fault_u, draws.fault_steps, col, n,
-            local_steps)
-        eff_steps, failed = _effective_steps(
-            fail_at, local_steps, ckpt_every_steps, fl.fault_tolerance)
-
+        picked = _select_and_fail(strategy, fl, state, draws, col,
+                                  (lanes,), k_max, n, local_steps,
+                                  ckpt_every_steps, device)
         code = as_f32(col.plan_code, flat_params)   # [L, 1] or 0-d
 
         def aggregate(deltas, contrib_mask):
             agg_mask = contrib_mask
             if 1.0 in codes:
-                # buffered_async (code 1): every contributor's update lands
-                # this round, discounted by how many K-sized buffer flushes
-                # precede its arrival: staleness s = ⌊rank/K⌋, weight
-                # (1+s)^-pow.  Arrival order comes from the failure
-                # processes' slow factors and the compute capacities, not
-                # from new draws; on other lanes the weight is exactly 1.0
-                with record_function("async_buffer"):
-                    arrive = fault_proc.arrival_score(slow,
-                                                      state.util.compute)
-                    arrive = torch.where(contrib_mask > 0, arrive,
-                                         torch.full_like(arrive, math.inf))
-                    rank = torch.argsort(
-                        torch.argsort(arrive, dim=-1, stable=True),
-                        dim=-1, stable=True).float()
-                    stale = torch.floor(rank / torch.clamp(
-                        as_f32(col.async_buffer, rank), min=1.0))
-                    stale_w = torch.pow(
-                        1.0 + stale, -as_f32(col.async_staleness_pow, rank))
-                    agg_mask = contrib_mask * torch.where(
-                        code == 1.0, stale_w, torch.ones_like(stale_w))
+                agg_mask = _async_mask(contrib_mask, picked.slow,
+                                       state.util.compute, col, code)
             flat = agg.aggregate_stacked(deltas, agg_mask,
                                          state.util.data_size)
             if 2.0 not in codes:
@@ -538,43 +598,53 @@ def make_lane_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
 
         # ---- local training over lanes × clients (line 5) → release ----
         rel = _train_and_release(local_train, fl, pr, server, state,
-                                 flat_params, batches, eff_steps, sel_mask,
-                                 draws.dp_noise, aggregate, update_gate)
-        contrib_mask = rel.contrib
+                                 flat_params, batches, picked.eff_steps,
+                                 picked.sel_mask, draws.dp_noise, aggregate,
+                                 update_gate)
 
         # ---- bookkeeping ----
-        failed_f = failed.float()
-        util = sel_lib.update_utility_state(
-            state.util, contrib_mask, rel.pre_loss, rel.post_loss, fl,
-            coherence=rel.coherence, attempted=sel_mask, failed=failed_f)
-        kctl = sel_lib.update_k(state.kctl, rel.global_loss, fl,
-                                tol=pr.k_tol, patience=pr.k_patience)
-
         like = tree_map(lambda a: a[0], state.params)
-        new_state = RoundState(unflatten_rows(rel.flat, like),
-                               rel.server_state, util, kctl,
-                               state.round_idx + 1, state.rng, new_fault)
-        metrics = RoundMetrics(sel_mask, avail, failed_f, rel.pre_loss,
-                               rel.post_loss, rel.global_loss, k_eff,
-                               rel.norms, slow)
-        return new_state, metrics
+        return _close_round(fl, pr, state, picked,
+                            unflatten_rows(rel.flat, like), rel.server_state,
+                            rel.pre_loss, rel.post_loss, rel.global_loss,
+                            rel.norms, rel.contrib, rel.coherence)
 
     return lane_step
 
 
 def make_parallel_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                         ckpt_every_steps: int = 2, device=None,
-                        plan_codes: Optional[Sequence[float]] = None):
+                        plan_codes: Optional[Sequence[float]] = None,
+                        grad_accum: int = 1, delta_constraint=None,
+                        lm: bool = False):
     """Build ``round_step(state, batches, params=None, draws=None,
     update_gate=None) -> (state, metrics)`` for one run on ``device``
-    (``cuda`` unless ``"cpu"`` is asked): the lane step of
-    :func:`make_lane_round` at ``L = 1``.
+    (``cuda`` unless ``"cpu"`` is asked).
 
-    batches: ``{"x": [n, local_steps, b, d] f32, "y": [n, local_steps, b]
-    int}`` on the device.  ``params``: runtime :class:`FLParams` (``None``
-    uses ``fl``'s).  ``draws``: a :class:`RoundDraws` on the device, or
-    ``None`` to draw from ``state.rng``.  ``update_gate``: a 0-d 0/1
-    tensor, or ``None``.  ``plan_codes``: as in :func:`make_lane_round`."""
+    ``lm`` picks the route.  False: the lane step of :func:`make_lane_round`
+    at ``L = 1`` on a detector's ``{"x": [n, local_steps, b, d] f32, "y":
+    [n, local_steps, b] int}`` (``state`` from :func:`init_round_state`);
+    it takes neither ``grad_accum`` nor ``delta_constraint``.  True: the
+    param-tree round of :func:`_make_tree_round` on a dict of ``[n,
+    local_steps, ...]`` tensors (an LM's ``{"tokens", "labels"}``, with
+    ``frontend`` for a VLM or an encoder-decoder; ``state`` from
+    :func:`init_serial_state`: params a tree in their storage dtype), with
+    ``grad_accum`` microbatches a local step and, given a
+    :class:`ClientRows` as ``delta_constraint``, the clients laid across a
+    mesh's data ranks.
+
+    ``params``: runtime :class:`FLParams` (``None`` uses ``fl``'s).
+    ``draws``: a :class:`RoundDraws` on the device, or ``None`` to draw
+    from ``state.rng``.  ``update_gate``: a 0-d 0/1 tensor, or ``None``.
+    ``plan_codes``: as in :func:`make_lane_round`."""
+    if lm:
+        return _make_tree_round(loss_fn, fl, n_clients, ckpt_every_steps,
+                                device, plan_codes, grad_accum,
+                                delta_constraint)
+    if grad_accum != 1 or delta_constraint is not None:
+        raise ValueError(
+            "the detector lane step takes neither grad_accum nor a "
+            "delta_constraint; those are the param-tree round's (lm=True)")
     lane_step = make_lane_round(loss_fn, fl, n_clients, ckpt_every_steps,
                                 device, plan_codes)
     default_params = fl_params(fl)
@@ -675,12 +745,117 @@ def draw_cohort_round(gens: Sequence[torch.Generator], n: int, k_max: int,
     return out._replace(sel_noise=d.sel_noise)
 
 
+class _AllClients:
+    """Every client of the population on this process: the cohort step's
+    reads and writes of per-client ``[L, N]`` state, as plain ops."""
+
+    lo = 0
+
+    def __init__(self, n: int):
+        self.n_local = n
+
+    def cols(self, x):
+        return x
+
+    def at(self, x, idx):
+        return torch.gather(x, -1, idx)
+
+    def rows(self, t, ids):
+        return t.index_select(0, ids)
+
+    def scatter(self, like, idx, vals):
+        return torch.zeros_like(like).scatter_(-1, idx, vals)
+
+    def topk(self, scores, avail, k_eff, k_max: int, chunks: int):
+        return sel_lib.cohort_topk(scores, avail, k_eff, k_max,
+                                   chunks=chunks)
+
+    def mean(self, x):
+        return torch.mean(x, dim=-1)
+
+
+class ClientShard(_AllClients):
+    """This rank's share of a population's clients on a ``client`` mesh
+    axis (``cmesh``, 1-D): the contiguous columns ``[lo, lo + N/C)`` of
+    every per-client ``[L, N]`` tensor (utility and fault state, draws)
+    and the same rows of the membership table.  The cohort step reads the
+    cohort's values from their owners (each rank gives its own, zero
+    elsewhere, summed over the axis: one value a slot, so the sum is
+    exact), writes results back on the owner only, takes the top-k in two
+    stages (each rank's top-``k_max``, gathered rank-major and merged:
+    :func:`~repro_torch.core.selection.cohort_topk`'s chunked form, bitwise
+    its unchunked one) and gathers the rest of a reduction over ``N``
+    (a failure fraction, a maximum) whole, so that every value is bitwise
+    the unsharded engine's."""
+
+    def __init__(self, cmesh, n: int):
+        ranks = cmesh.size()
+        if n % ranks:
+            raise ValueError(f"{n} clients over {ranks} client ranks")
+        self.cmesh, self.n = cmesh, n
+        self.n_local = n // ranks
+        self.lo = cmesh.get_local_rank() * self.n_local
+
+    def _sum(self, x):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        return DTensor.from_local(x, self.cmesh, [Partial()],
+                                  run_check=False).redistribute(
+            self.cmesh, [Replicate()]).to_local()
+
+    def _cat(self, x):
+        """Every rank's ``x [..., m]`` side by side: ``[..., C·m]``."""
+        from torch.distributed.tensor import DTensor, Shard
+        return DTensor.from_local(x.contiguous(), self.cmesh,
+                                  [Shard(x.dim() - 1)],
+                                  run_check=False).full_tensor()
+
+    def _own(self, idx):
+        own = (idx >= self.lo) & (idx < self.lo + self.n_local)
+        return own, torch.where(own, idx - self.lo, torch.zeros_like(idx))
+
+    def cols(self, x):
+        return x[..., self.lo:self.lo + self.n_local]
+
+    def at(self, x, idx):
+        own, local = self._own(idx)
+        v = torch.gather(x, -1, local)
+        return self._sum(torch.where(own, v, torch.zeros_like(v)))
+
+    def rows(self, t, ids):
+        own, local = self._own(ids)
+        v = t.index_select(0, local)
+        mask = own.reshape(own.shape + (1,) * (v.dim() - 1))
+        return self._sum(torch.where(mask, v, torch.zeros_like(v)))
+
+    def scatter(self, like, idx, vals):
+        own, local = self._own(idx)
+        out = like.new_zeros(like.shape[:-1] + (self.n_local + 1,))
+        return out.scatter_(-1, torch.where(own, local, self.n_local),
+                            vals)[..., :self.n_local]
+
+    def topk(self, scores, avail, k_eff, k_max: int, chunks: int):
+        with record_function("cohort_topk"):
+            masked = torch.where(avail > 0, scores,
+                                 torch.full_like(scores, sel_lib.F32_MIN))
+            v, i = sel_lib._topk_stable(masked, min(k_max, self.n_local))
+            vals, j = sel_lib._topk_stable(self._cat(v), k_max)
+            idx = torch.gather(self._cat(i + self.lo), -1, j)
+            return idx, sel_lib.cohort_take(vals, k_eff, k_max)
+
+    def amax(self, x):
+        return torch.amax(self._cat(x), dim=-1, keepdim=True)
+
+    def mean(self, x):
+        return torch.mean(self._cat(x), dim=-1)
+
+
 def make_cohort_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                       ckpt_every_steps: int = 2, sel_chunks: int = 1,
                       device=None):
     """Build the population-scale round ``cohort_step(state, pop, params,
-    draws=None, update_gate=None) -> (state, CohortMetrics)`` for ``L``
-    lanes on ``device`` (``cuda`` unless ``"cpu"`` is asked).
+    draws=None, update_gate=None, *, clients=None, data_mean=None) ->
+    (state, CohortMetrics)`` for ``L`` lanes on ``device`` (``cuda``
+    unless ``"cpu"`` is asked).
 
     Algorithm 1 as :func:`make_lane_round` runs it, restructured so that a
     round's compute is O(k_max) and only vector work touches all ``N``
@@ -702,7 +877,13 @@ def make_cohort_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
 
     ``pop``: a :class:`~repro_torch.data.synthetic.Population` on the
     device.  ``fl.k_max`` must be a positive static (it sizes the cohort).
-    The step issues no host synchronisation."""
+    The step issues no host synchronisation.
+
+    ``clients`` (a :class:`ClientShard`): ``pop``'s per-client arrays and
+    the state's ``[L, N]`` carries hold this rank's clients only (the
+    draws stay whole, each rank keeping its columns); ``data_mean`` is
+    then the lanes' mean ``data_size`` over every client (keepdim), which
+    the utility score divides by."""
     device = resolve_device(device)
     score_fn = sel_lib.get_score_fn(fl.selection)
     if not fl.k_max or int(fl.k_max) <= 0:
@@ -718,7 +899,8 @@ def make_cohort_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
 
     def cohort_step(state: RoundState, pop: Population, pr: FLParams,
                     draws: Optional[CohortDraws] = None,
-                    update_gate: Optional[torch.Tensor] = None
+                    update_gate: Optional[torch.Tensor] = None, *,
+                    clients: Optional[ClientShard] = None, data_mean=None
                     ) -> Tuple[RoundState, CohortMetrics]:
         flat_params = flatten_rows(state.params)
         if flat_params.device != device:
@@ -731,35 +913,38 @@ def make_cohort_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
             draws = draw_cohort_round(state.rng, n, k_max, local_steps, batch,
                                       n_params if fl.dp_enabled else 0,
                                       fl.selection)
+        own = _AllClients(n) if clients is None else clients
+        score_kw = ({} if clients is None or fl.selection != "adafl" else
+                    {"part_max": own.amax(state.util.participation)})
 
         # ---- O(N) population vector phase ----
         with record_function("selection"):
-            avail = (draws.avail_u < as_f32(col.avail_prob,
-                                            draws.avail_u)).float()
+            avail = (own.cols(draws.avail_u) < as_f32(
+                col.avail_prob, draws.avail_u)).float()
             utility = sel_lib.compute_utility(state.util, fl,
-                                              fault_w=col.fault_util_w)
+                                              fault_w=col.fault_util_w,
+                                              data_mean=data_mean)
             k_eff = (state.kctl.k if fl.adaptive_k
                      else torch.full((lanes,), float(fl.clients_per_round),
                                      device=device))
             k_eff = torch.clamp(k_eff, max=float(k_max))
-            scores = score_fn(draws.sel_noise, state.util, utility, avail,
-                              col.explore_noise)
-            idx, take = sel_lib.cohort_topk(scores, avail, k_eff, k_max,
-                                            chunks=sel_chunks)
+            scores = score_fn(own.cols(draws.sel_noise), state.util, utility,
+                              avail, col.explore_noise, **score_kw)
+            idx, take = own.topk(scores, avail, k_eff, k_max, sel_chunks)
         fail_at_full, slow_full, new_fault = fault_proc.fault_step(
-            state.fault, draws.fault_u, draws.fault_steps, col, n,
-            local_steps)
+            state.fault, own.cols(draws.fault_u), own.cols(draws.fault_steps),
+            col, own.n_local, local_steps)
 
         # ---- cohort gather + O(k_max) training phase ----
-        fail_at, slow = fault_proc.gather_cohort(fail_at_full, slow_full,
-                                                 idx)
+        fail_at, slow = own.at(fail_at_full, idx), own.at(slow_full, idx)
         eff_steps, failed = _effective_steps(
             fail_at, local_steps, ckpt_every_steps, fl.fault_tolerance)
         batches = sample_cohort_batches(pop, idx, local_steps, batch,
                                         u=draws.batch_u,
                                         batch_idx=draws.batch_idx,
-                                        shift=draws.shift)
-        data_size = torch.gather(state.util.data_size, -1, idx)
+                                        shift=draws.shift,
+                                        member_rows=own.rows)
+        data_size = own.at(state.util.data_size, idx)
         rel = _train_and_release(
             local_train, fl, pr, server, state, flat_params, batches,
             eff_steps, take, draws.dp_noise,
@@ -770,7 +955,7 @@ def make_cohort_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
 
         # ---- scatter back into the [L, N] carries ----
         def scatter(vals_c):
-            return torch.zeros_like(avail).scatter_(-1, idx, vals_c)
+            return own.scatter(avail, idx, vals_c)
 
         failed_f = failed.float()
         util = sel_lib.update_utility_state(
@@ -792,8 +977,7 @@ def make_cohort_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
             pre_loss=rel.pre_loss, post_loss=rel.post_loss,
             global_loss=rel.global_loss, k_effective=k_eff,
             update_norms=rel.norms,
-            fail_frac=torch.mean((fail_at_full < local_steps).float(),
-                                 dim=-1))
+            fail_frac=own.mean((fail_at_full < local_steps).float()))
         return new_state, metrics
 
     return cohort_step
@@ -879,13 +1063,13 @@ def _local_train_tree_fn(loss_fn: Callable, grad_accum: int = 1):
     truncation) from landing, so params stay in their storage dtype.
     Returns ``(delta, loss at the first step, loss at the last)``: the f32
     update as one flat ``[P]`` buffer in leaf order, the row the DP kernel
-    reads (:func:`unflatten_rows` gives its tree of views).  With a
-    :class:`_ShardLayout` (DTensor params) the row is the rank's local
-    one, in the layout's order."""
+    reads (:func:`unflatten_rows` gives its tree of views), written into
+    ``out`` where given.  With a :class:`_ShardLayout` (DTensor params)
+    the row is the rank's local one, in the layout's order."""
     vag = microbatched_value_and_grad(loss_fn, grad_accum)
 
     def local_train(global_params, step_batches, effective_steps, lr,
-                    layout=None):
+                    layout=None, out=None):
         opt = tree_sgd(lr)
         p = global_params
         losses = []
@@ -898,14 +1082,14 @@ def _local_train_tree_fn(loss_fn: Callable, grad_accum: int = 1):
             del new_p
             losses.append(loss)
         if layout is not None:
-            flat = layout.row()
+            flat = layout.row() if out is None else out
             for d, a, b in zip(layout.views(flat), tree_leaves(p),
                                tree_leaves(global_params)):
                 d.copy_(_placed_like(a, b).to_local()).sub_(b.to_local())
             return flat, _plain(losses[0]), _plain(losses[-1])
         leaves = tree_leaves(global_params)
-        flat = torch.empty(sum(t.numel() for t in leaves),
-                           device=leaves[0].device)
+        flat = out if out is not None else torch.empty(
+            sum(t.numel() for t in leaves), device=leaves[0].device)
         # f32 copy, then the f32 subtraction: a.f32 − b.f32 with no f32
         # temporaries of the tree
         tree_map(lambda d, a, b: d.copy_(a).sub_(b),
@@ -992,6 +1176,14 @@ class _ShardLayout:
         independent noise."""
         if self.mesh.size() == 1:
             return out.normal_(generator=rng)
+        return self.seeded_noise(rng, out, round_idx, slot)
+
+    def seeded_noise(self, rng: torch.Generator, out, round_idx: int,
+                     slot: int):
+        """:meth:`draw_noise`'s draw across ranks: each leaf's shard from a
+        generator seeded by ``rng``'s seed, the round, the slot (a serial
+        slot, or a client of the parallel round), the leaf and the shard
+        id."""
         base = (rng.initial_seed(), int(round_idx), slot)
         for i, (v, sid) in enumerate(zip(self.views(out), self.shard_ids)):
             g = torch.Generator(device=rng.device).manual_seed(
@@ -1279,3 +1471,358 @@ def make_serial_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
         return new_state, metrics
 
     return round_step
+
+
+# ---------------------------------------------------------------------------
+# client_parallel plan on param trees (the LMs), unsharded or laid across the
+# data ranks of a mesh
+# ---------------------------------------------------------------------------
+
+
+class ClientRows(NamedTuple):
+    """The port's ``delta_constraint`` of the ``client_parallel`` round:
+    where the clients' update rows live.  The reference pins the stacked
+    deltas' client axis onto the data mesh axes so that no device holds
+    every client's weights; here the clients of the round's batches are
+    split over ``client_axes`` of ``mesh`` (a ``DeviceMesh``), and each
+    data rank trains its own clients on the rest of the mesh (the model
+    sub-mesh: tensor-parallel as the rule table places the params),
+    privatises their rows on it and keeps them: only the weighted sum
+    over the clients (one all-reduce over ``client_axes``) and per-client
+    scalars cross data ranks."""
+
+    mesh: Any
+    client_axes: Tuple[str, ...]
+
+
+def client_submeshes(mesh, client_axes: Sequence[str]):
+    """(the client sub-mesh over ``client_axes``, the model sub-mesh over
+    the other axes) of ``mesh``."""
+    names = tuple(mesh.mesh_dim_names)
+    model_axes = tuple(a for a in names if a not in client_axes)
+    if not model_axes or set(client_axes) - set(names):
+        raise ValueError(f"mesh axes {names}: the client axes "
+                         f"{tuple(client_axes)} must be some, not all")
+
+    def sub(axes):
+        return mesh[axes[0]] if len(axes) == 1 else mesh[tuple(axes)]
+
+    return sub(tuple(client_axes)), sub(model_axes)
+
+
+class _LocalRows:
+    """Every client's row on this process: the row is the update in leaf
+    order (``flatten_rows``), and every reduction is local."""
+
+    layout = None
+
+    def __init__(self, params, n: int):
+        leaves = tree_leaves(params)
+        self.n_local, self.first = n, 0
+        self.row_len = self.n_owned = sum(t.numel() for t in leaves)
+        self.device = leaves[0].device
+        self.train_params = params
+
+    def client_batch(self, batches, j: int):
+        return tree_map(lambda v: v[j], batches)
+
+    def model_sum(self, x):
+        return x
+
+    def client_sum(self, x):
+        return x
+
+    def gather(self, x):
+        return x
+
+    def noise(self, dp_noise, rng, round_idx: int, like):
+        """The rows' standard normals: ``dp_noise [n, P]`` as given, else
+        drawn from ``rng`` into one buffer like the rows."""
+        if dp_noise is not None:
+            return dp_noise
+        return torch.empty_like(like).normal_(generator=rng)
+
+    def sumsq(self, rows):
+        """Σx² of each row's owned prefix, summed over the model ranks:
+        ``[rows]``."""
+        return self.model_sum(torch.stack(
+            [torch.sum(r * r) for r in rows[:, :self.n_owned]]))
+
+    def privatize(self, rows, noise, mode: str, clip, sigma):
+        return dp_lib.privatize_rows(rows, noise, mode=mode, clip=clip,
+                                     sigma=sigma, out=rows)
+
+    def tree(self, row, like):
+        return unflatten_rows(row, like)
+
+
+class _MeshRows(_LocalRows):
+    """The rows of this data rank's clients (:class:`ClientRows`): each
+    row holds the local shards of one client's update on the model
+    sub-mesh, in :class:`_ShardLayout`'s order (owned shards first), so
+    Σx² over the owned prefix, summed over the model sub-mesh, counts
+    every element of the client's update once."""
+
+    def __init__(self, rows: ClientRows, params, batches, n: int):
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.models.shardctx import local_box
+        self.mesh = rows.mesh
+        names = tuple(self.mesh.mesh_dim_names)
+        self.cmesh, self.sub = client_submeshes(self.mesh, rows.client_axes)
+        cdims = [names.index(a) for a in rows.client_axes]
+        mdims = [i for i in range(len(names)) if i not in cdims]
+        for t in tree_leaves(params):
+            if any(not t.placements[i].is_replicate() for i in cdims):
+                raise ValueError(
+                    f"a param placed {t.placements} over the client axes "
+                    f"{rows.client_axes}: the clients' weights diverge, so "
+                    "the params replicate over them")
+
+        def on_sub(t):
+            return DTensor.from_local(t.to_local(), self.sub,
+                                      [t.placements[i] for i in mdims],
+                                      run_check=False, shape=t.shape,
+                                      stride=t.stride())
+
+        self.train_params = tree_map(on_sub, params)
+        self.layout = _ShardLayout(self.train_params)
+        self.leaves = tree_leaves(params)
+        self.row_len, self.n_owned = self.layout.n_local, self.layout.n_owned
+        self.device = self.layout.device
+        first = tree_leaves(batches)[0]
+        shape, offset = local_box(first.shape, self.mesh, first.placements)
+        if shape[0] * self.cmesh.size() != n:
+            raise ValueError(f"{n} clients over {self.cmesh.size()} data "
+                             f"ranks: the batches hold {shape[0]} a rank")
+        self.n_local, self.first = shape[0], offset[0]
+
+    def client_batch(self, batches, j: int):
+        from torch.distributed.tensor import DTensor, Replicate
+        rep = [Replicate()] * self.sub.ndim
+        return tree_map(lambda v: DTensor.from_local(
+            v.to_local()[j], self.sub, rep, run_check=False), batches)
+
+    def model_sum(self, x):
+        return self.layout.global_sumsq(x)
+
+    def client_sum(self, x):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        nd = self.cmesh.ndim
+        return DTensor.from_local(x, self.cmesh, [Partial()] * nd,
+                                  run_check=False).redistribute(
+            self.cmesh, [Replicate()] * nd).to_local()
+
+    def gather(self, x):
+        from torch.distributed.tensor import DTensor, Shard
+        return DTensor.from_local(x, self.cmesh, [Shard(0)] * self.cmesh.ndim,
+                                  run_check=False).full_tensor()
+
+    def noise(self, dp_noise, rng, round_idx: int, like):
+        """Given ``dp_noise [n, P]`` (the unsharded round's leaf order),
+        each row takes its client's elements by global offset, so the
+        round equals the unsharded one.  Else a one-rank mesh draws the
+        whole buffer at once, as the unsharded round does, and across
+        ranks each (client, leaf, shard) draws from its own seeded
+        generator."""
+        out = torch.empty_like(like)
+        if dp_noise is None and self.mesh.size() == 1:
+            return out.normal_(generator=rng)
+        for j in range(self.n_local):
+            if dp_noise is not None:
+                self.layout.local_noise(dp_noise[self.first + j], out[j])
+            else:
+                self.layout.seeded_noise(rng, out[j], round_idx,
+                                         self.first + j)
+        return out
+
+    def privatize(self, rows, noise, mode: str, clip, sigma):
+        """K1a on the rows' owned prefix, Σx² summed over the model
+        sub-mesh, K1b on the whole rows in place with the global scale
+        (clipped); or the summed norms and σ·n added (paper)."""
+        from repro_torch.kernels import dp_clip_noise as dpk
+        from repro_torch.kernels.ref import clip_scale
+        if mode == "paper":
+            norms = torch.sqrt(self.sumsq(rows))
+            return rows.add_(sigma * noise), norms
+        if mode != "clipped":
+            raise ValueError(mode)
+        owned = rows[:, :self.n_owned]
+        norms = torch.sqrt(self.model_sum(dpk.sumsq_rows(
+            owned if owned.is_contiguous() else owned.contiguous())))
+        dpk.scale_noise_rows(rows, noise, clip_scale(norms, clip), sigma,
+                             rows)
+        return rows, norms
+
+    def tree(self, row, like):
+        """The local row as DTensors placed as ``like``'s leaves on the
+        whole mesh (after the all-reduce over the client axes every data
+        rank holds the same values)."""
+        from torch.distributed.tensor import DTensor
+        by_id = {id(t): DTensor.from_local(v, self.mesh, t.placements,
+                                           run_check=False, shape=t.shape,
+                                           stride=t.stride())
+                 for v, t in zip(self.layout.views(row), self.leaves)}
+        return tree_map(lambda t: by_id[id(t)], like)
+
+
+def _tree_agg_weights(fl: FLConfig, codes, pr: FLParams, contrib, slow,
+                      util, n_edges: int):
+    """The tree round's aggregate as weights: ``Σ_i a_i·Δ_i / d`` with
+    ``a [n]`` and a 0-d ``d``.  Code 0: a = contrib·size, d = Σa (clamped
+    at 1e-9), the weighted FedAvg; code 1 the same on the async mask; code
+    2 (hierarchical) a_i = w_i·live_e / edge_w_e for client i of edge e =
+    i % E and d = the live edges, the cloud's mean of the edges' means."""
+    code = as_f32(pr.plan_code, contrib)
+    agg_mask = contrib
+    if 1.0 in codes:
+        agg_mask = _async_mask(contrib, slow, util.compute, pr, code)
+    a = (agg_mask * util.data_size).float()
+    d = torch.clamp(torch.sum(a), min=1e-9)
+    if 2.0 in codes:
+        with record_function("hier_aggregate"):
+            edge_w, edge_live, d_h = (t[0] for t in _edge_weights(a[None],
+                                                                  n_edges))
+            per_client = torch.arange(a.shape[0], device=a.device) % n_edges
+            a_h = a * (edge_live / torch.clamp(edge_w, min=1e-9))[per_client]
+        a = torch.where(code == 2.0, a_h, a)
+        d = torch.where(code == 2.0, d_h, d)
+    return a, d
+
+
+def _draw_tree_round(gen: torch.Generator, n: int, local_steps: int,
+                     selection: str) -> RoundDraws:
+    """One run's :class:`RoundDraws` without the DP noise (``None``): the
+    round draws the noise from ``gen`` when it privatises, once its rows
+    exist (an ``[n, P]`` bundle drawn first would double an LM round's
+    peak)."""
+    d = draw_round([gen], n, local_steps, 0, selection)
+    return RoundDraws(*(t[0] for t in d[:4]), dp_noise=None)
+
+
+def _make_tree_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
+                     ckpt_every_steps: int = 2, device=None,
+                     plan_codes: Optional[Sequence[float]] = None,
+                     grad_accum: int = 1,
+                     rows: Optional[ClientRows] = None):
+    """The ``client_parallel`` round on a param tree (the reference's
+    ``make_parallel_round`` for an LM): ``tree_step(state, batches,
+    params=None, draws=None, update_gate=None) -> (state, metrics)``.
+
+    Selection, the failure processes and the bookkeeping are the lane
+    step's (:func:`_select_and_fail`, :func:`_close_round`), for one run,
+    and the plan's weights its aggregate's.  The ``n`` clients train one
+    after another (the serial round's :func:`_local_train_tree_fn`:
+    autograd, ``grad_accum`` microbatches, remat inside ``loss_fn``;
+    checkpointed autograd does not go through ``torch.func.vmap``), each
+    writing its f32 update into one row of ``[n, P]``; DP runs on the rows
+    at once (clipped: K1a + K1b, one launch each a round, written in
+    place); the aggregate ``Σ_i a_i·Δ_i / d`` (:func:`_tree_agg_weights`)
+    is summed row by row into one f32 ``[P]`` row and the server steps the
+    tree.  Coherence, when
+    on, is cos(Δ_i, Δ_agg) of the noised rows.
+
+    With ``rows`` (:class:`ClientRows`) the params are DTensors replicated
+    over the client axes and ``batches`` DTensors split over them: each
+    data rank trains its clients on the model sub-mesh, privatises its
+    rows there (Σx² summed over the model sub-mesh), sums its weighted
+    rows, and one all-reduce over the client axes gives every rank the
+    aggregate; per-client losses and norms are all-gathered.  The caller
+    runs the step inside ``shardctx.sharding_ctx`` on the model sub-mesh
+    (``launch/steps.py``).  Every rank draws the same selection and
+    failures from its own copy of the state's generator."""
+    device = resolve_device(device)
+    strategy = sel_lib.get_strategy(fl.selection)
+    local_train = _local_train_tree_fn(loss_fn, grad_accum)
+    k_max = int(fl.k_max or n_clients)
+    n = n_clients
+    n_edges = max(int(fl.hierarchy_edges), 1)
+    codes = {0.0, 1.0, 2.0} if plan_codes is None else set(plan_codes)
+    default_params = fl_params(fl)
+
+    def tree_step(state: RoundState, batches,
+                  params: Optional[FLParams] = None,
+                  draws: Optional[RoundDraws] = None,
+                  update_gate: Optional[torch.Tensor] = None
+                  ) -> Tuple[RoundState, RoundMetrics]:
+        pr = default_params if params is None else params
+        place = (_LocalRows(state.params, n) if rows is None
+                 else _MeshRows(rows, state.params, batches, n))
+        if rows is None and place.device != device:
+            raise ValueError(f"state is on {place.device}, the round step "
+                             f"was built for {device}")
+        server = make_tree_server_optimizer(fl.server_opt, pr.server_lr)
+        local_steps = tree_leaves(batches)[0].shape[1]
+        if draws is None:
+            draws = _draw_tree_round(state.rng, n, local_steps, fl.selection)
+
+        picked = _select_and_fail(strategy, fl, state, draws, pr, (), k_max,
+                                  n, local_steps, ckpt_every_steps, device)
+        eff_steps = picked.eff_steps
+
+        # ---- local training, one client after another (line 5) ----
+        deltas = torch.empty(place.n_local, place.row_len,
+                             device=place.device)
+        pre, post = [], []
+        for j in range(place.n_local):
+            with record_function("local_train"):
+                _, p0, p1 = local_train(
+                    place.train_params, place.client_batch(batches, j),
+                    eff_steps[place.first + j], pr.local_lr, place.layout,
+                    out=deltas[j])
+            pre.append(p0)
+            post.append(p1)
+        pre_loss = place.gather(torch.stack(pre).float())
+        post_loss = place.gather(torch.stack(post).float())
+
+        # ---- DP: noise on updates, not on scores (lines 8-9) ----
+        with record_function("dp_privatize"):
+            if fl.dp_enabled:
+                noise = place.noise(draws.dp_noise, state.rng,
+                                    state.round_idx, deltas)
+                deltas, norms = place.privatize(deltas, noise, fl.dp_mode,
+                                                pr.dp_clip,
+                                                _dp_sigma(fl, pr))
+                del noise
+            else:
+                norms = torch.sqrt(place.sumsq(deltas))
+            norms = place.gather(norms)
+
+        contrib = picked.sel_mask * (eff_steps > 0)
+
+        # ---- aggregation + server update (line 18) ----
+        with record_function("aggregate"):
+            a, d = _tree_agg_weights(fl, codes, pr, contrib, picked.slow,
+                                     state.util, n_edges)
+            acc = torch.zeros(place.row_len, device=place.device)
+            for j in range(place.n_local):
+                acc.addcmul_(deltas[j], a[place.first + j])
+            agg_row = place.client_sum(acc).div_(d)
+            del acc
+            new_params, new_server_state = agg.apply_server_update_tree(
+                server, state.params, state.server_opt_state,
+                place.tree(agg_row, state.params))
+            new_params, new_server_state = _gate_server_update(
+                update_gate, new_params, new_server_state, state.params,
+                state.server_opt_state)
+
+        # ---- update-coherence (data-quality observable): cos(Δ_i, Δ_agg) ----
+        coherence = None
+        if fl.coherence_scoring:
+            own_agg = agg_row[:place.n_owned]
+            agg_norm = torch.sqrt(torch.clamp(place.model_sum(
+                torch.sum(own_agg * own_agg).reshape(1)), min=1e-18))
+            num = place.model_sum(torch.stack(
+                [torch.sum(r * own_agg) for r in deltas[:, :place.n_owned]]))
+            nrm = torch.sqrt(torch.clamp(place.sumsq(deltas), min=1e-18))
+            coherence = place.gather(num / (nrm * agg_norm)) * contrib
+        del deltas, agg_row
+
+        # ---- bookkeeping ----
+        sel_denom = torch.clamp(torch.sum(contrib), min=1.0)
+        global_loss = torch.sum(post_loss * contrib) / sel_denom
+        return _close_round(fl, pr, state, picked, new_params,
+                            new_server_state, pre_loss, post_loss,
+                            global_loss, norms, contrib, coherence)
+
+    return tree_step

@@ -77,12 +77,15 @@ def init_utility_state(n: int, gen: Optional[torch.Generator] = None,
 
 
 def compute_utility(state: UtilityState, fl: FLConfig,
-                    fault_w=None) -> torch.Tensor:
+                    fault_w=None, data_mean=None) -> torch.Tensor:
     """U_i — the paper's multi-factor utility score,
     F(S_t) = α·Accuracy(S_t) − γ·Cost(S_t); ``fault_w`` penalises the
-    per-client failure EMA (0.0 is an exact no-op)."""
-    ds = state.data_size / torch.clamp(
-        torch.mean(state.data_size, dim=-1, keepdim=True), min=1e-9)
+    per-client failure EMA (0.0 is an exact no-op).  ``data_mean``: the
+    mean of ``data_size`` over every client (keepdim), for a caller that
+    holds only its share of them."""
+    if data_mean is None:
+        data_mean = torch.mean(state.data_size, dim=-1, keepdim=True)
+    ds = state.data_size / torch.clamp(data_mean, min=1e-9)
     perf = 0.3 * state.perf_ema
     quality = 0.25 * state.data_quality * torch.log1p(ds) + 5.0 * state.coherence
     capacity = state.compute
@@ -131,10 +134,14 @@ def score_acfl(noise, state, utility, avail, explore=0.05):
     return uncertainty + explore * noise
 
 
-def score_adafl(noise, state, utility, avail, explore=0.05):
-    """AdaFL: current + historical contribution."""
+def score_adafl(noise, state, utility, avail, explore=0.05, part_max=None):
+    """AdaFL: current + historical contribution (``part_max``: the largest
+    participation over every client, keepdim, for a caller that holds only
+    its share of them)."""
+    if part_max is None:
+        part_max = torch.amax(state.participation, dim=-1, keepdim=True)
     hist = state.perf_ema + 0.1 * state.participation / torch.clamp(
-        torch.amax(state.participation, dim=-1, keepdim=True), min=1.0)
+        part_max, min=1.0)
     return hist + explore * noise
 
 
@@ -258,11 +265,17 @@ def cohort_topk(scores: torch.Tensor, avail: torch.Tensor, k_eff, k_max: int,
             idx = torch.gather(i.reshape(*lead, chunks * k_max), -1, j)
         else:
             vals, idx = _topk_stable(masked, k_max)
-        if isinstance(k_eff, torch.Tensor):
-            k_eff = k_eff[..., None]
-        ranks = torch.arange(k_max, device=masked.device)
-        take = (ranks < k_eff).float() * (vals > F32_MIN)
-        return idx, take
+        return idx, cohort_take(vals, k_eff, k_max)
+
+
+def cohort_take(vals: torch.Tensor, k_eff, k_max: int) -> torch.Tensor:
+    """The live-slot mask of a cohort whose sorted scores are ``vals
+    [..., k_max]``: the ranks below ``k_eff`` (a number or one a row) that
+    fell to an available client."""
+    if isinstance(k_eff, torch.Tensor):
+        k_eff = k_eff[..., None]
+    ranks = torch.arange(k_max, device=vals.device)
+    return (ranks < k_eff).float() * (vals > F32_MIN)
 
 
 def cohort_topk_host(scores, avail, k_eff, k_max: int):

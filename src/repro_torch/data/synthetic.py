@@ -585,12 +585,16 @@ def cohort_shift(shift_seed: int, client_idx: torch.Tensor, d: int,
     return scale * z
 
 
+def _index_rows(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return t.index_select(0, ids)
+
+
 def sample_cohort_batches(pop: Population, cohort_idx: torch.Tensor,
                           local_steps: int, batch: int,
                           u: Optional[torch.Tensor] = None,
                           batch_idx: Optional[torch.Tensor] = None,
-                          shift: Optional[torch.Tensor] = None
-                          ) -> Dict[str, torch.Tensor]:
+                          shift: Optional[torch.Tensor] = None,
+                          member_rows=None) -> Dict[str, torch.Tensor]:
     """The cohort gather: batches of the selected clients only, leaves
     ``[L, k_max, local_steps, batch, ...]``, whatever the population's size.
 
@@ -600,13 +604,17 @@ def sample_cohort_batches(pop: Population, cohort_idx: torch.Tensor,
     ``size − 1``) into its membership row, and its covariate shift is
     :func:`cohort_shift`'s.  ``batch_idx`` (member positions) and ``shift``
     (``[L, k_max, d]``) override the drawn ones, as the parity tests feed
-    the reference's."""
+    the reference's.  ``member_rows(t, ids)`` reads the membership rows
+    and sizes of clients ``ids`` (``index_select`` by default; the
+    population engine's client shards read them from their owners)."""
+    if member_rows is None:
+        member_rows = _index_rows
     with record_function("sample_cohort_batches"):
         lanes, k = cohort_idx.shape
-        mem = pop.member_idx.index_select(0, cohort_idx.reshape(-1))
+        mem = member_rows(pop.member_idx, cohort_idx.reshape(-1))
         if batch_idx is None:
-            size = torch.clamp(pop.member_size.index_select(
-                0, cohort_idx.reshape(-1)).long(), min=1)
+            size = torch.clamp(member_rows(
+                pop.member_size, cohort_idx.reshape(-1)).long(), min=1)
             size = size.reshape(lanes, k, 1, 1)
             batch_idx = torch.minimum(torch.floor(u * size).long(), size - 1)
         rows = torch.gather(mem.long(), 1,

@@ -15,8 +15,10 @@ of one sweep may run different processes.  Where the reference draws from
 ``fold_in(k_fail, 1..7)``, the port takes the variates as operands:
 ``u [4, n]`` uniforms (iid Bernoulli, markov, weibull, straggler: folds
 1, 3, 5, 7) and ``steps [3, n]`` integer steps in ``[0, local_steps)``
-(iid, markov, weibull: folds 2, 4, 6).  :func:`gather_cohort` is the
-population engine's view of one round's outputs.
+(iid, markov, weibull: folds 2, 4, 6).  The processes evolve every
+client of a population (``[L, N]``), so Markov outages persist and
+Weibull ages accumulate for clients a cohort skipped; the cohort step
+reads its ``[L, k_max]`` slots of the outputs.
 """
 from __future__ import annotations
 
@@ -114,11 +116,3 @@ def arrival_score(slow, compute):
     """Per-client arrival-order score of the ``buffered_async`` plan."""
     return slow / torch.clamp(compute, min=0.1)
 
-
-def gather_cohort(fail_at, slow, cohort_idx):
-    """Cohort view of one round's process outputs: the processes evolve
-    every client of the population (``[L, N]``), so Markov outages persist
-    and Weibull ages accumulate for clients the cohort skipped, while
-    training reads the ``[L, k_max]`` rows of ``cohort_idx``."""
-    return (torch.gather(fail_at, -1, cohort_idx),
-            torch.gather(slow, -1, cohort_idx))

@@ -29,8 +29,8 @@ counts from fake tensors, not measurements.  On a CPU mesh DTensor turns
 an all-to-all into an all-gather and a chunk, so a resharding that a
 card's group would do by all-to-all counts as an all-gather here.
 
-Pairs whose bundle waits for the next slice (a ``client_parallel`` train
-step) are reported as waiting, apart from failures; any failure exits 1.
+Every pair builds, the ``client_parallel`` train rounds (clients across
+the data ranks) as the ``client_serial`` ones; any failure exits 1.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch granite_3_8b --shape prefill_32k --mesh single
@@ -281,16 +281,6 @@ def run_one(arch: str, shape_name: str, mesh_kind: str, *, save: bool = True,
     return result
 
 
-def waiting_reason(arch: str, shape_name: str) -> Optional[str]:
-    """Why a pair's bundle is not built yet, or None."""
-    cfg = get_arch(arch)
-    if (get_shape(shape_name).mode == "train"
-            and steps_lib.choose_plan(cfg) == "client_parallel"):
-        return ("client_parallel train bundle: waits for the LM "
-                "client_parallel round (the next sharding slice)")
-    return None
-
-
 def _ok_line(r) -> str:
     return (f"[ok]   {r['arch']:24s} {r['shape']:12s} {r['mesh']:6s} "
             f"run={r['run_s']:7.1f}s "
@@ -351,14 +341,9 @@ def main(argv=None):
     )
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
-    failures, waiting, todo = [], [], []
+    failures, todo = [], []
     for mk in meshes:
         for arch, shape in pairs:
-            why = waiting_reason(arch, shape)
-            if why is not None:
-                waiting.append((arch, shape, mk, why))
-                print(f"[wait] {arch:24s} {shape:12s} {mk:6s} {why}")
-                continue
             path = os.path.join(args.out_dir, f"{arch}__{shape}__{mk}.json")
             if args.skip_existing and os.path.exists(path):
                 print(f"[skip] {arch} {shape} {mk}")
@@ -377,10 +362,7 @@ def main(argv=None):
                 failures.append((arch, shape, mk, repr(e)))
                 print(f"[FAIL] {arch} {shape} {mk}: {e}", flush=True)
                 traceback.print_exc()
-    print(f"\n{built} built, {len(waiting)} waiting for the next slice, "
-          f"{len(failures)} failed")
-    for w in waiting:
-        print("  waiting:", *w[:3])
+    print(f"\n{built} built, {len(failures)} failed")
     if failures:
         print(f"\n{len(failures)} FAILURES:")
         for f in failures:

@@ -15,11 +15,11 @@ Execution profiles (the reference's policy):
 grad_accum is chosen so the per-chip activation microbatch is ~1-2
 sequences for the ≥10B models.
 
-Built here: the prefill and decode bundles and the ``client_serial``
-train bundle (``core/rounds.py`` ``make_serial_round`` under a mesh).  A
-``client_parallel`` train bundle (clients laid across the data ranks)
-raises ``NotImplementedError``: it needs an LM ``client_parallel`` round
-with a ``delta_constraint``, which the port does not have yet.
+Built here: the prefill and decode bundles and both train bundles: the
+``client_serial`` round (``core/rounds.py`` ``make_serial_round`` under a
+mesh) and the ``client_parallel`` round (``make_parallel_round`` with a
+``ClientRows`` as its ``delta_constraint``: clients across the data
+ranks, each trained on the model sub-mesh).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from repro_torch.core import plans as plans_lib
 from repro_torch.models.model import Model, build, effective_window
 from repro_torch.models.sharding import (P, logical_to_pspec, make_rules,
                                          mesh_axis_sizes, pspec_placements,
-                                         sanitize_pspec)
+                                         sanitize_pspec, without_axes)
 from repro_torch.models.shardctx import sharding_ctx
 from repro_torch.models.transformer import padded_vocab
 from repro_torch.tree import tree_map
@@ -303,60 +303,90 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh_cfg: MeshConfig,
                      rules_override: Optional[dict] = None,
                      n_clients: int = 40,
                      fl: Optional[FLConfig] = None) -> StepBundle:
-    """One ``client_serial`` FL round: the K = ``serial_clients_in_step``
-    slots folded into the step, each client's batch over the data axes,
-    params FSDP over data and tensor-parallel over model.  ``fn(state,
-    batches, draws=None)`` takes a ``RoundState`` whose params are
-    DTensors placed by ``in_shardings[0]`` (the selection state plain,
-    the same on every rank) and ``[K, steps, B, ...]`` DTensor batches
-    placed by ``in_shardings[1]``.  ``fl`` replaces the reference's
-    ``make_fl_config`` (its ``n_clients`` then counts)."""
+    """One FL round on the plan's program family.  ``fn(state, batches,
+    draws=None)`` takes a ``RoundState`` (``core/rounds.py``
+    ``init_serial_state``) whose params are DTensors placed by
+    ``in_shardings[0]`` (the selection state plain, the same on every
+    rank) and DTensor batches placed by ``in_shardings[1]``.
+
+    ``client_serial``: the K = ``serial_clients_in_step`` slots folded
+    into the step, each client's batch ``[K, steps, B, ...]`` over the
+    data axes, params FSDP over data and tensor-parallel over model.
+    ``client_parallel`` (and its family): one client a data rank (the
+    reference's ``n_clients`` = the data ranks), batches ``[n, steps,
+    B/n, ...]`` split over the data axes, params replicated over them
+    and tensor-parallel over model (``RULES_PARALLEL``); each data rank
+    trains its clients on the model sub-mesh and keeps their update rows
+    (``ClientRows``), and FedAvg is one all-reduce over the data axes.
+    ``grad_accum`` defaults to 1 there, as in the reference.  ``fl``
+    replaces the reference's ``make_fl_config`` (its ``n_clients`` then
+    counts: for ``client_parallel`` a multiple of the data ranks)."""
     from repro_torch.core import rounds as rounds_lib
     model = build(cfg)
     plan = plan or choose_plan(cfg)
     plan_spec = plans_lib.get_plan(plan)
     family = plan_spec.family
-    if family != "client_serial":
-        raise NotImplementedError(
-            f"{cfg.name}: the {plan!r} train bundle lays clients across the "
-            "data ranks and needs an LM client_parallel round with a "
-            "delta_constraint, which the port does not have yet (the next "
-            "sharding slice); pass plan='client_serial' to build the serial "
-            "round")
     rules = dict(rules_override or make_rules(plan, mesh_cfg.multi_pod))
-    data_shards = _mesh_size(mesh, _client_axes(mesh_cfg))
-    per_client_batch = shape.global_batch
-    per_shard = max(1, per_client_batch // data_shards)
-    ga = grad_accum if grad_accum is not None else choose_grad_accum(cfg, per_shard)
+    client_axes = _client_axes(mesh_cfg)
+    data_shards = _mesh_size(mesh, client_axes)
+    parallel = family == "client_parallel"
+    if parallel:
+        n_clients = data_shards if fl is None else fl.n_clients
+        if n_clients % data_shards:
+            raise ValueError(f"{n_clients} clients do not split over "
+                             f"{data_shards} data ranks")
+        per_client_batch = max(1, shape.global_batch // n_clients)
+        ga = 1 if grad_accum is None else grad_accum
+    else:
+        per_client_batch = shape.global_batch
+        per_shard = max(1, per_client_batch // data_shards)
+        ga = (grad_accum if grad_accum is not None
+              else choose_grad_accum(cfg, per_shard))
 
     if fl is None:
         fl = make_fl_config(cfg, plan, n_clients)
     n_clients = fl.n_clients
-    delta_dtype = torch.bfloat16 if cfg.param_count() > 100e9 else torch.float32
 
     def loss_fn(p, b):
         return model.loss(p, b, remat=remat, remat_group=remat_group)
 
     base = model.input_specs(dataclasses.replace(shape, global_batch=per_client_batch))
     steps = fl.local_steps_in_step
-    lead = (fl.serial_clients_in_step, steps)
-    batches = {k: torch.empty(lead + tuple(s.shape), dtype=s.dtype,
+    slots = n_clients if parallel else fl.serial_clients_in_step
+    batches = {k: torch.empty((slots, steps) + tuple(s.shape), dtype=s.dtype,
                               device="meta") for k, s in base.items()}
-    ab = rules.get("act_batch")
-    batch_shard = {k: pspec_placements(_leading_spec(s.shape, (None, None, ab),
-                                                     mesh), mesh)
+    lead = ((client_axes if len(client_axes) > 1 else client_axes[0], None)
+            if parallel else (None, None, rules.get("act_batch")))
+    batch_shard = {k: pspec_placements(_leading_spec(s.shape, lead, mesh),
+                                       mesh)
                    for k, s in batches.items()}
     p_shard = param_shardings(model, rules, mesh)
 
-    round_step = rounds_lib.make_serial_round(
-        loss_fn, fl, n_clients, grad_accum=ga, delta_dtype=delta_dtype,
-        device=mesh.device_type, mesh=mesh)
+    meta = {}
+    if parallel:
+        round_step = rounds_lib.make_parallel_round(
+            loss_fn, fl, n_clients, device=mesh.device_type,
+            plan_codes=(plans_lib.plan_code(plan),), grad_accum=ga,
+            delta_constraint=rounds_lib.ClientRows(mesh, client_axes),
+            lm=True)
+        ctx_rules = without_axes(rules, client_axes)
+    else:
+        delta_dtype = (torch.bfloat16 if cfg.param_count() > 100e9
+                       else torch.float32)
+        meta["delta_dtype"] = str(delta_dtype).replace("torch.", "")
+        round_step = rounds_lib.make_serial_round(
+            loss_fn, fl, n_clients, grad_accum=ga, delta_dtype=delta_dtype,
+            device=mesh.device_type, mesh=mesh)
+        ctx_rules = rules
 
     def step(state, batches, draws=None):
-        with sharding_ctx(rules, mesh):
+        # the parallel round's model runs on the model sub-mesh
+        ctx_mesh = (rounds_lib.client_submeshes(mesh, client_axes)[1]
+                    if parallel else mesh)
+        with sharding_ctx(ctx_rules, ctx_mesh):
             return round_step(state, batches, draws=draws)
 
-    tokens = fl.serial_clients_in_step * steps * per_client_batch * shape.seq_len
+    tokens = slots * steps * per_client_batch * shape.seq_len
     return StepBundle(
         name=f"fl_round[{plan}]",
         fn=step,
@@ -365,12 +395,11 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, mesh_cfg: MeshConfig,
         out_shardings=(p_shard, None),
         meta={
             "plan": plan, "grad_accum": ga, "tokens_per_step": tokens,
-            "clients_in_step": fl.serial_clients_in_step,
+            "clients_in_step": slots,
             "per_client_batch": per_client_batch,
-            "n_clients": n_clients, "fl": fl,
-            "delta_dtype": str(delta_dtype).replace("torch.", ""),
+            "n_clients": n_clients, "fl": fl, **meta,
             "scan": _scan_correction(
-                cfg, "train", clients_scan=fl.serial_clients_in_step,
+                cfg, "train", clients_scan=1 if parallel else slots,
                 local_steps=steps, grad_accum=ga),
         },
     )

@@ -242,9 +242,19 @@ def _build_ssm(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
         return spec_lib.cross_entropy(
             ref_one_view(params, _unflatten(batch["x"], meta)), batch["y"])
 
+    def param_axes():
+        # the SSD block's ParamMeta axes: its wide "mlp" dims (the fused
+        # in_proj, the conv channels, out_proj's rows) are what
+        # RULES_MODEL_SCALE splits over the client axis
+        mix = split_meta(ssm_lib.init_ssd(torch.Generator().manual_seed(0),
+                                          cfg))[1]
+        return {"embed": {"w": (None, "embed"), "b": ("embed",)},
+                "mix": mix, "head": {"w": (None, None), "b": (None,)}}
+
     return spec_lib.ModelSpec(name="ssm", init=init, loss=loss,
                               logits=variants[kops.DEFAULT_ROUTE],
-                              route_variants=variants)
+                              route_variants=variants,
+                              param_axes=param_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -317,9 +327,21 @@ def _build_attn(meta: spec_lib.DataMeta) -> spec_lib.ModelSpec:
         return spec_lib.cross_entropy(ref_logits(params, batch["x"]),
                                       batch["y"])
 
+    def param_axes():
+        qkv = ("embed", "heads")
+        return {
+            "embed": {"w": (None, "embed"), "b": ("embed",)},
+            "pos": (None, "embed"),
+            "wq": qkv, "wk": qkv, "wv": qkv, "wo": ("heads", "embed"),
+            "rq": ("heads", None),
+            "rkv": {"wk": qkv, "wv": qkv},
+            "head": {"w": (None, None), "b": (None,)},
+        }
+
     return spec_lib.ModelSpec(name="attn", init=init, loss=loss,
                               logits=variants[kops.DEFAULT_ROUTE],
-                              route_variants=variants)
+                              route_variants=variants,
+                              param_axes=param_axes)
 
 
 spec_lib.register_model("cnn", _build_cnn)

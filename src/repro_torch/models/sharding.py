@@ -162,6 +162,19 @@ def make_rules(plan: str, multi_pod: bool) -> dict:
     return with_pod(base, multi_pod, family)
 
 
+def without_axes(rules: dict, axes) -> dict:
+    """``rules`` with the mesh ``axes`` taken out of every entry (one left
+    with none maps to ``None``): the table for a sub-mesh that lacks
+    them, as the ``client_parallel`` round's model sub-mesh lacks the
+    data axes."""
+    out = {}
+    for k, v in rules.items():
+        rest = () if v is None else tuple(a for a in _parts(v)
+                                          if a not in axes)
+        out[k] = rest or None
+    return out
+
+
 # The population engine's 2-D (lane, client) scale mesh
 # (``launch/mesh.py`` ``make_scale_mesh``): "clients" is the population
 # axis of every per-client [N] tensor, "lanes" the sweep's trial axis.
@@ -191,15 +204,15 @@ RULES_MODEL_SCALE = {
 def population_shardings(mesh, pop):
     """Placements for a :class:`repro_torch.data.synthetic.Population` on a
     ``(lane, client)`` scale mesh: per-client tensors (membership table,
-    sizes, quality) shard over ``client``; the shared pool, the test set
-    and the shift key replicate."""
+    sizes, quality) shard over ``client``; the shared pool and the test set
+    replicate; the shift seed is a host int and passes as it is."""
     per_client = pspec_placements(P("client"), mesh)
     replicated = pspec_placements(P(), mesh)
     return type(pop)(
         pool_x=replicated, pool_y=replicated,
         member_idx=per_client, member_size=per_client,
         data_size=per_client, data_quality=per_client,
-        shift_key=replicated,
+        shift_seed=pop.shift_seed,
         test_x=replicated, test_y=replicated,
         feature_shift=pop.feature_shift, feature_shape=pop.feature_shape,
     )

@@ -7,7 +7,8 @@ A builder ``(meta: DataMeta) -> ModelSpec`` is registered under the name
 that ``FLConfig.model`` takes.  The port registers what the reference
 does: ``mlp`` and, from ``models/detectors.py``, the window-native
 detectors ``cnn``, ``rglru``, ``ssm`` and ``attn`` (the last three with
-their score routes).  The reference's sharding hooks are not ported.
+their score routes), ``ssm`` and ``attn`` with the model-sharding hook
+(``param_axes``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 from repro_torch.kernels.ops import DEFAULT_ROUTE
 from repro_torch.models import mlp as mlp_lib
 from repro_torch.models.mlp import cross_entropy  # noqa: F401  (re-export)
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 
 class DataMeta(NamedTuple):
@@ -53,13 +54,23 @@ class ModelSpec:
     sequence detectors: ``"kernel"`` runs the CUDA kernels through
     ``kernels/ops.py`` (their plain versions for CPU tensors), ``"ref"``
     the plain versions of ``kernels/ref.py``.  ``logits`` is the
-    ``"kernel"`` route; ``loss`` always differentiates ``"ref"``."""
+    ``"kernel"`` route; ``loss`` always differentiates ``"ref"``.
+
+    ``param_axes() -> tree`` (optional) gives each param leaf's logical
+    axis names, a tuple of the leaf's rank, in ``init``'s tree: the
+    model-sharding hook.  :meth:`constrain_params` places params by them
+    through an active ``models/shardctx`` context (outside one it is the
+    identity), so the spec declares WHERE its params may split and the
+    driver decides WHEN (the population engine, when the replicated model
+    passes ``core/scale.py``'s budget and the client axis has more than
+    one rank)."""
 
     name: str
     init: Callable
     loss: Callable
     logits: Callable
     route_variants: Optional[Mapping[str, Callable]] = None
+    param_axes: Optional[Callable[[], object]] = None
 
     def logits_routed(self, route: Optional[str] = None) -> Callable:
         """Logits function on an explicit score route (``None`` is
@@ -90,6 +101,23 @@ class ModelSpec:
         term), from one initialisation on the CPU."""
         params = self.init(torch.Generator().manual_seed(0))
         return sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+    def constrain_params(self, params):
+        """Each param leaf (a DTensor) placed by its ``param_axes`` through
+        the active ``models/shardctx`` context.  The same tree (the same
+        leaves) when the spec declares no axes or no context is active:
+        every unsharded path is unchanged."""
+        from repro_torch.models import shardctx
+        if self.param_axes is None or not shardctx.active():
+            return params
+        # an axes tree's leaves are tuples, which trees do not descend into
+        leaves, axes = tree_leaves(params), tree_leaves(self.param_axes())
+        if len(leaves) != len(axes):
+            raise ValueError(f"{self.name}: {len(axes)} param_axes for "
+                             f"{len(leaves)} param leaves")
+        by_id = {id(t): shardctx.constrain(t, *a)
+                 for t, a in zip(leaves, axes)}
+        return tree_map(lambda t: by_id[id(t)], params)
 
 
 _REGISTRY: Dict[str, Callable[[DataMeta], ModelSpec]] = {}

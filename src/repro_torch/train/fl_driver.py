@@ -429,7 +429,8 @@ def init_privacy(fl: FLConfig, pr: FLParams, grid: acct_lib.OrderGrid,
 def scheduled_round(step: Callable, fl: FLConfig, state, batches,
                     pr: FLParams, draws, priv: PrivacyState,
                     grid: acct_lib.OrderGrid, rounds: int,
-                    k_cap: Optional[int] = None):
+                    k_cap: Optional[int] = None,
+                    n_clients: Optional[int] = None):
     """One round of the lane step (or, with ``batches`` a population, the
     cohort step) under scheduled privacy.
 
@@ -441,8 +442,9 @@ def scheduled_round(step: Callable, fl: FLConfig, state, batches,
     the live gate (a lane that is not live keeps its global params and
     server state bitwise), and the accountant commits only live lanes'
     releases.  All on the device, by ``torch.where``.  Returns ``(state,
-    metrics, priv, sigma_t [L], live [L])``."""
-    n = state.util.compute.shape[-1]
+    metrics, priv, sigma_t [L], live [L])``.  ``n_clients``: the
+    population's size where ``state`` holds only a share of its clients."""
+    n = n_clients or state.util.compute.shape[-1]
     k_eff = (state.kctl.k if fl.adaptive_k else
              torch.full_like(state.kctl.k, float(fl.clients_per_round)))
     if k_cap is not None:
@@ -465,7 +467,8 @@ def scheduled_round(step: Callable, fl: FLConfig, state, batches,
 
 def _round_loop(fl: FLConfig, spec: ModelSpec, step: Callable, state,
                 pr: FLParams, rounds: int, eval_every: int, test_x, test_y,
-                round_inputs: Callable, k_cap: Optional[int] = None):
+                round_inputs: Callable, k_cap: Optional[int] = None,
+                clients=None, full_params: Optional[Callable] = None):
     """The engines' round loop over the lanes' ``state``: eval blocks of
     ``eval_every`` rounds and a trailing partial block when ``rounds %
     eval_every != 0``, test accuracy and AUC computed on the device at the
@@ -479,12 +482,18 @@ def _round_loop(fl: FLConfig, spec: ModelSpec, step: Callable, state,
     :func:`scheduled_round` and adds the columns ``eps`` (each lane's ε
     after the block), ``sigma`` (σ of its last round) and ``live`` (the
     block's share of released rounds); the scheduler updates from each
-    block's AUC."""
+    block's AUC.
+
+    ``clients`` (``core/rounds.py`` ``ClientShard``): the state holds this
+    rank's share of the population's clients; the cohort's capacities are
+    read from their owners.  ``full_params(params)``: the lanes' whole
+    params for eval, where the state keeps them split (the model-sharding
+    hook)."""
     n_full, rem = divmod(rounds, eval_every)
     blocks = [eval_every] * n_full + ([rem] if rem else [])
     scheduled = fl.dp_enabled and fl.dp_scheduled
     device = test_x.device
-    n = state.util.compute.shape[-1]
+    n = state.util.compute.shape[-1] if clients is None else clients.n
     cum_time = torch.zeros(len(state.rng), device=device)
     columns = ("loss", "acc", "auc", "k", "fail", "cum_time")
     if scheduled:
@@ -500,7 +509,7 @@ def _round_loop(fl: FLConfig, spec: ModelSpec, step: Callable, state,
                 if scheduled:
                     state, m, priv, sigma_t, live = scheduled_round(
                         step, fl, state, data, pr, d, priv, grid, rounds,
-                        k_cap=k_cap)
+                        k_cap=k_cap, n_clients=n)
                     lives.append(live)
                 else:
                     state, m = step(state, data, pr, d)
@@ -509,12 +518,17 @@ def _round_loop(fl: FLConfig, spec: ModelSpec, step: Callable, state,
                         fl, state.util, m.sel_mask, m.failed, params=pr,
                         slow=m.slow)
                 else:  # the cohort waits for its slowest selected client
-                    util = state.util._replace(compute=torch.gather(
-                        state.util.compute, -1, m.cohort_idx))
+                    compute = (torch.gather(state.util.compute, -1,
+                                            m.cohort_idx) if clients is None
+                               else clients.at(state.util.compute,
+                                               m.cohort_idx))
+                    util = state.util._replace(compute=compute)
                     cum_time = cum_time + simulate_round_time(
                         fl, util, m.take, m.failed, params=pr, slow=m.slow)
             with record_function("eval_block"):
-                acc, auc = _eval_lanes(spec, state.params, test_x, test_y)
+                acc, auc = _eval_lanes(
+                    spec, state.params if full_params is None
+                    else full_params(state.params), test_x, test_y)
             fail = (torch.mean(m.failed, dim=-1) if k_cap is None
                     else m.fail_frac)
             for name, v in (("loss", m.global_loss), ("acc", acc),
@@ -616,6 +630,72 @@ def _build_lane_run(fl: FLConfig, rounds: int, eval_every: int,
         return state.params, cum_time, trace
 
     return lane_run
+
+
+class _LaneSplit(NamedTuple):
+    """This rank's share of an engine's lanes over the ``lane`` axis of a
+    mesh (the sweep's 1-D ``("lane",)`` one or the population's ``(lane,
+    client)`` one; the counterpart of the reference's lane
+    ``NamedSharding``): the lanes padded up to a multiple of the lane
+    ranks by repeating the last one (dropped on readback), lane rank r
+    taking the r-th run of ``per``.  The lanes never interact, so each
+    rank runs its own with their own generators and the round issues no
+    collective over ``lane``; the readback all-gathers them, placed by
+    ``lane_shardings``."""
+
+    mesh: object      # DeviceMesh with a "lane" axis
+    n_lanes: int
+    per: int          # lanes a lane rank
+    rank: int
+    padded: int       # per × the lane ranks
+
+    @staticmethod
+    def over(mesh, n_lanes: int) -> "_LaneSplit":
+        ranks = mesh["lane"].size() if mesh.ndim > 1 else mesh.size()
+        per = -(-n_lanes // ranks)
+        return _LaneSplit(mesh, n_lanes, per, mesh.get_local_rank("lane"),
+                          per * ranks)
+
+    def take(self, seq):
+        """This rank's entries of a per-lane list (``None`` passes)."""
+        if seq is None:
+            return None
+        seq = list(seq)
+        padded = seq + seq[-1:] * (self.padded - len(seq))
+        return padded[self.rank * self.per:(self.rank + 1) * self.per]
+
+    def take_lanes(self, pr: FLParams) -> FLParams:
+        """This rank's ``[per]`` slice of ``[n_lanes]`` param lanes."""
+        pad, a = self.padded - self.n_lanes, self.rank * self.per
+        return FLParams(*(torch.cat([t, t[-1:].expand(pad)])[a:a + self.per]
+                          for t in pr))
+
+    def gather(self, tree):
+        """Every lane rank's ``[per, ...]`` lanes -> ``[n_lanes, ...]`` on
+        each rank (a tensor, or dicts, lists and tuples of them)."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.models.sharding import lane_shardings
+        if isinstance(tree, dict):
+            return {k: self.gather(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.gather(v) for v in tree)
+        return DTensor.from_local(
+            tree.contiguous(), self.mesh, lane_shardings(self.mesh)[0],
+            run_check=False).full_tensor()[:self.n_lanes]
+
+
+def _lane_mesh(n_lanes: int, device: torch.device):
+    """The sweep's 1-D ``("lane",)`` mesh over the default process group's
+    ranks, or ``None`` (no group, one rank or one lane: the unsharded
+    engine).  Every rank of the group calls the engine with the same
+    arguments."""
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_world_size() <= 1 \
+            or n_lanes <= 1:
+        return None
+    from repro_torch.launch.mesh import mesh_from_shape
+    return mesh_from_shape((dist.get_world_size(),), ("lane",), device.type)
 
 
 # Lane runners keyed on (STATIC config, rounds, eval_every, DataMeta,
@@ -785,7 +865,12 @@ def run_fl_sweep(
 
     ``run_fl_sweep(..., [cfg_a, cfg_b], seeds)[i][j]`` equals
     ``run_fl(fed, cfg_i, seed=seeds[j])`` up to float order.  Returns
-    results indexed ``[cell][seed]``."""
+    results indexed ``[cell][seed]``.
+
+    Under a process group of several ranks (each calling with the same
+    arguments) the lanes are split over a 1-D ``("lane",)`` mesh of its
+    ranks (:class:`_LaneSplit`): each rank runs its share, and the
+    readback all-gathers every lane to every rank."""
     device = resolve_device(device)
     fl = fl_for_method(fl, method)
     rounds = int(rounds or fl.rounds)
@@ -796,19 +881,33 @@ def run_fl_sweep(
     n_lanes = len(cells) * len(seeds)
     meta = meta_for(fed, hidden=hidden)
     codes = tuple(sorted({plans_lib.plan_code(c.plan) for c in cells}))
+    lane_mesh = _lane_mesh(n_lanes, device)
 
     def prepare():
         stack, data_size, data_quality = _device_federation(fed, device)
+        lanes = params_lanes(cells, len(seeds), device)
+        lane_seeds, states, lane_draws = seeds * len(cells), init_states, draws
+        split = None
+        if lane_mesh is not None:
+            split = _LaneSplit.over(lane_mesh, n_lanes)
+            lane_seeds, states, lane_draws = (
+                split.take(lane_seeds), split.take(states),
+                split.take(lane_draws))
+            lanes = split.take_lanes(lanes)
+        n_run = len(lane_seeds)
         runner = _cached_runner(
-            (fl_static(fl), rounds, eval_every, meta, n_lanes, stack.shapes(),
+            (fl_static(fl), rounds, eval_every, meta, n_run, stack.shapes(),
              str(device), codes),
             lambda: _build_lane_run(fl_static(fl), rounds, eval_every, meta,
                                     stack.n_clients, device, codes),
-            "sweep", fl.model, rounds, n_lanes)
-        lanes = params_lanes(cells, len(seeds), device)
-        return lambda: runner(seeds * len(cells), stack, data_size,
-                              data_quality, lanes, init_states=init_states,
-                              draws=draws)
+            "sweep", fl.model, rounds, n_run)
+
+        def execute():
+            out = runner(lane_seeds, stack, data_size, data_quality, lanes,
+                         init_states=states, draws=lane_draws)
+            return out if split is None else split.gather(out)
+
+        return execute
 
     params_b, sim_np, trace_np, wall = _run_lanes(
         "sweep", prepare, method=method, n_lanes=n_lanes, n_cells=len(cells),
@@ -860,11 +959,52 @@ def run_fl(fed: FederatedData, fl: FLConfig, method: str = "proposed",
 # ---------------------------------------------------------------------------
 
 
+class _ModelSplit:
+    """The model-sharding hook's storage (``ModelSpec.param_axes`` under
+    ``RULES_MODEL_SCALE``): each lane's wide leaves (the axes the rules
+    put on ``client``) kept split over the client ranks, the rest whole.
+    The layout is the one ``spec.constrain_params`` gives inside
+    ``sharding_ctx(rules, cmesh)``; a round gathers the leaves whole once
+    (FSDP-style) and runs the replicated math on them, so its values are
+    the unsharded run's, and splits the new params again."""
+
+    def __init__(self, spec: ModelSpec, cmesh, like):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        from repro_torch.models import shardctx
+        from repro_torch.models.sharding import RULES_MODEL_SCALE, without_axes
+        self.cmesh = cmesh
+        rules = without_axes(RULES_MODEL_SCALE, ("lane",))
+        with shardctx.sharding_ctx(rules, cmesh):
+            placed = spec.constrain_params(tree_map(
+                lambda t: DTensor.from_local(t, cmesh, [Replicate()],
+                                             run_check=False), like))
+        # a lane-stacked leaf's split dim: the unstacked one's, plus one
+        self.dims = tree_map(lambda d: (d.placements[0].dim + 1
+                                        if d.placements[0].is_shard()
+                                        else None), placed)
+
+    def split(self, params):
+        """Whole lane-stacked params -> this rank's shares."""
+        rank, ranks = self.cmesh.get_local_rank(), self.cmesh.size()
+        return tree_map(lambda t, d: t if d is None else
+                        t.chunk(ranks, dim=d)[rank].contiguous(),
+                        params, self.dims)
+
+    def whole(self, params):
+        """This rank's shares -> the whole lane-stacked params."""
+        from torch.distributed.tensor import DTensor, Shard
+        return tree_map(lambda t, d: t if d is None else DTensor.from_local(
+            t, self.cmesh, [Shard(d)], run_check=False).full_tensor(),
+            params, self.dims)
+
+
 def _build_population_run(fl: FLConfig, rounds: int, eval_every: int,
                           meta: DataMeta, n_clients: int, sel_chunks: int,
                           device: torch.device):
-    """``pop_run(seeds, pop, params, init_states=None, draws=None) ->
-    (params [L], sim_time [L], trace)`` over a device
+    """``pop_run(seeds, pop, params, init_states=None, draws=None,
+    clients=None, model_split=False) -> (params [L], sim_time [L],
+    trace)`` over a device
     :class:`~repro_torch.data.synthetic.Population`: the population-scale
     sibling of :func:`_build_lane_run`, with the ``client_cohort`` round
     step (``core/rounds.py`` ``make_cohort_round``).  A round's compute is
@@ -876,7 +1016,14 @@ def _build_population_run(fl: FLConfig, rounds: int, eval_every: int,
     ``init_states`` and ``draws`` (a lane's list over rounds of one-lane
     ``CohortDraws``) replace them.  The time model waits for the slowest
     selected client (the cohort's compute capacities); scheduled privacy
-    caps K at ``k_max``."""
+    caps K at ``k_max``.
+
+    ``clients`` (a ``ClientShard``): ``pop`` holds this rank's rows of
+    the per-client arrays, and the lanes' per-client state is split the
+    same way (each rank draws the lanes' whole ``[L, N]`` variates and
+    keeps its columns, so they are the unsharded run's).  ``model_split``
+    (with ``clients``): the params are stored as :class:`_ModelSplit`
+    shares."""
     _check_scheduled(fl)
     spec = get_model_spec(fl.model, meta)
     k_max = int(fl.k_max)
@@ -884,7 +1031,8 @@ def _build_population_run(fl: FLConfig, rounds: int, eval_every: int,
                                         sel_chunks=sel_chunks, device=device)
 
     def pop_run(seeds: Sequence[int], pop: Population, pr: FLParams,
-                init_states=None, draws=None):
+                init_states=None, draws=None, clients=None,
+                model_split: bool = False):
         if init_states is None:
             init_states = _init_lanes(spec, fl, seeds, n_clients,
                                       pop.data_size, pop.data_quality, device)
@@ -894,6 +1042,30 @@ def _build_population_run(fl: FLConfig, rounds: int, eval_every: int,
             draw_out = rounds_lib.CohortDraws.empty(
                 len(seeds), n_clients, k_max, fl.local_epochs,
                 fl.local_batch, n_noise, device)
+        run_step, whole = step, None
+        if clients is not None:
+            data_mean = torch.mean(state.util.data_size, dim=-1,
+                                   keepdim=True)
+            mine = lambda t: clients.cols(t).contiguous()  # noqa: E731
+            state = state._replace(
+                util=type(state.util)(*map(mine, state.util)),
+                fault=type(state.fault)(*map(mine, state.fault)))
+            split = (_ModelSplit(spec, clients.cmesh,
+                                 tree_map(lambda a: a[0], state.params))
+                     if model_split else None)
+
+            def run_step(state, batches, pr, draws=None, update_gate=None):
+                if split is not None:
+                    state = state._replace(params=split.whole(state.params))
+                state, m = step(state, batches, pr, draws, update_gate,
+                                clients=clients, data_mean=data_mean)
+                if split is not None:
+                    state = state._replace(params=split.split(state.params))
+                return state, m
+
+            if split is not None:
+                state = state._replace(params=split.split(state.params))
+                whole = split.whole
 
         def round_inputs(state):
             if draws is None:
@@ -905,11 +1077,29 @@ def _build_population_run(fl: FLConfig, rounds: int, eval_every: int,
                 [lane[r] for lane in draws])
 
         state, cum_time, trace = _round_loop(
-            fl, spec, step, state, pr, rounds, eval_every, pop.test_x,
-            pop.test_y, round_inputs, k_cap=k_max)
-        return state.params, cum_time, trace
+            fl, spec, run_step, state, pr, rounds, eval_every, pop.test_x,
+            pop.test_y, round_inputs, k_cap=k_max, clients=clients,
+            full_params=whole)
+        return (state.params if whole is None else whole(state.params),
+                cum_time, trace)
 
     return pop_run
+
+
+def _local_population(pop: Population, mesh) -> Population:
+    """This rank's share of a device population on a ``(lane, client)``
+    mesh, placed by ``population_shardings``: its rows of the per-client
+    arrays, the pool and the test set whole."""
+    from repro_torch.models.shardctx import local_box
+    from repro_torch.models.sharding import population_shardings
+    placements = population_shardings(mesh, pop)
+
+    def mine(name):
+        t = getattr(pop, name)
+        shape, offset = local_box(t.shape, mesh, getattr(placements, name))
+        return t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+    return dataclasses.replace(pop, **{k: mine(k) for k in Population._ARRAYS})
 
 
 def run_fl_population(
@@ -926,6 +1116,7 @@ def run_fl_population(
     shard: bool = True,
     sel_chunks: Optional[int] = None,
     memory_budget_bytes: Optional[int] = None,
+    model_replicated_max_bytes: Optional[int] = None,
     *,
     device=None,
     init_states: Optional[Sequence[rounds_lib.RoundState]] = None,
@@ -940,12 +1131,29 @@ def run_fl_population(
 
     ``sel_chunks`` splits the cohort top-k (bitwise-neutral); with
     ``memory_budget_bytes`` and no ``sel_chunks`` it comes from
-    ``core/scale.auto_chunks``.  The port runs on one card: a
-    ``mesh_shape`` of more than one device raises and ``shard`` has nothing
-    to shard.  ``init_states``/``draws``: one entry a lane (see
-    :func:`_build_population_run`).  The runner is cached on (statics,
-    rounds, cadence, lanes, population shapes, ``sel_chunks``, device) in
-    the sweep engine's cache under a "pop" tag.
+    ``core/scale.auto_chunks``.  ``init_states``/``draws``: one entry a
+    lane (see :func:`_build_population_run`).  The runner is cached on
+    (statics, rounds, cadence, lanes, population shapes, ``sel_chunks``,
+    device, the mesh layout and the model-sharding choice) in the sweep
+    engine's cache under a "pop" tag.
+
+    The lane × client mesh (``launch/mesh.py`` ``make_scale_mesh`` over
+    the default process group's ranks, every rank calling with the same
+    arguments; ``mesh_shape`` pins ``(lane, client)``, whose product is the
+    group's size): lanes split over ``lane`` as in the sweep engine
+    (:class:`_LaneSplit`), and the population's per-client arrays and the
+    lanes' ``[L, N]`` utility and fault state over ``client``
+    (``population_shardings``; ``core/rounds.py`` ``ClientShard``: the
+    cohort's top-k in two stages, its rows read from their owners, results
+    written back on them).  A client axis that does not divide N
+    replicates instead, as the reference's does.  ``shard=False``, one
+    rank or no group: the unsharded engine.  The model-sharding hook: a
+    detector whose ``param_bytes()`` passes ``model_replicated_max_bytes``
+    (default ``core/scale.MODEL_REPLICATED_MAX_BYTES``) and that declares
+    ``ModelSpec.param_axes`` keeps its wide leaves split over a client
+    axis of more than one rank (``RULES_MODEL_SCALE``,
+    :class:`_ModelSplit`), gathered whole for each round's replicated
+    math.
 
     ``fedl2p`` is refused: its personalisation pass is O(N) host work."""
     device = resolve_device(device)
@@ -959,10 +1167,6 @@ def run_fl_population(
         raise ValueError(
             "run_fl_population needs an explicit positive FLConfig.k_max "
             "(the static cohort size gathered per round)")
-    if mesh_shape is not None and math.prod(mesh_shape) > 1:
-        raise ValueError(
-            f"run_fl_population runs on one device; mesh_shape {mesh_shape} "
-            f"asks for {math.prod(mesh_shape)}")
     rounds = int(rounds or fl.rounds)
     seeds = [int(s) for s in seeds]
     cells = _sweep_cells(fl, [fl] if params_grid is None else params_grid,
@@ -971,28 +1175,79 @@ def run_fl_population(
         return []
     n_lanes = len(cells) * len(seeds)
     meta = meta_for(pop, hidden=hidden)
+    spec = get_model_spec(fl.model, meta)
+    model_bytes = spec.param_bytes()
     if sel_chunks is None:
         sel_chunks = 1 if memory_budget_bytes is None else \
             scale_lib.auto_chunks(
                 pop.n_clients, int(memory_budget_bytes),
-                pop.members_per_client, n_lanes,
-                model_bytes=get_model_spec(fl.model, meta).param_bytes())
+                pop.members_per_client, n_lanes, model_bytes=model_bytes)
+    mesh = _scale_mesh(n_lanes, mesh_shape, device) if shard else None
+    n_client_ranks = 1 if mesh is None else mesh["client"].size()
+    split_clients = n_client_ranks > 1 and pop.n_clients % n_client_ranks == 0
+    model_split = (split_clients and spec.param_axes is not None
+                   and scale_lib.model_needs_sharding(
+                       model_bytes, model_replicated_max_bytes))
+    layout = None if mesh is None else (
+        tuple(zip(mesh.mesh_dim_names, mesh.shape)), split_clients,
+        model_split)
 
     def prepare():
         pop_dev = pop.to(device)
+        lanes = params_lanes(cells, len(seeds), device)
+        lane_seeds, states, lane_draws = seeds * len(cells), init_states, draws
+        split = clients = None
+        if mesh is not None:
+            split = _LaneSplit.over(mesh, n_lanes)
+            lane_seeds, states, lane_draws = (
+                split.take(lane_seeds), split.take(states),
+                split.take(lane_draws))
+            lanes = split.take_lanes(lanes)
+        if split_clients:
+            clients = rounds_lib.ClientShard(mesh["client"], pop.n_clients)
+            local = _local_population(pop_dev, mesh)
+        n_run = len(lane_seeds)
         runner = _cached_runner(
-            ("pop", fl_static(fl), rounds, eval_every, meta, n_lanes,
-             pop.shapes(), int(sel_chunks), str(device)),
+            ("pop", fl_static(fl), rounds, eval_every, meta, n_run,
+             pop.shapes(), int(sel_chunks), str(device), layout),
             lambda: _build_population_run(fl_static(fl), rounds, eval_every,
                                           meta, pop.n_clients,
                                           int(sel_chunks), device),
-            "population", fl.model, rounds, n_lanes)
-        lanes = params_lanes(cells, len(seeds), device)
-        return lambda: runner(seeds * len(cells), pop_dev, lanes,
-                              init_states=init_states, draws=draws)
+            "population", fl.model, rounds, n_run)
+
+        def execute():
+            if clients is not None and states is None:
+                # each lane's whole state, then this rank keeps its columns
+                states_ = _init_lanes(spec, fl, lane_seeds, pop.n_clients,
+                                      pop_dev.data_size,
+                                      pop_dev.data_quality, device)
+            else:
+                states_ = states
+            out = runner(lane_seeds, pop_dev if clients is None else local,
+                         lanes, init_states=states_, draws=lane_draws,
+                         clients=clients, model_split=model_split)
+            return out if split is None else split.gather(out)
+
+        return execute
 
     _, sim_np, trace_np, wall = _run_lanes(
         "population", prepare, method=method, n_lanes=n_lanes,
         n_cells=len(cells), rounds=rounds, n_clients=pop.n_clients)
     return _lane_results(cells, seeds, method, dataset, rounds, eval_every,
                          sim_np, trace_np, wall / n_lanes)
+
+
+def _scale_mesh(n_lanes: int, mesh_shape, device: torch.device):
+    """The population engine's ``(lane, client)`` mesh over the default
+    process group, or ``None`` (no group or one rank, without a pinned
+    shape of more): ``launch/mesh.py`` ``make_scale_mesh``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_scale_mesh
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if mesh_shape is not None and math.prod(mesh_shape) != world:
+        raise ValueError(
+            f"mesh_shape {tuple(mesh_shape)} asks for "
+            f"{math.prod(mesh_shape)} ranks; the process group has {world}")
+    return make_scale_mesh(n_lanes, shape=mesh_shape,
+                           device_type=device.type)

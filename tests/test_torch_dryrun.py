@@ -6,8 +6,9 @@ local shard sizes of the reference's own specs (``param_shardings``,
 devices in a subprocess); the counter gives exact bytes and flops on a
 known program (the FSDP all-gather of a product, and the all-reduce of a
 row-parallel one); a bundle runs once under the counter; a production pair
-writes its JSON; the ``client_parallel`` train pairs are reported as
-waiting, not as failures.
+writes its JSON; a ``client_parallel`` train pair (clients over the
+data ranks) runs once under the counter; every one of the 80 (pair ×
+mesh) bundles is listed to build, none waits.
 """
 import dataclasses
 import json
@@ -243,19 +244,61 @@ def test_run_one_writes_the_reference_keys(tmp_path):
     assert set(saved["collectives"]["counts"]) == set(dryrun.COLLECTIVES)
 
 
-def test_client_parallel_train_pairs_wait(tmp_path, capsys):
-    """Exactly the train pairs of the five architectures whose plan is
-    ``client_parallel`` wait for the next slice, on both meshes; the CLI
-    lists them as waiting and builds nothing for them."""
-    waiting = {(a, s) for a in ARCH_IDS for s in INPUT_SHAPES
-               if dryrun.waiting_reason(a, s) is not None}
-    assert waiting == {(a, "train_4k") for a in (
+def test_client_parallel_train_pair_runs_once_under_the_counter(pod_mesh):
+    """A mini dry-run of granite's ``train_4k`` pair at the smoke config on
+    the fake (2, 2, 2) group: the client_parallel bundle has the
+    reference's meta (one client a (pod, data) rank, 8 // 4 sequences
+    each, grad_accum 1), its batches split over (pod, data) and its params
+    never over them; one round runs on the local shards with flops, the
+    model's collectives over ``model`` and the FedAvg and norm all-reduces
+    over the client axes."""
+    from torch.distributed.tensor import Shard
+    cfg = get_arch("granite_3_8b", smoke=True)
+    shape = _smoke_shape("train_4k")
+    b = t_steps.build_step(cfg, shape, MeshConfig(multi_pod=True), pod_mesh)
+    assert b.meta["plan"] == t_steps.choose_plan(cfg) == "client_parallel"
+    assert b.meta["n_clients"] == b.meta["clients_in_step"] == 4
+    assert b.meta["per_client_batch"] == SMOKE_BATCH // 4
+    assert b.meta["grad_accum"] == 1 and b.meta["scan"]["clients_scan"] == 1
+    assert b.meta["tokens_per_step"] == 4 * 1 * 2 * SMOKE_SEQ
+    for pl in b.in_shardings[1].values():
+        assert pl[:2] == (Shard(0), Shard(0)) and not pl[2].is_shard()
+    for pl in _leaves(b.in_shardings[0]):
+        assert not pl[0].is_shard() and not pl[1].is_shard()
+    m = dryrun.measure(b, pod_mesh, "train")
+    want = sum(_local_bytes(s, sh, pod_mesh) for s, sh in
+               zip(b.in_specs, b.in_shardings) if sh is not None)
+    assert m["memory"]["argument_bytes"] >= want
+    assert m["memory"]["peak_bytes"] > m["memory"]["argument_bytes"]
+    assert m["cost"]["flops"] > 0
+    assert m["collectives"]["counts"]["all-reduce"] >= 2
+    assert m["collectives"]["counts"]["all-gather"] > 0
+
+
+def test_every_pair_builds_none_waits(monkeypatch, capsys):
+    """The waiting state is gone: ``--all --mesh both`` hands all 80 (pair
+    × mesh) bundles to ``run_one`` (here a stub that records them), the
+    train pairs of the five architectures under 10 B on the
+    client_parallel plan among them, and reports none waiting."""
+    assert not hasattr(dryrun, "waiting_reason")
+    ran = []
+
+    def stub(arch, shape, mk, **_):
+        ran.append((arch, shape, mk))
+        return {"arch": arch, "shape": shape, "mesh": mk, "run_s": 0.0,
+                "cost": {"flops": 0.0}, "fits_h100_80gb": True,
+                "memory": {"argument_bytes": 0, "peak_bytes": 0},
+                "collectives": {"total": 0}}
+
+    monkeypatch.setattr(dryrun, "run_one", stub)
+    dryrun.main(["--all", "--mesh", "both"])
+    out = capsys.readouterr().out
+    assert len(set(ran)) == len(ran) == 2 * len(ARCH_IDS) * len(
+        INPUT_SHAPES) == 80
+    assert "80 built, 0 failed" in out and "wait" not in out
+    parallel = {(a, s) for a, s, _ in ran if s == "train_4k"
+                and t_steps.choose_plan(get_arch(a)) == "client_parallel"}
+    assert parallel == {(a, "train_4k") for a in (
         "recurrentgemma_9b", "mamba2_130m", "seamless_m4t_large_v2",
         "granite_3_8b", "phi3_mini_3p8b")}
-    dryrun.main(["--arch", "granite_3_8b", "--shape", "train_4k", "--mesh",
-                 "both", "--out-dir", str(tmp_path)])
-    out = capsys.readouterr().out
-    assert out.count("[wait]") == 2 and "[FAIL]" not in out
-    assert "0 built, 2 waiting" in out
-    assert not list(tmp_path.iterdir())
     assert get_shape("train_4k").mode == "train"

@@ -472,14 +472,14 @@ def test_population_scheduled_privacy():
 def test_run_fl_population_refusals(pops, case):
     """The reference's refusals with its messages: fedl2p, the dense
     ``k_max = 0``, a strategy with no score function and a plan the
-    registry marks ``cohort_capable=False``; and a multi-device layout,
-    which the one-card port refuses."""
+    registry marks ``cohort_capable=False``; and a mesh layout of more
+    ranks than the process group has (here none: one rank)."""
     jpop, tpop = pops
     host = t_syn.make_population(0, n_clients=N, pool_samples=POOL,
                                  members_per_client=MEMBERS)
     kw, cfg = dict(rounds=1, eval_every=1), dict(BASE)
     if case == "mesh":
-        with pytest.raises(ValueError, match="one device"):
+        with pytest.raises(ValueError, match="asks for 4 ranks"):
             t_fl_driver.run_fl_population(host, FLConfig(**cfg),
                                           mesh_shape=(2, 2), device="cpu",
                                           **kw)

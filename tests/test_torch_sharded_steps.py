@@ -15,10 +15,14 @@ train bundle on the granite smoke config with clipped DP on the
 reference's draws (``reference_serial_draws``) and ``grad_accum`` 2, and
 without DP on granite and phi3.5-moe (the grads of the router's and the
 experts' ``local_map``s, and of the vocab-split embedding); the
-DP norm of a tree with leaves replicated over ``model`` and over the
-whole mesh.  Bar: within 1e-5 of the unsharded value's max|x| (a
-sharded product sums its partial products in another order); masks and
-failures equal.
+``client_parallel`` train bundle (one client a data rank, each trained on
+its ``model`` sub-mesh, FedAvg one all-reduce over ``data``) on granite
+(and at ``grad_accum`` 2), mamba2, seamless (its ``frontend``) and
+phi3.5-moe, with clipped DP and coherence scoring on, on the reference's
+draws, against the unsharded LM ``make_parallel_round``; the DP norm of a
+tree with leaves replicated over ``model`` and over the whole mesh.  Bar:
+within 1e-5 of the unsharded value's max|x| (a sharded product sums its
+partial products in another order); masks and failures equal.
 """
 import dataclasses
 import os
@@ -48,6 +52,12 @@ GRAD_ACCUM, N_CLIENTS = 2, 40
 # grad cannot hide under the noise), on a dense and a MoE config
 TRAIN_CASES = (("granite_3_8b", True), ("granite_3_8b", False),
                ("phi3p5_moe_42b", False))
+# (arch, grad_accum) of the client_parallel bundle: two clients, one a
+# data rank, with the make_fl_config settings (clipped DP; coherence on,
+# as every smoke config is under 1e9 params)
+PARALLEL_CASES = (("granite_3_8b", 1), ("granite_3_8b", 2),
+                  ("mamba2_130m", 1), ("seamless_m4t_large_v2", 1),
+                  ("phi3p5_moe_42b", 1))
 WORLD = 4
 TOL = 1e-5
 
@@ -213,6 +223,21 @@ def _worker(rank: int, init: str, inputs: str, out: str) -> None:
             draws=saved[f"{arch}/{dp}/draws"])
         res[f"train/{arch}/{dp}/params"] = _tree_full(new.params)
         res[f"train/{arch}/{dp}/metrics"] = metrics
+    for arch, ga in PARALLEL_CASES:
+        cfg = _cfg(arch)
+        bt = _parallel_bundle(cfg, mesh, ga)
+        fl = bt.meta["fl"]
+        assert bt.meta["n_clients"] == 2 and bt.meta["per_client_batch"] == 2
+        params = build(cfg).init(0, device="cpu")
+        state = t_rounds.init_serial_state(
+            t_steps.place(params, bt.in_shardings[0], mesh), fl,
+            torch.Generator().manual_seed(5), n_clients=fl.n_clients)
+        new, metrics = bt.fn(state, t_steps.place(
+            saved[f"parallel/{arch}/batches"], bt.in_shardings[1], mesh),
+            draws=saved[f"parallel/{arch}/draws"])
+        res[f"parallel/{arch}/{ga}/params"] = _tree_full(new.params)
+        res[f"parallel/{arch}/{ga}/metrics"] = metrics
+        res[f"parallel/{arch}/{ga}/util"] = new.util
     res["norm"] = _norm_case(mesh)
     if rank == 0:
         torch.save(res, out)
@@ -228,6 +253,29 @@ def _worker(rank: int, init: str, inputs: str, out: str) -> None:
 def _train_fl(cfg, dp: bool):
     fl = t_steps.make_fl_config(cfg, "client_serial", N_CLIENTS)
     return dataclasses.replace(fl, dp_enabled=dp)
+
+
+def _parallel_bundle(cfg, mesh, grad_accum):
+    return t_steps.build_train_step(cfg, ShapeConfig("t", S, B, "train"),
+                                    MeshConfig(), mesh,
+                                    grad_accum=grad_accum)
+
+
+def _parallel_setup(saved):
+    """Each client_parallel case's batches ``[2, 1, B/2, ...]`` (the
+    frontend too) and the reference's draws for two clients."""
+    import jax
+    from test_torch_parity import reference_draws
+    for arch in sorted({a for a, _ in PARALLEL_CASES}):
+        cfg = _cfg(arch)
+        assert t_steps.choose_plan(cfg) == "client_parallel"
+        specs = build(cfg).input_specs(ShapeConfig("t", S, B // 2, "train"))
+        saved[f"parallel/{arch}/batches"] = _inputs(arch, {
+            k: torch.empty((2, 1) + tuple(v.shape), dtype=v.dtype,
+                           device="meta") for k, v in specs.items()}, 4)
+        shapes = [tuple(t.shape) for t in _leaves(build(cfg).param_shapes())]
+        saved[f"parallel/{arch}/draws"], _ = reference_draws(
+            jax.random.key(6), 2, 1, shapes)
 
 
 def _train_setup():
@@ -256,6 +304,7 @@ def _train_setup():
                                           shapes)
         saved[f"{arch}/batches"] = batches
         saved[f"{arch}/{dp}/draws"] = draws
+    _parallel_setup(saved)
     return saved
 
 
@@ -371,14 +420,44 @@ def test_replicated_leaves_count_once_in_the_dp_norm(sharded):
     _close(dp_norm, want)
 
 
-def test_client_parallel_train_bundle_raises():
-    """The plans that lay clients across the data ranks wait for the next
-    slice: their bundle raises, never a serial round in its place."""
-    cfg = get_arch("granite_3_8b")
-    assert t_steps.choose_plan(cfg) == "client_parallel"
-    with pytest.raises(NotImplementedError, match="client_parallel"):
-        t_steps.build_train_step(cfg, ShapeConfig("t", S, B, "train"),
-                                 MeshConfig(), None)
+@pytest.mark.parametrize("arch,grad_accum", PARALLEL_CASES)
+def test_parallel_train_bundle_matches_unsharded(sharded, arch, grad_accum):
+    """One round of the client_parallel bundle on the (2, 2) mesh against
+    the unsharded LM ``make_parallel_round`` on the same draws: the
+    selection mask and failures equal; the clients' losses and norms, the
+    utility state (coherence included) and every leaf's update within 1e-5
+    of the largest."""
+    res, saved = sharded
+    cfg = _cfg(arch)
+    fl = t_steps.make_fl_config(cfg, "client_parallel", 2)
+    model = build(cfg)
+    params = model.init(0, device="cpu")
+    state = t_rounds.init_serial_state(
+        params, fl, torch.Generator().manual_seed(5), n_clients=fl.n_clients)
+    step = t_rounds.make_parallel_round(
+        lambda p, b: model.loss(p, b, remat="full"), fl, fl.n_clients,
+        device="cpu", grad_accum=grad_accum, lm=True)
+    new, metrics = step(state, saved[f"parallel/{arch}/batches"],
+                        draws=saved[f"parallel/{arch}/draws"])
+    key = f"parallel/{arch}/{grad_accum}"
+    got = res[f"{key}/metrics"]
+    assert torch.equal(got.sel_mask, metrics.sel_mask)
+    assert torch.equal(got.failed, metrics.failed)
+    assert metrics.sel_mask.sum() > 0
+    for name in ("update_norms", "pre_loss", "post_loss", "global_loss"):
+        _close(getattr(got, name), getattr(metrics, name))
+    for name, g, w in zip(new.util._fields, res[f"{key}/util"], new.util):
+        _close(g, w)
+    assert fl.coherence_scoring and float(new.util.coherence.abs().max()) > 0
+    old = _leaves(params)
+    want = [w.double() - o.double() for w, o in zip(_leaves(new.params), old)]
+    scale = max(d.abs().max().item() for d in want)
+    assert scale > 0
+    for g, w, o in zip(_leaves(res[f"{key}/params"]), want, old):
+        ulp = 2.0 ** -23 * o.abs().max().item()
+        err = (g.double() - o.double() - w).abs().max().item()
+        assert err <= TOL * scale + ulp, \
+            f"update off by {err:.3e} of {scale:.3e} (ulp {ulp:.1e})"
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

@@ -676,12 +676,14 @@ def phase_timing(torch, dpk, ref, errs, launches):
 
 def profile_summary(events, span_names):
     """From ``torch.profiler`` events: the device-side events (kernels and
-    copies; the ``record_function`` spans also show up on the device
-    timeline, as annotations, and are left out), their busy ms, the host
-    ms of each span, and (calls, device ms) per kernel name."""
+    copies; the ``record_function`` spans, the program's device phases
+    among them, also show up on the device timeline, as annotations, and
+    are left out), their busy ms, the host ms of each span, and (calls,
+    device ms) per kernel name."""
     from torch.autograd import DeviceType
     device = [e for e in events
-              if e.device_type == DeviceType.CUDA and e.name not in span_names]
+              if e.device_type == DeviceType.CUDA and e.name not in span_names
+              and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.device_time_total for e in device) / 1e3
     spans = {}
     for e in events:

@@ -59,7 +59,6 @@ import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.configs.base import FLConfig, FLParams, as_f32, fl_params
 from repro_torch.core import aggregation as agg
@@ -70,6 +69,7 @@ from repro_torch.data.synthetic import Population, sample_cohort_batches
 from repro_torch.device import resolve_device
 from repro_torch.fault import process as fault_proc
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.trace import phase
 from repro_torch.optim.optimizers import (AdamState, make_server_optimizer,
                                           make_tree_server_optimizer,
                                           tree_sgd)
@@ -347,7 +347,7 @@ def _async_mask(contrib_mask, slow, compute, col: FLParams, code):
     (1+s)^-pow.  Arrival order comes from the failure processes' slow
     factors and the compute capacities, not from new draws; on lanes of
     another code the weight is exactly 1.0.  Over ``[..., n]``."""
-    with record_function("async_buffer"):
+    with phase("async_buffer"):
         arrive = fault_proc.arrival_score(slow, compute)
         arrive = torch.where(contrib_mask > 0, arrive,
                              torch.full_like(arrive, math.inf))
@@ -421,9 +421,9 @@ def _select_and_fail(strategy, fl: FLConfig, state: RoundState, draws,
     avail = (draws.avail_u < as_f32(col.avail_prob, draws.avail_u)).float()
 
     # ---- ComputeUtility + SelectTopK (line 4) ----
-    # record_function spans name the reference's jax.named_scope phases
-    # in a torch.profiler trace; outside a trace they cost ~1 us each
-    with record_function("selection"):
+    # phases name the reference's jax.named_scope phases in a
+    # torch.profiler trace; outside a trace nothing is entered
+    with phase("selection"):
         utility = sel_lib.compute_utility(state.util, fl,
                                           fault_w=col.fault_util_w)
         k_eff = (state.kctl.k if fl.adaptive_k
@@ -487,12 +487,12 @@ def _train_and_release(local_train: Callable, fl: FLConfig, pr: FLParams,
     release gate."""
     lanes, n_params = flat_params.shape
     m = eff_steps.shape[-1]
-    with record_function("local_train"):
+    with phase("local_train"):
         deltas, pre_loss, post_loss = local_train(state.params, batches,
                                                   eff_steps, pr.local_lr)
 
     # ---- DP: noise on updates, not on scores (lines 8-9) ----
-    with record_function("dp_privatize"):
+    with phase("dp_privatize"):
         if fl.dp_enabled:
             rows, norms = dp_lib.privatize_rows(
                 deltas.reshape(lanes * m, n_params),
@@ -508,7 +508,7 @@ def _train_and_release(local_train: Callable, fl: FLConfig, pr: FLParams,
     contrib = sel * (eff_steps > 0)
 
     # ---- aggregation + server update (line 18) ----
-    with record_function("aggregate"):
+    with phase("aggregate"):
         agg_delta = aggregate(deltas, contrib)
         new_flat, new_server_state = agg.apply_server_update(
             server, flat_params, state.server_opt_state, agg_delta)
@@ -591,7 +591,7 @@ def make_lane_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
             if 2.0 not in codes:
                 return flat
             # hierarchical (code 2): edge FedAvg, then the cloud's mean
-            with record_function("hier_aggregate"):
+            with phase("hier_aggregate"):
                 hier = _hier_aggregate(
                     deltas, agg_mask * state.util.data_size, n_edges)
             return torch.where(code == 2.0, hier, flat)
@@ -834,7 +834,7 @@ class ClientShard(_AllClients):
                             vals)[..., :self.n_local]
 
     def topk(self, scores, avail, k_eff, k_max: int, chunks: int):
-        with record_function("cohort_topk"):
+        with phase("cohort_topk"):
             masked = torch.where(avail > 0, scores,
                                  torch.full_like(scores, sel_lib.F32_MIN))
             v, i = sel_lib._topk_stable(masked, min(k_max, self.n_local))
@@ -918,7 +918,7 @@ def make_cohort_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                     {"part_max": own.amax(state.util.participation)})
 
         # ---- O(N) population vector phase ----
-        with record_function("selection"):
+        with phase("selection"):
             avail = (own.cols(draws.avail_u) < as_f32(
                 col.avail_prob, draws.avail_u)).float()
             utility = sel_lib.compute_utility(state.util, fl,
@@ -1065,7 +1065,9 @@ def _local_train_tree_fn(loss_fn: Callable, grad_accum: int = 1):
     update as one flat ``[P]`` buffer in leaf order, the row the DP kernel
     reads (:func:`unflatten_rows` gives its tree of views), written into
     ``out`` where given.  With a :class:`_ShardLayout` (DTensor params)
-    the row is the rank's local one, in the layout's order."""
+    the row is the rank's local one, in the layout's order.  Device
+    phases: ``local.sgd`` (each step's update and its landing) and
+    ``local.update_row`` (the row)."""
     vag = microbatched_value_and_grad(loss_fn, grad_accum)
 
     def local_train(global_params, step_batches, effective_steps, lr,
@@ -1075,25 +1077,28 @@ def _local_train_tree_fn(loss_fn: Callable, grad_accum: int = 1):
         losses = []
         for s in range(tree_leaves(step_batches)[0].shape[0]):
             loss, grads = vag(p, tree_map(lambda v: v[s], step_batches))
-            new_p, _ = opt.update(grads, (), p)
-            del grads
-            live = s < effective_steps
-            p = tree_map(lambda a, b: torch.where(live, b, a), p, new_p)
-            del new_p
+            with phase("local.sgd"):
+                new_p, _ = opt.update(grads, (), p)
+                del grads
+                live = s < effective_steps
+                p = tree_map(lambda a, b: torch.where(live, b, a), p, new_p)
+                del new_p
             losses.append(loss)
         if layout is not None:
-            flat = layout.row() if out is None else out
-            for d, a, b in zip(layout.views(flat), tree_leaves(p),
-                               tree_leaves(global_params)):
-                d.copy_(_placed_like(a, b).to_local()).sub_(b.to_local())
+            with phase("local.update_row"):
+                flat = layout.row() if out is None else out
+                for d, a, b in zip(layout.views(flat), tree_leaves(p),
+                                   tree_leaves(global_params)):
+                    d.copy_(_placed_like(a, b).to_local()).sub_(b.to_local())
             return flat, _plain(losses[0]), _plain(losses[-1])
         leaves = tree_leaves(global_params)
-        flat = out if out is not None else torch.empty(
-            sum(t.numel() for t in leaves), device=leaves[0].device)
-        # f32 copy, then the f32 subtraction: a.f32 − b.f32 with no f32
-        # temporaries of the tree
-        tree_map(lambda d, a, b: d.copy_(a).sub_(b),
-                 unflatten_rows(flat, global_params), p, global_params)
+        with phase("local.update_row"):
+            flat = out if out is not None else torch.empty(
+                sum(t.numel() for t in leaves), device=leaves[0].device)
+            # f32 copy, then the f32 subtraction: a.f32 − b.f32 with no
+            # f32 temporaries of the tree
+            tree_map(lambda d, a, b: d.copy_(a).sub_(b),
+                     unflatten_rows(flat, global_params), p, global_params)
         return flat, losses[0], losses[-1]
 
     return local_train
@@ -1366,7 +1371,7 @@ def make_serial_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
             draws = draw_serial_round(state.rng, n_clients, slots,
                                       local_steps, fl.selection)
 
-        with record_function("selection"):
+        with phase("selection"):
             avail = (draws.avail_u < as_f32(pr.avail_prob,
                                             draws.avail_u)).float()
             utility = sel_lib.compute_utility(state.util, fl,
@@ -1394,11 +1399,15 @@ def make_serial_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                                       for _ in range(3))
         noise = noise_buf = None
         for slot in range(slots):
-            with record_function("local_train"):
+            with phase("local_train"):
                 flat, pre, post = local_train(
                     state.params, tree_map(lambda v: v[slot], batches),
                     eff_steps[slot], pr.local_lr, layout)
-            with record_function("dp_privatize"):
+                # a phase's device interval runs from its first to its
+                # last kernel outside the phases nested in it: these
+                # stores end ``local_train`` just after ``local.update_row``
+                pre_loss[slot], post_loss[slot] = pre, post
+            with phase("dp_privatize"):
                 if fl.dp_enabled:
                     if noise_buf is None and (layout is not None
                                               or draws.dp_noise is None):
@@ -1432,14 +1441,14 @@ def make_serial_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
                 else:
                     delta = unflatten_rows(flat, state.params)
                     norm = dp_lib.global_norm(delta)
-            with record_function("aggregate"):
+            with phase("aggregate"):
                 m = slot_live[slot] * (eff_steps[slot] > 0)
                 acc = agg.stream_accumulate(acc, delta, m, 1.0)
             del flat, delta
-            pre_loss[slot], post_loss[slot], norms[slot] = pre, post, norm
+            norms[slot] = norm
         del noise, noise_buf
 
-        with record_function("aggregate"):
+        with phase("aggregate"):
             agg_delta = agg.stream_finalize(acc)
             del acc
             new_params, new_server_state = agg.apply_server_update_tree(
@@ -1680,7 +1689,7 @@ def _tree_agg_weights(fl: FLConfig, codes, pr: FLParams, contrib, slow,
     a = (agg_mask * util.data_size).float()
     d = torch.clamp(torch.sum(a), min=1e-9)
     if 2.0 in codes:
-        with record_function("hier_aggregate"):
+        with phase("hier_aggregate"):
             edge_w, edge_live, d_h = (t[0] for t in _edge_weights(a[None],
                                                                   n_edges))
             per_client = torch.arange(a.shape[0], device=a.device) % n_edges
@@ -1763,20 +1772,20 @@ def _make_tree_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
         # ---- local training, one client after another (line 5) ----
         deltas = torch.empty(place.n_local, place.row_len,
                              device=place.device)
-        pre, post = [], []
+        pre = torch.empty(place.n_local, device=place.device)
+        post = torch.empty_like(pre)
         for j in range(place.n_local):
-            with record_function("local_train"):
+            with phase("local_train"):
                 _, p0, p1 = local_train(
                     place.train_params, place.client_batch(batches, j),
                     eff_steps[place.first + j], pr.local_lr, place.layout,
                     out=deltas[j])
-            pre.append(p0)
-            post.append(p1)
-        pre_loss = place.gather(torch.stack(pre).float())
-        post_loss = place.gather(torch.stack(post).float())
+                # stored inside ``local_train``, as the serial round's
+                pre[j], post[j] = p0, p1
+        pre_loss, post_loss = place.gather(pre), place.gather(post)
 
         # ---- DP: noise on updates, not on scores (lines 8-9) ----
-        with record_function("dp_privatize"):
+        with phase("dp_privatize"):
             if fl.dp_enabled:
                 noise = place.noise(draws.dp_noise, state.rng,
                                     state.round_idx, deltas)
@@ -1791,7 +1800,7 @@ def _make_tree_round(loss_fn: Callable, fl: FLConfig, n_clients: int,
         contrib = picked.sel_mask * (eff_steps > 0)
 
         # ---- aggregation + server update (line 18) ----
-        with record_function("aggregate"):
+        with phase("aggregate"):
             a, d = _tree_agg_weights(fl, codes, pr, contrib, picked.slow,
                                      state.util, n_edges)
             acc = torch.zeros(place.row_len, device=place.device)

@@ -23,9 +23,9 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.configs.base import FLConfig
+from repro_torch.obs.trace import phase
 
 F32_MIN = torch.finfo(torch.float32).min
 
@@ -252,7 +252,7 @@ def cohort_topk(scores: torch.Tensor, avail: torch.Tensor, k_eff, k_max: int,
     them; the candidates stand chunk-major, then index-major, which is
     global index order among equal values, so the merge is bitwise the
     unchunked draw."""
-    with record_function("cohort_topk"):
+    with phase("cohort_topk"):
         masked = torch.where(avail > 0, scores,
                              torch.full_like(scores, F32_MIN))
         lead, n = masked.shape[:-1], masked.shape[-1]

@@ -34,7 +34,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from repro_torch.obs.trace import phase
 
 UNSW_N_FEATURES = 42
 UNSW_N_CLASSES = 10
@@ -609,7 +610,7 @@ def sample_cohort_batches(pop: Population, cohort_idx: torch.Tensor,
     population engine's client shards read them from their owners)."""
     if member_rows is None:
         member_rows = _index_rows
-    with record_function("sample_cohort_batches"):
+    with phase("sample_cohort_batches"):
         lanes, k = cohort_idx.shape
         mem = member_rows(pop.member_idx, cohort_idx.reshape(-1))
         if batch_idx is None:

@@ -19,6 +19,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_mrope, apply_rope, dense, init_dense
 from repro_torch.models.shardctx import is_dtensor, local_box
+from repro_torch.obs.trace import phase_call
 
 NEG_INF = -1e30
 
@@ -179,7 +180,9 @@ def causal_mask(s: int, window: Optional[int] = None,
 def attention(params, x, positions, cfg, *, window: Optional[int] = None,
               impl: str = "ref") -> torch.Tensor:
     """Full-sequence (prefill) self-attention.  x: [B,S,d]; positions:
-    [B,S] (or [B,S,3] for M-RoPE).  Returns [B,S,d]."""
+    [B,S] (or [B,S,3] for M-RoPE).  Returns [B,S,d].  The attend (the
+    mask, the f32 scores, softmax and values, or the kernel) is the
+    device phase ``block.attend``, forward and ``.bwd``."""
     if impl not in ("ref", "flash"):
         raise ValueError(f"attention impl {impl!r}: 'ref' or 'flash'")
     hd = cfg.resolved_head_dim
@@ -187,10 +190,13 @@ def attention(params, x, positions, cfg, *, window: Optional[int] = None,
     k = _split_heads(dense(params["wk"], x), cfg.n_kv_heads, hd)
     v = _split_heads(dense(params["wv"], x), cfg.n_kv_heads, hd)
     q, k = _rope(q, k, positions, cfg)
-    if impl == "flash":
-        out = kops.flash_attention(q, k, v, causal=True, window=window)
-    else:
-        out = _sdpa(q, k, v, causal_mask(x.shape[1], window, x.device))
+
+    def attend(q, k, v):
+        if impl == "flash":
+            return kops.flash_attention(q, k, v, causal=True, window=window)
+        return _sdpa(q, k, v, causal_mask(q.shape[1], window, q.device))
+
+    out = phase_call("block.attend", attend, q, k, v)
     return dense(params["wo"], out.reshape(out.shape[:2] + (-1,)))
 
 

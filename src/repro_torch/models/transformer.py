@@ -50,6 +50,7 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.shardctx import active as sharded, constrain, unshard
 from repro_torch.models.sharding import (ParamMeta, add_axis, map_meta, pm,
                                          split_meta)
+from repro_torch.obs.trace import phase_call
 
 VOCAB_PAD_TO = 256
 NEG_INF = attn_lib.NEG_INF
@@ -107,7 +108,10 @@ def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
     else 0.  In decode ``cache`` is written in place
     (``attention.decode_attention``, ``rglru_decode_step``,
     ``ssd_decode_step``); the stack keeps no prefill cache, as the
-    reference's drops it."""
+    reference's drops it.  Device phases (``obs.phase_call``, forward and
+    ``.bwd``): ``block.attention`` (``ln1`` to the output projection) of
+    the ``attn`` and ``moe`` blocks in train and prefill, ``block.mlp``
+    (``ln2`` and the dense MLP); the residual adds stay outside."""
     _check_kind(kind)
     new_cache = cache
     if kind == "ssd":
@@ -118,27 +122,33 @@ def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
         else:
             s, _ = ssm_lib.ssd_block(params["ssd"], h, cfg)
         return _act(x + s), new_cache, 0.0
-    h = L.rmsnorm(params["ln1"], x, cfg.norm_eps)
+
+    def ln1(y):
+        return L.rmsnorm(params["ln1"], y, cfg.norm_eps)
+
     if kind == "rec":
         if mode == "decode":
-            a, new_cache = rglru_lib.rglru_decode_step(params["rec"], h,
+            a, new_cache = rglru_lib.rglru_decode_step(params["rec"], ln1(x),
                                                        cache, cfg)
         else:
-            a, _ = rglru_lib.rglru_block(params["rec"], h, cfg, impl=impl)
+            a, _ = rglru_lib.rglru_block(params["rec"], ln1(x), cfg,
+                                         impl=impl)
     elif mode == "decode":
         a, new_cache = attn_lib.decode_attention(
-            params["attn"], h, cache, index, positions, cfg,
+            params["attn"], ln1(x), cache, index, positions, cfg,
             window=_attn_window(cfg, window_override))
     else:
-        a = attn_lib.attention(params["attn"], h, positions, cfg,
-                               window=_attn_window(cfg, window_override),
-                               impl=impl)
+        a = phase_call("block.attention", lambda y: attn_lib.attention(
+            params["attn"], ln1(y), positions, cfg,
+            window=_attn_window(cfg, window_override), impl=impl), x)
     x = _act(x + a)
-    h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
     if kind == "moe":
+        h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
         m, aux = moe_lib.moe_mlp(params["moe"], h, cfg, impl=MOE_IMPL[0])
         return _act(x + m), new_cache, aux
-    return _act(x + L.mlp(params["mlp"], h, cfg.act)), new_cache, 0.0
+    m = phase_call("block.mlp", lambda y: L.mlp(
+        params["mlp"], L.rmsnorm(params["ln2"], y, cfg.norm_eps), cfg.act), x)
+    return _act(x + m), new_cache, 0.0
 
 
 def _act(x):
@@ -341,17 +351,10 @@ def _positions(cfg, pos: torch.Tensor) -> torch.Tensor:
     return pos
 
 
-def lm_forward(params, cfg, tokens, positions=None, *, extra_embeds=None,
-               mode: str = "prefill", remat: str = "none",
-               window_override=None, impl: str = "ref",
-               last_only: bool = False, remat_group: int = 1):
-    """Train or prefill forward.  tokens: [B,S] int.  ``extra_embeds``:
-    optional [B,S_front,d] frontend embeddings (VLM patches) prepended to
-    the token embeddings.  ``mode`` is ``"prefill"`` (the port's default:
-    serving) or ``"train"`` (the reference's default), which applies
-    ``remat``/``remat_group``.  ``last_only``: logits for the final
-    position only (the serving prefill).  Returns (logits [B,S(+S_front),V]
-    or [B,1,V], the ``moe`` blocks' aux loss: 0 without one)."""
+def _lm_hidden(params, cfg, tokens, positions, *, extra_embeds, mode: str,
+               remat: str, window_override, impl: str, remat_group: int):
+    """The embedding and the stack: (the final residual stream, the
+    ``moe`` blocks' aux loss)."""
     x = _act(L.embed(unshard(params["embed"]), tokens))
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
@@ -363,9 +366,28 @@ def lm_forward(params, cfg, tokens, positions=None, *, extra_embeds=None,
     x, _, aux = apply_stack(params["stack"], cfg, x, positions, mode=mode,
                             window_override=window_override, impl=impl,
                             remat=remat, remat_group=remat_group)
+    return x, aux
+
+
+def lm_forward(params, cfg, tokens, positions=None, *, extra_embeds=None,
+               mode: str = "prefill", remat: str = "none",
+               window_override=None, impl: str = "ref",
+               last_only: bool = False, remat_group: int = 1):
+    """Train or prefill forward.  tokens: [B,S] int.  ``extra_embeds``:
+    optional [B,S_front,d] frontend embeddings (VLM patches) prepended to
+    the token embeddings.  ``mode`` is ``"prefill"`` (the port's default:
+    serving) or ``"train"`` (the reference's default), which applies
+    ``remat``/``remat_group``.  ``last_only``: logits for the final
+    position only (the serving prefill).  Returns (logits [B,S(+S_front),V]
+    or [B,1,V], the ``moe`` blocks' aux loss: 0 without one).  The final
+    norm and the logits are the device phase ``lm.head``."""
+    x, aux = _lm_hidden(params, cfg, tokens, positions,
+                        extra_embeds=extra_embeds, mode=mode, remat=remat,
+                        window_override=window_override, impl=impl,
+                        remat_group=remat_group)
     if last_only:
         x = x[:, -1:]
-    return lm_logits(params, cfg, x), aux
+    return phase_call("lm.head", lambda y: lm_logits(params, cfg, y), x), aux
 
 
 def xent(logits, labels) -> torch.Tensor:
@@ -389,13 +411,20 @@ def lm_loss(params, cfg, tokens, labels, *, remat: str = "full",
     """Next-token cross-entropy over the padded vocab (its padding is
     masked to −1e30), mean over the labels that are not ``-100``, plus the
     ``moe`` blocks' aux loss.  labels: [B,S] int, the text tokens' (the
-    logits of ``extra_embeds`` are dropped)."""
-    logits, aux = lm_forward(params, cfg, tokens, positions,
-                             extra_embeds=extra_embeds, mode="train",
-                             remat=remat, impl=impl, remat_group=remat_group)
-    if extra_embeds is not None:
-        logits = logits[:, extra_embeds.shape[1]:]
-    return xent(logits, labels) + aux
+    logits of ``extra_embeds`` are dropped).  The final norm, the logits
+    and the cross-entropy are the device phase ``lm.head``."""
+    x, aux = _lm_hidden(params, cfg, tokens, positions,
+                        extra_embeds=extra_embeds, mode="train", remat=remat,
+                        window_override=None, impl=impl,
+                        remat_group=remat_group)
+
+    def head(y):
+        logits = lm_logits(params, cfg, y)
+        if extra_embeds is not None:
+            logits = logits[:, extra_embeds.shape[1]:]
+        return xent(logits, labels)
+
+    return phase_call("lm.head", head, x) + aux
 
 
 def lm_decode_step(params, cfg, token, caches, index: int, positions=None,

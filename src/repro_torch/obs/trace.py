@@ -1,22 +1,33 @@
-"""Host-side tracer: nested spans, compile events, JSONL, profiler glue —
-the port's copy of ``repro/obs/trace.py``.
+"""Host-side tracer and device-phase markers: nested spans, compile
+events, JSONL, profiler glue — the port's copy of
+``repro/obs/trace.py``, plus the device phases the port's benchmark reads.
 
 * **Bitwise neutrality** — spans time HOST phases (upload, dispatch,
-  readback, runner builds) with wall and process clocks.  A span never
-  synchronises with the card or reads a device tensor, so it may sit
-  around the engines' round loop, which runs under
-  ``torch.cuda.set_sync_debug_mode("error")`` on a card, and the traced
-  run computes the same bits as the untraced one.  The device-side phase
-  markers are the ``record_function`` calls placed at the round step's
-  sites themselves (``core/rounds.py``).
-* **Zero cost when off** — the tracer is disabled by default and
-  :func:`span` returns a shared no-op context manager unless it is enabled
-  or a ``torch.profiler`` trace is active.
+  readback, runner builds).  A span never synchronises with the card or
+  reads a device tensor, so it may sit around the engines' round loop,
+  which runs under ``torch.cuda.set_sync_debug_mode("error")`` on a card,
+  and the traced run computes the same bits as the untraced one.
+* **Device phases** — :func:`phase` and :func:`phase_call` name the
+  round step's phases (``core/rounds.py``) and the model's sublayers
+  (``models/transformer.py``, ``models/attention.py``) for a
+  ``torch.profiler`` trace, forward and backward.  They never write host
+  spans: the host wall time of work launched asynchronously on the card
+  means nothing.
+* **Zero cost when off** — the tracer is disabled by default;
+  :func:`span` and :func:`phase` return a shared no-op context manager
+  and :func:`phase_call` is a plain call unless a ``torch.profiler``
+  trace is recording (or, for :func:`span`, the tracer is enabled).
+* **One clock** — spans and events carry ``t0_ns`` (and a span
+  ``t1_ns``) in Unix nanoseconds, ``time.time_ns()``, the clock the
+  profiler's events are on, so a JSONL span lies over a
+  :func:`profile_trace` Chrome trace of the same run; ``t0`` is the same
+  instant in seconds and ``wall_s`` is ``(t1_ns - t0_ns) / 1e9``.
 * **Structured emission** — spans and events append to an in-memory
   buffer and, when enabled with a path (or ``REPRO_TRACE=<path>`` in the
   environment), stream to JSONL one object per line: ``{"type": "span" |
-  "event", "name", "t0", "wall_s", "cpu_s", "depth", "parent",
-  ...attrs}``, the reference's schema.
+  "event", "name", "t0", "t0_ns", "t1_ns" (spans), "wall_s", "cpu_s",
+  "depth", "parent", ...attrs}``, the reference's schema with the two
+  integer stamps added.
 * **Profiler integration** — :func:`profile_trace` runs ``torch.profiler``
   over a block and writes a Chrome trace (the ``--profile`` flag of
   ``python -m repro_torch.serve``).  While any ``torch.profiler`` trace is
@@ -43,16 +54,26 @@ class Span:
     """One closed host span (or an open one still on the stack)."""
 
     name: str
-    t0: float                      # time.time() at entry (epoch seconds)
-    wall_s: float = 0.0            # perf_counter delta
+    t0_ns: int                     # time.time_ns() at entry (Unix ns)
+    t1_ns: int = 0                 # time.time_ns() at exit (0 while open)
     cpu_s: float = 0.0             # process_time delta
     depth: int = 0
     index: int = 0                 # position in the tracer's span list
     parent: int = -1               # index of the enclosing span (-1 = root)
     attrs: Dict[str, Any] = field(default_factory=dict)
 
+    @property
+    def t0(self) -> float:
+        """Entry in epoch seconds."""
+        return self.t0_ns * 1e-9
+
+    @property
+    def wall_s(self) -> float:
+        return max(self.t1_ns - self.t0_ns, 0) * 1e-9
+
     def to_json(self) -> Dict[str, Any]:
         return {"type": "span", "name": self.name, "t0": self.t0,
+                "t0_ns": self.t0_ns, "t1_ns": self.t1_ns,
                 "wall_s": self.wall_s, "cpu_s": self.cpu_s,
                 "depth": self.depth, "index": self.index,
                 "parent": self.parent, **self.attrs}
@@ -76,6 +97,68 @@ _NULL = _NullCm()
 def _torch_profiling() -> bool:
     """Whether a ``torch.profiler`` trace is recording in this process."""
     return torch._C._autograd._profiler_enabled()
+
+
+def phase(name: str):
+    """``record_function(name)`` while a ``torch.profiler`` trace is
+    recording, else the shared no-op: a device phase (the round step's,
+    a model sublayer's) named on the profiler's timeline.  Never a host
+    span."""
+    if not _torch_profiling():
+        return _NULL
+    return record_function(name)
+
+
+class _BackwardRange:
+    """``<name>.bwd`` on the thread that runs the backward pass: opened
+    by a hook on the phase's output when its gradient is ready (just
+    before the node that made the output runs backward), closed by the
+    first hook on an input whose gradient is ready.  The sublayer's
+    nodes were all made after its inputs', so autograd, which runs the
+    ready node made last first, runs every one of them in between."""
+
+    __slots__ = ("name", "rf")
+
+    def __init__(self, name: str):
+        self.name, self.rf = name, None
+
+    def open(self, grad):
+        if self.rf is None:
+            self.rf = record_function(self.name)
+            self.rf.__enter__()
+
+    def close(self, grad):
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+            self.rf = None
+
+
+def phase_call(name: str, fn, *inputs):
+    """``fn(*inputs)``, the sublayer ``name``, with its forward under
+    :func:`phase` and, while a trace records and grad is on, its backward
+    under ``<name>.bwd``.  The backward range hangs on tensor hooks, not
+    on identity ``autograd.Function`` markers: a marker node between an
+    input and the sublayer would sum the sublayer's gradients of that
+    input before they meet the skip path's, an f32 re-association
+    wherever the sublayer reads the input more than once (RMSNorm in f32
+    does, three times), so the grads would no longer be bitwise the
+    untraced ones.  A hook adds no node and reads no value.  The range
+    is opened only where an input requires grad, so an input's hook is
+    there to close it.  Under ``remat="full"`` (or ``"dots"``) the
+    recomputed forward nests inside ``.bwd``.  With no profiler this is
+    a plain call."""
+    if not _torch_profiling():
+        return fn(*inputs)
+    with record_function(name):
+        out = fn(*inputs)
+    if torch.is_grad_enabled() and getattr(out, "requires_grad", False):
+        ins = [t for t in inputs if getattr(t, "requires_grad", False)]
+        if ins:
+            rng = _BackwardRange(name + ".bwd")
+            out.register_hook(rng.open)
+            for t in ins:
+                t.register_hook(rng.close)
+    return out
 
 
 class Tracer:
@@ -129,37 +212,29 @@ class Tracer:
 
     @contextmanager
     def _span_cm(self, name: str, attrs: Dict[str, Any]):
-        ann = None
-        if _torch_profiling():      # host phase marker on the timeline
-            ann = record_function(name)
-            ann.__enter__()
-        if not self.enabled:        # profiling only: annotate, don't record
-            try:
+        with phase(name):           # host phase marker on the timeline
+            if not self.enabled:    # profiling only: annotate, don't record
                 yield None
-            finally:
-                ann.__exit__(None, None, None)
-            return
-        with self._lock:
-            sp = Span(name=name, t0=time.time(), depth=len(self._stack),
-                      index=len(self.spans),
-                      parent=self._stack[-1].index if self._stack else -1,
-                      attrs=dict(attrs))
-            self.spans.append(sp)
-            self._stack.append(sp)
-        w0, c0 = time.perf_counter(), time.process_time()
-        try:
-            yield sp
-        finally:
-            sp.wall_s = time.perf_counter() - w0
-            sp.cpu_s = time.process_time() - c0
+                return
             with self._lock:
-                if self._stack and self._stack[-1] is sp:
-                    self._stack.pop()
-                if self._jsonl is not None:
-                    self._jsonl.write(json.dumps(sp.to_json()) + "\n")
-                    self._jsonl.flush()
-            if ann is not None:
-                ann.__exit__(None, None, None)
+                sp = Span(name=name, t0_ns=time.time_ns(),
+                          depth=len(self._stack), index=len(self.spans),
+                          parent=self._stack[-1].index if self._stack
+                          else -1, attrs=dict(attrs))
+                self.spans.append(sp)
+                self._stack.append(sp)
+            c0 = time.process_time()
+            try:
+                yield sp
+            finally:
+                sp.t1_ns = time.time_ns()
+                sp.cpu_s = time.process_time() - c0
+                with self._lock:
+                    if self._stack and self._stack[-1] is sp:
+                        self._stack.pop()
+                    if self._jsonl is not None:
+                        self._jsonl.write(json.dumps(sp.to_json()) + "\n")
+                        self._jsonl.flush()
 
     def event(self, name: str, **attrs) -> None:
         """Record a point event (e.g. a runner-cache miss).  No-op while
@@ -167,7 +242,9 @@ class Tracer:
         if not self.enabled:
             return
         with self._lock:
-            ev = {"type": "event", "name": name, "t0": time.time(),
+            t_ns = time.time_ns()
+            ev = {"type": "event", "name": name, "t0": t_ns * 1e-9,
+                  "t0_ns": t_ns,
                   "depth": len(self._stack),
                   "parent": self._stack[-1].index if self._stack else -1,
                   **attrs}

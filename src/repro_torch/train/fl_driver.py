@@ -57,7 +57,6 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.configs.base import (FLConfig, FLParams, as_f32, fl_params,
                                      fl_static, params_lanes)
@@ -75,6 +74,7 @@ from repro_torch.models.spec import (DataMeta, ModelSpec, get_model_spec,
                                      meta_for)
 from repro_torch.obs import stats as obs_stats
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.trace import phase
 from repro_torch.privacy import accountant as acct_lib
 from repro_torch.privacy import schedule as sched_lib
 from repro_torch.privacy.accountant import accounted_epsilon
@@ -321,21 +321,21 @@ def run_fl_legacy(
     sim_time = 0.0
     t0 = time.time()
     for r in range(rounds):
-        with record_function("fl.batches"):
+        with phase("fl.batches"):
             b = round_batches(rng, fed, fl.local_epochs, fl.local_batch)
             batches = {"x": torch.as_tensor(b["x"], device=device),
                        "y": torch.as_tensor(b["y"], device=device).long()}
-        with record_function("fl.round_step"):
+        with phase("fl.round_step"):
             state, metrics = round_step(
                 state, batches, draws=None if draws is None else draws[r])
         if on_round is not None:
             on_round(r, state, metrics)
-        with record_function("fl.sim_time"):
+        with phase("fl.sim_time"):
             sim_time += float(simulate_round_time(
                 fl, state.util, metrics.sel_mask, metrics.failed,
                 slow=metrics.slow))
         if (r + 1) % eval_every == 0 or r == rounds - 1:
-            with record_function("fl.eval"):
+            with phase("fl.eval"):
                 acc = float(spec.accuracy(state.params, tx, ty))
                 proba = spec.predict_proba(state.params, tx)[:, 1]
                 auc = auc_roc(proba.cpu().numpy(), fed.test_y)
@@ -525,7 +525,7 @@ def _round_loop(fl: FLConfig, spec: ModelSpec, step: Callable, state,
                     util = state.util._replace(compute=compute)
                     cum_time = cum_time + simulate_round_time(
                         fl, util, m.take, m.failed, params=pr, slow=m.slow)
-            with record_function("eval_block"):
+            with phase("eval_block"):
                 acc, auc = _eval_lanes(
                     spec, state.params if full_params is None
                     else full_params(state.params), test_x, test_y)

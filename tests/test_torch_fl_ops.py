@@ -350,8 +350,10 @@ def test_jsonl_dump_and_stream_round_trip(tmp_path):
         assert len(rows) == 2
         sp = next(r for r in rows if r["type"] == "span")
         assert sp["name"] == "phase" and sp["rep"] == 0 and sp["wall_s"] >= 0
-        assert set(sp) == {"type", "name", "t0", "wall_s", "cpu_s", "depth",
-                           "index", "parent", "rep"}
+        assert set(sp) == {"type", "name", "t0", "t0_ns", "t1_ns", "wall_s",
+                           "cpu_s", "depth", "index", "parent", "rep"}
+        assert sp["wall_s"] == (sp["t1_ns"] - sp["t0_ns"]) * 1e-9
+        assert sp["t0"] == sp["t0_ns"] * 1e-9
 
 
 def test_repro_trace_env_streams_jsonl(tmp_path):

@@ -160,8 +160,150 @@ def _vocab_parallel_embed(table, ids):
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
     """Project hidden states to logits with the (tied or separate) table,
-    in f32."""
-    return torch.matmul(x.float(), params["table"].float().t())
+    in f32 (:func:`logits_f32`)."""
+    return logits_f32(x, params["table"], tied=True)
+
+
+# ---------------------------------------------------------------------------
+# The LM head's f32 logits on the bf16 tensor cores
+# ---------------------------------------------------------------------------
+
+#: Calls of the head product on a card: its forward and its split backward.
+#: A run reads them to show that every step took the tensor cores.
+HEAD_GEMMS = {"forward": 0, "split_backward": 0}
+
+#: Elements of the f32 logits' gradient split at once: the backward walks
+#: blocks of vocab columns whose three bf16 terms and f32 rest take ~0.7 GB,
+#: less than the f32 copy of granite's table that the product never makes.
+SPLIT_ELEMS = 1 << 26
+
+#: The most products one tensor-core GEMM sums before an f32 add joins its
+#: sum to the rest.  The tensor cores accumulate in f32 but truncate, so
+#: their error grows with a GEMM's K; in pieces of 1,024 it stays under the
+#: f32 FMA GEMM's own distance from f64 (granite-3-8b's head on an H100).
+TC_K = 1024
+
+
+def reset_head_gemms() -> None:
+    for k in HEAD_GEMMS:
+        HEAD_GEMMS[k] = 0
+
+
+def logits_f32(x: torch.Tensor, w: torch.Tensor, *,
+               tied: bool = False) -> torch.Tensor:
+    """f32 logits of the hidden states ``x [..., d]`` against the head
+    ``w [d, V]``, or against the embedding table ``w [V, d]`` (``tied``).
+
+    bf16 operands on a card take :class:`HeadProduct`: the same exact
+    products, summed in f32 on the bf16 tensor cores.  Anything else (the
+    CPU, f32 models, DTensors) multiplies f32 copies: the reference's
+    maths."""
+    if (x.is_cuda and x.dtype == w.dtype == torch.bfloat16
+            and not is_dtensor(x) and not is_dtensor(w)):
+        wt = w.t() if tied else w
+        out = HeadProduct.apply(x.reshape(-1, x.shape[-1]), wt)
+        return out.view(*x.shape[:-1], wt.shape[1])
+    wf = w.float()
+    return torch.matmul(x.float(), wf.t() if tied else wf)
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor,
+           acc: Optional[torch.Tensor] = None,
+           whole: bool = False) -> torch.Tensor:
+    """``acc + a @ b`` (``a @ b`` without ``acc``, which is written in
+    place) of bf16 operands, in f32: tensor-core GEMMs (``aten::mm.dtype``,
+    ``aten::addmm.dtype``) over pieces of at most ``TC_K`` of the inner
+    dim, each piece's sum added in f32 by the GEMM's epilogue; ``whole``
+    sums the whole inner dim in one GEMM.  Off a card, where those ops
+    have no kernel, f32 GEMMs of the same values: every product of two bf16
+    values is exact in f32, so both sum the same products."""
+    k = a.shape[1]
+    pieces = 1 if whole else -(-k // TC_K)
+    kc = k if pieces == 1 else -(-k // (64 * pieces)) * 64
+    for k0 in range(0, k, kc):
+        ak, bk = a[:, k0:k0 + kc], b[k0:k0 + kc]
+        if not a.is_cuda:
+            ak, bk = ak.float(), bk.float()
+            acc = torch.mm(ak, bk) if acc is None else acc.addmm_(ak, bk)
+        elif acc is None:
+            acc = torch.mm(ak, bk, out_dtype=torch.float32)
+        else:
+            torch.addmm(acc, ak, bk, out_dtype=torch.float32, out=acc)
+    return acc
+
+
+def split3(g: torch.Tensor) -> torch.Tensor:
+    """The f32 ``g`` as three bf16 terms ``[3, *g.shape]`` that sum back
+    to it exactly: hi = bf16(g), mid = bf16(g − hi), lo = bf16(g − hi −
+    mid).  Each rest is exact in f32 (it holds the bits that the term
+    before dropped), and lo holds the last 8 of g's 24 significant bits,
+    for every |g| ≥ 2^-110 (below, lo is bf16's subnormal)."""
+    t = torch.empty((3,) + tuple(g.shape), dtype=torch.bfloat16,
+                    device=g.device)
+    t[0].copy_(g)
+    rest = torch.sub(g, t[0])
+    t[1].copy_(rest)
+    rest.sub_(t[1])
+    t[2].copy_(rest)
+    return t
+
+
+def head_grads(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+               need_dx: bool = True, need_dw: bool = True,
+               dtype: Optional[torch.dtype] = None):
+    """``(g·wᵀ, xᵀ·g)`` for the f32 logits' gradient ``g [N, V]``, bf16
+    ``x [N, d]`` and ``w [d, V]``, each rounded once to ``dtype`` (x's
+    and w's by default) from f32: g in three bf16 terms (:func:`split3`),
+    a block of vocab columns at a time.  The small terms go first, each
+    whole in one GEMM (dw: mid and lo stacked along N, x repeated): their
+    sums are 2^-8 of hi's and below, and so is the truncation's error.
+    Then hi in pieces of ``TC_K`` (:func:`mm_f32`).  Either result is None
+    where not needed."""
+    n, v = g.shape
+    blocks = -(-n * v // SPLIT_ELEMS)
+    cols = v if blocks <= 1 else -(-v // (64 * blocks)) * 64  # aligned
+    x2 = x.repeat(2, 1) if need_dw else None
+    dx = None
+    dw = torch.empty_like(w, dtype=dtype or w.dtype) if need_dw else None
+    for v0 in range(0, v, cols):
+        v1 = min(v, v0 + cols)
+        t = split3(g[:, v0:v1])
+        if need_dx:
+            wc = w[:, v0:v1].t()
+            dx = mm_f32(t[2], wc, dx, whole=True)
+            dx = mm_f32(t[1], wc, dx, whole=True)
+            dx = mm_f32(t[0], wc, dx)
+        if need_dw:
+            small = t[1:].view(2 * n, v1 - v0)
+            if dw.stride(0) == 1:       # a [V, d] table seen as [d, V]
+                part = mm_f32(small.t(), x2, whole=True)
+                dw.t()[v0:v1] = mm_f32(t[0].t(), x, part)
+            else:
+                part = mm_f32(x2.t(), small, whole=True)
+                dw[:, v0:v1] = mm_f32(x.t(), t[0], part)
+    if dx is not None:
+        dx = dx.to(dtype or x.dtype)
+    return dx, dw
+
+
+class HeadProduct(torch.autograd.Function):
+    """``x [N, d] @ w [d, V]`` → f32 logits, for bf16 ``x`` and ``w``.
+    Forward: tensor-core GEMMs written in f32 (:func:`mm_f32`); it keeps
+    the bf16 operands for backward, not f32 copies.  Backward:
+    :func:`head_grads`, whose results round to bf16 where the f32 copies'
+    backward rounded them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        HEAD_GEMMS["forward"] += 1
+        return mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        HEAD_GEMMS["split_backward"] += 1
+        return head_grads(g, x, w, *ctx.needs_input_grad)
 
 
 # ---------------------------------------------------------------------------

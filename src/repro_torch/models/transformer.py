@@ -333,7 +333,7 @@ def lm_logits(params, cfg, x) -> torch.Tensor:
                       if k in params})
     x = L.rmsnorm(params["final_ln"], x, cfg.norm_eps)
     if "head" in params:
-        logits = torch.matmul(x.float(), params["head"]["w"].float())
+        logits = L.logits_f32(x, params["head"]["w"])
     else:
         logits = L.unembed(params["embed"], x)
     pv = logits.shape[-1]

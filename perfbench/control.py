@@ -13,9 +13,12 @@ reference on the same inputs (the upper readings).  Training cells: a
 step that returns its state unchanged (its numbers need no run: the
 program's change is nought), half of each batch left out (the loss the
 mean over the other half), the clip skipped, the clean updates left out
-of the aggregate (the noise alone).  The prefill cell: each served token altered
-(the next id), half of each batch left out (its tokens never computed:
-id 0).  One JSON line a seed and kind; ``--out`` also appends them to a
+of the aggregate (the noise alone) and, of a MoE, each token's last
+expert choice moved to its next-best.  Of a MoE each variant records its
+first round's expert choices, and the float32 reference that judges it
+follows them, as it follows the program's in a run.  The prefill cell:
+each served token altered (the next id), half of each batch left out
+(its tokens never computed: id 0).  One JSON line a seed and kind; ``--out`` also appends them to a
 file.
 """
 from __future__ import annotations
@@ -40,13 +43,20 @@ VARIANTS = (("control_fp8", {"precision": "fp8"}),
             ("fault_half_batch", {"fault": "half_batch"}),
             ("fault_no_clip", {"fault": "no_clip"}),
             ("fault_noise_only", {"fault": "noise_only"}))
+MOE_VARIANTS = (("fault_route_shift", {"fault": "route_shift"}),)
 
 
-def train_readings(cell, seed: int, device, variants=VARIANTS) -> dict:
-    """Each variant of the reference in the program's place, and a state
-    left unchanged, judged by the float32 reference."""
+def train_readings(cell, seed: int, device, variants=None) -> dict:
+    """Each variant of the reference in the program's place (``VARIANTS``,
+    and of a MoE ``MOE_VARIANTS``, where not given), and a state left
+    unchanged, judged by the float32 reference: one for all, or of a MoE
+    one a variant that follows the variant's first-round expert
+    choices."""
     m, t = cell.config["model"], cell.traffic
     f = t["fl"]
+    moe = layout.block_kind(m) == "moe"
+    if variants is None:
+        variants = VARIANTS + (MOE_VARIANTS if moe else ())
     lv = layout.leaves(m)
     pool = traffic.fl_pool(t, m["vocab_size"], seed, device)
 
@@ -57,17 +67,28 @@ def train_readings(cell, seed: int, device, variants=VARIANTS) -> dict:
             variates=pool.variates, noise_seed=layout.sub_seed(seed, "noise"),
             rounds=t["check_rounds"], **kw)
 
-    got = {name: follow(keep=True, **kw) for name, kw in variants}
-    states = {name: g["states"] for name, g in got.items()}
+    def numbers(g, ref, name):
+        return dict(check.train_numbers(g, ref, name),
+                    detail=check.train_detail(g, ref, name))
+
     w0 = {k: v.cpu() for k, v in layout.make_weights(lv, seed, device).items()}
-    states["fault_state_unchanged"] = [w0] * t["check_rounds"]
-    ref = follow(judge=states)
+    # judged by the reference on its own routing: the state left unchanged,
+    # and every variant of a dense model
+    shared = {"fault_state_unchanged": [w0] * t["check_rounds"]}
+    got, out = {}, {}
+    for name, kw in variants:
+        g = follow(keep=True, record=moe, **kw)
+        if moe:  # judged at once, so one variant's states are held at a time
+            out[name] = numbers(g, follow(judge={name: g.pop("states")},
+                                          replay=g.pop("route")), name)
+        else:
+            shared[name], got[name] = g.pop("states"), g
+    ref = follow(judge=shared)
     unchanged = dict(ref, change1=[0.0] * len(lv), change=[0.0] * len(lv))
     out = {"fault_state_unchanged": check.train_numbers(
-        unchanged, ref, "fault_state_unchanged")}
+        unchanged, ref, "fault_state_unchanged"), **out}
     for name, g in got.items():
-        out[name] = dict(check.train_numbers(g, ref, name),
-                         detail=check.train_detail(g, ref, name))
+        out[name] = numbers(g, ref, name)
     return out
 
 

@@ -9,7 +9,7 @@ add: one multiply-add is 2.
 """
 from __future__ import annotations
 
-from perfbench.reference.layout import head_dim
+from perfbench.reference.layout import head_dim, router_experts
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -18,14 +18,17 @@ PEAK_HBM_BYTES = 3.35e12
 def matmul_params(m: dict, unembed: bool = True) -> int:
     """Weights a token multiplies by in one forward pass: the attention
     projections, the MLP (a MoE layer: the router and ``experts_per_token``
-    experts, not the capacity padding) and, with ``unembed``, the
+    experts, not the capacity padding; of a layer that holds a share of
+    its experts, that share of them) and, with ``unembed``, the
     unembedding over the real vocabulary.  The embedding lookup and the
     norms are not products."""
     d, f, hd = m["d_model"], m["d_ff"], head_dim(m)
     hq, hkv = m["n_heads"] * hd, m["n_kv_heads"] * hd
     attn = d * hq + 2 * d * hkv + hq * d
     if m["family"] == "moe":
-        ffn = m["experts_per_token"] * 3 * d * f + d * m["n_experts"]
+        e = router_experts(m)
+        ffn = (m["experts_per_token"] * 3 * d * f * m["n_experts"] // e
+               + d * e)
     else:
         ffn = 3 * d * f
     return m["n_layers"] * (attn + ffn) + (d * m["vocab_size"] if unembed else 0)

@@ -27,6 +27,28 @@ data, variates and noise):
   clip skipped where it binds (round 2 on, where update norms exceed the
   clip), or the updates summed and not averaged.
 
+- ``route_gap`` (a MoE only): the widest gap, over every token, layer,
+  step and choice of the first round, by which the reference's router
+  logit for the expert the program chose lies below the reference's
+  k-th largest router logit at that token.  Set-up records the
+  program's expert choices of the first round (``harness/fl.py``) and
+  the reference follows them (``reference/lm.py`` ``Route``), so that a
+  near-tie the bf16 program routes the other way does not send the two
+  sides' tokens to different experts; this number checks those choices:
+  0 where the program routes as the f32 reference would, about one
+  rounding of a logit at a near-tie, the whole gap between experts where
+  a choice is wrong, and inf where the choices do not cover the batch.
+  Later rounds follow no choice of the program: the reference routes
+  them by its own argmax.  There the DP noise has made the router all
+  noise (σ ≈ 0.97 an element against its 1/sqrt(d) draw), its logits
+  some hundreds and its softmax saturated, and the bf16 and f32 hidden
+  states lie apart by far more than a rounding: sound runs put about 60 %
+  of their choices under the reference's k-th logit, as a wrong routing
+  would, so no number can check them, and a reference that followed them
+  would compute from choices nothing checked.  A routing fault that
+  first shows after the first round is left to ``update_scale`` and
+  ``change``, which it need not fail.
+
 The losses and update norms of the later rounds are printed beside them
 (``train_detail``) and not compared: after the first round the DP noise
 (σ ≈ 0.97 an element at ε 50, clip 10) dominates every weight, and the
@@ -70,24 +92,30 @@ def leaves_kept(ref_grad1: Sequence[float]) -> List[bool]:
 
 def train_numbers(prog: dict, ref: dict, name: str) -> Dict[str, float]:
     """``prog``'s numbers against ``ref``, which judged ``prog``'s states
-    under ``name``."""
+    under ``name`` (of a MoE, following ``prog``'s expert choices)."""
     loss = max(_rel(prog["global_loss"][0], ref["global_loss"][0]),
                _rel(prog["pre_sum"][0], ref["pre_sum"][0]))
     norm = max(_rel(p, q) for p, q in zip(prog["norms"][0], ref["norms"][0]))
     keep = leaves_kept(ref["change1"])
     judged = ref["judged"][name]
-    return {"loss1": loss, "update_norm1": norm,
-            "grad1": worst_leaf(prog["change1"], ref["change1"], keep),
-            "change": worst_leaf(prog["change"], ref["change"], keep),
-            "agg1": judged["agg1"],
-            "update_scale": max(abs(x - 1.0) for x in judged["scale"])}
+    out = {"loss1": loss, "update_norm1": norm,
+           "grad1": worst_leaf(prog["change1"], ref["change1"], keep),
+           "change": worst_leaf(prog["change"], ref["change"], keep),
+           "agg1": judged["agg1"],
+           "update_scale": max(abs(x - 1.0) for x in judged["scale"])}
+    if "route_gap" in ref:
+        out["route_gap"] = ref["route_gap"]
+    return out
 
 
 def train_detail(prog: dict, ref: dict, name: str) -> dict:
     """Each round's relative gaps (the loss, the first-step sum, every
-    slot's update norm, the clean aggregate's size), for the record
-    beside the numbers."""
+    slot's update norm, the clean aggregate's size) and, of a MoE, the
+    first round's replayed choices below the k-th logit and all replayed,
+    for the record beside the numbers."""
     return {"scale": ref["judged"][name]["scale"],
+            **({"route_flips": ref["route_flips"]}
+               if "route_flips" in ref else {}),
             "loss": [_rel(p, q) for p, q in zip(prog["global_loss"],
                                                  ref["global_loss"])],
             "pre_sum": [_rel(p, q) for p, q in zip(prog["pre_sum"],

@@ -5,7 +5,9 @@ Set-up makes the weights, the data pool and the round variates from the
 seed, builds the round step and its state once, and drives that state
 through the traffic's ``check_rounds`` first rounds with the window's
 own call and feed (they also warm every shape), keeping the stored
-parameters after each on the host.  The window then runs
+parameters after each on the host and, of a MoE, the program's expert
+choices of every layer of every step of the first round
+(:class:`ExpertChoices`), which the reference follows.  The window then runs
 whole rounds on the same state until ``--seconds`` have passed, each
 ending in a synchronise, as a training loop that reads its metrics
 does.  ``train_tokens_per_s`` is every token of every slot's every
@@ -15,7 +17,9 @@ first rounds from the same inputs (``harness/check.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import itertools
 import json
 import sys
 import time
@@ -104,6 +108,41 @@ def change(params, lv, seed: int, device) -> List[float]:
     return out
 
 
+class ExpertChoices:
+    """While entered, the top-k expert choices of every MoE layer call of
+    the program (``models/moe.py`` ``_choose``, which both dispatches
+    call), in call order; the program's own result passes through
+    unchanged."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.calls = moe, moe._choose, []
+
+        def choose(router_w, x, cfg):
+            out = self.real(router_w, x, cfg)
+            self.calls.append([i.detach() for i in out[1]])
+            return out
+
+        moe._choose = choose
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._choose = self.real
+
+    def keyed(self, slots: int, steps: int, layers: int
+              ) -> Dict[tuple, list]:
+        """``{(slot, step, layer): choices}`` of one round on the host, in
+        the round step's loop order (every slot runs every step, one call
+        a layer with ``remat="none"``)."""
+        keys = list(itertools.product(range(slots), range(steps),
+                                      range(layers)))
+        if len(self.calls) != len(keys):
+            raise RuntimeError(f"{len(self.calls)} MoE routing calls in a "
+                               f"round: not one a layer a step "
+                               f"({len(keys)})")
+        return {k: [i.cpu() for i in c] for k, c in zip(keys, self.calls)}
+
+
 def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         readers: Dict) -> report.Result:
     from repro_torch.core import rounds as rounds_lib
@@ -137,8 +176,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
     rounds = t["check_rounds"]
     prog = {"global_loss": [], "pre_sum": [], "norms": [], "failed": []}
     states = []
+    routed = None
     for r in range(rounds):
-        state, met = call(state, r)
+        with (ExpertChoices() if m["family"] == "moe" and r == 0
+              else contextlib.nullcontext()) as choices:
+            state, met = call(state, r)
+        if choices is not None:
+            routed = choices.keyed(f["slots"], f["local_steps"], m["n_layers"])
         prog["global_loss"].append(float(met.global_loss))
         prog["pre_sum"].append(float(met.pre_loss.sum()))
         prog["norms"].append([float(x) for x in met.update_norms])
@@ -205,11 +249,17 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         batch=lambda r: (pool.batch(r)["tokens"], pool.batch(r)["labels"]),
         variates=pool.variates,
         noise_seed=layout.sub_seed(seed, "noise"), rounds=rounds,
-        judge={"program": states})
+        judge={"program": states}, replay=routed)
     print(f"reference: {time.perf_counter() - t_ref:.1f} s, device peak "
           f"{report.peak_bytes(dev) / 1e9:.2f} GB", file=sys.stderr)
     detail = check.train_detail(prog, ref, "program")
     print(f"rounds followed: {json.dumps(detail)}", file=sys.stderr)
+    if "route_flips" in ref:
+        flips, chosen = ref["route_flips"]
+        print(f"route round 1: {flips} of the program's {chosen} choices "
+              f"under the reference's k-th logit "
+              f"({flips / max(chosen, 1):.2%}); later "
+              f"rounds routed by the reference's own argmax", file=sys.stderr)
     checks = check.with_limits(check.train_numbers(prog, ref, "program"),
                                cell.limits)
     return report.Result(attempted=n * slots, failed=failed_n,

@@ -21,6 +21,11 @@ stored parameters (server SGD at rate 1), rounded once.
 The noise is the only draw the reference shares with the program: slot
 j of round r takes the (r·K + j)-th ``normal_`` of P f32 elements from a
 generator seeded with the run's noise seed, on the same kind of device.
+Of a MoE it may also take the program's expert choices of the first
+round (``replay``, keyed ``(slot, step, layer)``): every step of every
+slot runs, as in the program, and each MoE layer follows the program's
+choices with its own f32 gates (``lm.Route``); later rounds route by the
+reference's own argmax (``harness/check.py`` says why).
 
 Judging another run's server updates: at σ ≈ 0.97 an element the noise
 is all of a weight's change, while a clipped update moves an element by
@@ -41,7 +46,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from perfbench.reference import lm
-from perfbench.reference.layout import Leaf
+from perfbench.reference.layout import Leaf, block_kind
 
 
 def sigma(f: dict) -> float:
@@ -78,7 +83,7 @@ def _update_k(k, best, plateau, loss, f, n_clients):
     return k, min(best, loss), 0.0 if grow else plateau
 
 
-FAULTS = (None, "half_batch", "no_clip", "noise_only")
+FAULTS = (None, "half_batch", "no_clip", "noise_only", "route_shift")
 
 
 def _ratio(a: float, b: float, both_nought: float) -> float:
@@ -94,26 +99,37 @@ def run_rounds(m: dict, f: dict, leaves: List[Leaf],
                variates: Callable, noise_seed: int, rounds: int,
                precision: str = "f32", fault: Optional[str] = None,
                keep: bool = False,
-               judge: Optional[Dict[str, List[dict]]] = None) -> dict:
+               judge: Optional[Dict[str, List[dict]]] = None,
+               replay: Optional[Dict[Tuple, list]] = None,
+               record: bool = False) -> dict:
     """Follow ``rounds`` rounds from ``weights`` ({path: stored tensor},
     left unchanged).  ``batch(r)`` gives round r's ``(tokens, labels)``
     ``[K, steps, B, S]``; ``variates(r)`` its ``fail_u [K]`` and
     ``fail_step [K]``.  ``fault`` plants one: ``half_batch``, each step's
     loss over the first half of its batch rows only; ``no_clip``, the
     update noised unclipped; ``noise_only``, the clean updates left out
-    of the aggregate.  Returns per round the live slots' mean last-step
-    loss (``global_loss``), the sum of their first-step losses
-    (``pre_sum``), each slot's pre-clip update norm (``norms``) and
-    failure (``failed``), and every leaf's ‖w − w0‖ after the first round
+    of the aggregate; ``route_shift`` (a MoE), each token's last expert
+    choice moved to its next-best.  ``replay`` maps ``(slot, step,
+    layer)`` of the first round to a MoE layer's expert choices to follow
+    (another run's, ``[B, S]`` each); with ``record``, ``route`` holds
+    this run's own first-round choices in the same form.  Returns per
+    round the live slots' mean last-step loss (``global_loss``), the sum
+    of their first-step losses (``pre_sum``), each slot's pre-clip update
+    norm (``norms``) and failure (``failed``), and every leaf's ‖w − w0‖ after the first round
     (``change1``) and the last (``change``).  With ``keep``, also the
     stored parameters after each round, on the host (``states``).
     ``judge`` maps a name to another run's ``states``; ``judged[name]``
     then holds ``agg1``, ‖w_1 − w_1^ref‖² over ‖w_1^ref − ŵ_1^ref‖², and
     ``scale``, each round's ‖w_r − ŵ_r‖² (ŵ_r from that run's own
-    w_{r−1}) over the reference's (see the module's docstring)."""
+    w_{r−1}) over the reference's (see the module's docstring).  Of a
+    MoE, also the first round's ``route_gap``, the widest route gap of
+    its steps (``lm.Route``), and ``route_flips``, its replayed choices
+    below their token's k-th router logit and all its replayed
+    choices."""
     if fault not in FAULTS:
         raise ValueError(f"fault {fault!r}: one of {FAULTS}")
     judge = judge or {}
+    moe = block_kind(m) == "moe"
     lm.no_tf32()
     mm = lm.make_mm(precision)
     order = [x.path for x in leaves]
@@ -128,6 +144,8 @@ def run_rounds(m: dict, f: dict, leaves: List[Leaf],
     out = {"global_loss": [], "pre_sum": [], "norms": [], "failed": [],
            "states": [], "judged": {name: {"agg1": math.nan, "scale": []}
                                     for name in judge}}
+    if moe:
+        out.update(route={}, route_gap=0.0, route_flips=[0, 0])
     for r in range(rounds):
         tokens, labels = batch(r)
         var = variates(r)
@@ -145,7 +163,20 @@ def run_rounds(m: dict, f: dict, leaves: List[Leaf],
                 if fault == "half_batch":
                     tok, lab = tok[:tok.shape[0] // 2], lab[:lab.shape[0] // 2]
                 p32 = lm.f32_leaves(local)
-                loss = lm.loss(p32, m, tok, lab, mm)
+                route = None
+                if moe:
+                    route = lm.Route(None if replay is None or r > 0 else [
+                        replay[(j, s, i)] for i in range(m["n_layers"])],
+                        shift=fault == "route_shift")
+                loss = lm.loss(p32, m, tok, lab, mm, route)
+                if route is not None and r == 0:
+                    out["route_gap"] = max(out["route_gap"], route.gap)
+                    out["route_flips"][0] += route.flips
+                    out["route_flips"][1] += route.choices
+                    if record:
+                        out["route"].update(
+                            {(j, s, i): [c.cpu() for c in taken]
+                             for i, taken in enumerate(route.taken)})
                 grads = torch.autograd.grad(loss, [p32[k] for k in order])
                 losses.append(float(loss.detach()))
                 if s < eff:

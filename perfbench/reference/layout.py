@@ -11,6 +11,12 @@ The values: N(0, 1/fan_in) for a projection (its true fan-in), N(0,
 0.02²) for the embedding and an untied head, ones for a norm's scale;
 the MoE router is f32, as the configuration states it, the rest in the
 model's dtype.
+
+A MoE layer may hold a share of its experts, as one of the cards that
+share the layer by expert parallelism would: ``n_experts`` counts the
+experts held, the first of them, and ``router_experts`` the published
+routed experts (the router's width); without that key the layer holds
+every expert.
 """
 from __future__ import annotations
 
@@ -43,6 +49,15 @@ def sub_seed(seed: int, tag: str) -> int:
 
 def head_dim(m: dict) -> int:
     return m.get("head_dim") or m["d_model"] // m["n_heads"]
+
+
+def router_experts(m: dict) -> int:
+    """The router's width of the MoE ``m``, of which its layers hold the
+    first ``n_experts``."""
+    e = m.get("router_experts", m["n_experts"])
+    if not 0 < m["n_experts"] <= e:
+        raise ValueError(f"{m['n_experts']} experts held of {e}")
+    return e
 
 
 def block_kind(m: dict) -> str:
@@ -87,7 +102,8 @@ def leaves(m: dict) -> List[Leaf]:
                       ("mlp", "wo", "w"): ((f, d), dt, f)})
     else:
         e = m["n_experts"]
-        block.update({("moe", "router"): ((d, e), torch.float32, d),
+        block.update({("moe", "router"): ((d, router_experts(m)),
+                                          torch.float32, d),
                       ("moe", "wg"): ((e, d, f), dt, d),
                       ("moe", "wi"): ((e, d, f), dt, d),
                       ("moe", "wo"): ((e, f, d), dt, f)})

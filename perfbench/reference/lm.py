@@ -8,11 +8,23 @@ halves of each head, causal softmax at 1/sqrt(head_dim)) and ``x +=
 ffn(rmsnorm(x))`` (SwiGLU, or a top-k mixture of experts); a final
 rmsnorm and the logits over the real vocabulary against the tied
 embedding or the head.  The mixture routes each token to its top-k
-experts by the f32 router's softmax, keeps a token's choice while its
-expert's queue in the sequence (every first choice in order, then every
-second) is under the capacity ``int(cf·S·k/E)``, renormalises the kept
-gates, and adds the Switch load-balance loss ``coef·E·Σ frac·prob`` of
-the first choices to the loss.
+of the router's E experts by the f32 router's softmax, keeps a token's
+choice while its expert's queue in the sequence (every first choice in
+order, then every second) is under the capacity ``int(cf·S·k/E)``,
+renormalises the kept gates, and adds the Switch load-balance loss
+``coef·E·Σ frac·prob`` of the first choices to the loss.  A layer that
+holds a share of the E experts (``layout.router_experts``) routes over
+all of them, renormalises by every kept choice, held or not, and adds
+only its held experts' part of the output.
+
+A forward pass may take its expert choices from another run (a
+:class:`Route`'s ``replay``: a bf16 program routes a near-tie the other
+way from run to run, and the reference then follows its choices in
+place of its own argmaxes).  Its gates, and so the gate values, the
+capacity queue, the drops, the renormalisation and the aux loss, stay
+its own f32 ones; the route gap says how far the choices taken lie from
+its own: the widest by which the router logit of a replayed choice lies
+below the k-th largest at its token.
 
 ``precision="fp8"`` is the control: every product whose operands the
 configuration states in bf16 rounds both operands to float8 e4m3 (one
@@ -27,7 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from perfbench.reference.layout import block_kind, head_dim
+from perfbench.reference.layout import block_kind, head_dim, router_experts
 
 FP8_MAX = 448.0
 
@@ -102,18 +114,62 @@ def swiglu(x, wi, wg, wo, mm):
     return mm(mm(x, wi) * F.silu(mm(x, wg)), wo)
 
 
-def moe(h, p, m, mm) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k mixture with per-sequence capacity; returns (out, aux)."""
+class Route:
+    """The routing of one forward pass's MoE layers.  ``replay``: a layer,
+    the top-k choices to take in place of the argmaxes (``[B, S]`` expert
+    ids each, in choice order); ``shift``: the planted fault, each token's
+    last choice moved to its next-best expert.  After the pass ``taken``
+    holds each layer's choices, ``gap`` the route gap (0 where nothing is
+    replayed; inf where a layer's replayed choices do not cover its
+    batch) and ``flips`` the replayed choices below the k-th logit, of
+    ``choices``."""
+
+    def __init__(self, replay=None, shift: bool = False):
+        self.replay, self.shift = replay, shift
+        self.taken, self.gap, self.flips, self.choices = [], 0.0, 0, 0
+
+    def layer(self, h, p, m, mm, layer: int):
+        given = None if self.replay is None else self.replay[layer]
+        out, aux, taken, gap, flips = moe(h, p, m, mm, given, self.shift)
+        self.taken.append(taken)
+        self.gap = max(self.gap, gap)
+        self.flips += flips
+        self.choices += sum(t.numel() for t in taken) * (given is not None)
+        return out, aux
+
+
+def moe(h, p, m, mm, given=None, shift: bool = False):
+    """Top-k mixture with per-sequence capacity over the router's experts,
+    of which the layer holds the first ``n_experts``; ``given``
+    replays choices (see :class:`Route`).  Returns (out, aux, the choices
+    taken, the route gap, the replayed choices below the k-th logit)."""
     b, s, d = h.shape
-    e, k = m["n_experts"], m["experts_per_token"]
-    gates = torch.softmax(h @ p["router"], dim=-1)  # f32 router
+    e, k = router_experts(m), m["experts_per_token"]
+    scores = h @ p["router"]  # f32 router
+    gates = torch.softmax(scores, dim=-1)
+    gap, flips = 0.0, 0
+    if given is not None:
+        if len(given) != k or any(tuple(i.shape) != (b, s) for i in given):
+            given, gap = None, math.inf
+        else:
+            given = [i.to(h.device) for i in given]
     g = gates
     choices = []
-    for _ in range(k):
-        idx = torch.argmax(g, dim=-1)
+    for c in range(k + shift):
+        idx = torch.argmax(g, dim=-1) if given is None else given[c]
         onehot = F.one_hot(idx, e).to(gates.dtype)
         choices.append((idx, onehot, (g * onehot).sum(-1)))
         g = g * (1.0 - onehot)
+    if shift:
+        del choices[k - 1]
+    if given is not None:
+        with torch.no_grad():
+            sc = scores.detach()
+            kth = sc.topk(k, dim=-1).values[..., -1]
+            for idx in given:
+                below = kth - sc.gather(-1, idx[..., None])[..., 0]
+                gap = max(gap, float(below.max()))
+                flips += int((below > 0).sum())
     aux = (e * torch.sum(choices[0][1].mean((0, 1)) * gates.mean((0, 1)))
            * m["router_aux_coef"])
     cap = max(int(m["capacity_factor"] * s * k / e), k, 1)
@@ -127,7 +183,7 @@ def moe(h, p, m, mm) -> Tuple[torch.Tensor, torch.Tensor]:
     denom = torch.clamp(sum(w for _, _, w in kept), min=1e-9)
     xs = h.reshape(b * s, d)
     out = torch.zeros_like(xs)
-    for ex in range(e):
+    for ex in range(m["n_experts"]):
         rows, weights = [], []
         for idx, keep, w in kept:
             sel = ((idx == ex) & keep).reshape(-1).nonzero()[:, 0]
@@ -138,7 +194,8 @@ def moe(h, p, m, mm) -> Tuple[torch.Tensor, torch.Tensor]:
             continue
         y = swiglu(xs[rows_t], p["wi"][ex], p["wg"][ex], p["wo"][ex], mm)
         out = out.index_add(0, rows_t, y * torch.cat(weights)[:, None])
-    return out.reshape(b, s, d), aux
+    return (out.reshape(b, s, d), aux, [idx for idx, _, _ in choices], gap,
+            flips)
 
 
 def layer_params(w: Dict[Tuple, torch.Tensor], layer: int, kind: str) -> dict:
@@ -158,9 +215,11 @@ def layer_params(w: Dict[Tuple, torch.Tensor], layer: int, kind: str) -> dict:
     return {k: v.float() for k, v in p.items()}
 
 
-def hidden(w, m, tokens, mm) -> Tuple[torch.Tensor, torch.Tensor]:
+def hidden(w, m, tokens, mm, route: Optional[Route] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The final-normed hidden states [B, S, d] f32 of ``tokens`` and the
-    summed aux loss."""
+    summed aux loss; a MoE's layers route through ``route`` where
+    given."""
     kind = block_kind(m)
     eps = m["norm_eps"]
     x = F.embedding(tokens.long(), w[("embed", "table")]).float()
@@ -172,8 +231,9 @@ def hidden(w, m, tokens, mm) -> Tuple[torch.Tensor, torch.Tensor]:
         if kind == "attn":
             x = x + swiglu(h, p["mlp_wi"], p["mlp_wg"], p["mlp_wo"], mm)
         else:
-            out, a = moe(h, {k[4:]: v for k, v in p.items()
-                             if k.startswith("moe_")}, m, mm)
+            route = Route() if route is None else route
+            out, a = route.layer(h, {k[4:]: v for k, v in p.items()
+                                     if k.startswith("moe_")}, m, mm, layer)
             x = x + out
             aux = aux + a
     return rmsnorm(x, w[("final_ln", "scale")].float(), eps), aux
@@ -187,9 +247,10 @@ def logits(w, m, x, mm) -> torch.Tensor:
     return mm(x, w[("head", "w")][:, :v].float())
 
 
-def loss(w, m, tokens, labels, mm) -> torch.Tensor:
+def loss(w, m, tokens, labels, mm, route: Optional[Route] = None
+         ) -> torch.Tensor:
     """Mean next-token cross-entropy plus the aux loss."""
-    x, aux = hidden(w, m, tokens, mm)
+    x, aux = hidden(w, m, tokens, mm, route)
     lg = logits(w, m, x, mm)
     labels = labels.long()
     nll = torch.logsumexp(lg, -1) - lg.gather(-1, labels.clamp(min=0)[..., None])[..., 0]

@@ -27,8 +27,9 @@ def test_cell_found_by_name(name):
     for name_, fn in cells.readers(cell).items():
         assert callable(fn), name_
     numbers = set(cell.limits["numbers"])
-    want = (set(TRAIN_NUMBERS) if cell.traffic["kind"] == "fl_rounds"
-            else {"logit_gap"})
+    moe = cell.config["model"]["family"] == "moe"
+    want = (set(TRAIN_NUMBERS) | ({"route_gap"} if moe else set())
+            if cell.traffic["kind"] == "fl_rounds" else {"logit_gap"})
     assert numbers == want
     for v in cell.limits["numbers"].values():
         assert v["limit"] > 0

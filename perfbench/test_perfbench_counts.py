@@ -20,6 +20,9 @@ def test_matmul_params_by_hand():
     assert counts.matmul_params(M, unembed=False) == 2 * (192 + 384)
     # MoE: 2 experts of 384 and the router's 8·4
     assert counts.matmul_params(MOE) == 2 * (192 + 768 + 32) + 80
+    # 4 of 8 routed experts held: 2 · 4/8 = 1 expert a token, router 8·8
+    share = dict(MOE, router_experts=8)
+    assert counts.matmul_params(share) == 2 * (192 + 384 + 64) + 80
 
 
 def test_attention_flops_by_hand():

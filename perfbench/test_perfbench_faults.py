@@ -4,10 +4,12 @@ for the control, at a size the CPU holds.
 Each fault is planted in the program for one run of the harness (the
 look for a chip skipped): a round step that returns its state unchanged,
 half of each batch left out of the loss, the DP clip skipped, the clean
-updates left out of the aggregate, a served token altered, half of a
-prefill batch never computed.  The control is the reference with float8
-products in the program's place, judged, with the reference's own
-faults, against every training cell's limits.
+updates left out of the aggregate, a MoE's last expert choice moved to
+the next-best expert, a served token altered, half of a prefill batch
+never computed.  The control is the reference with float8 products in
+the program's place, judged, with the reference's own faults, against
+every training cell's limits, and on a MoE by a reference that follows
+its expert choices.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from perfbench.harness import check, report, traffic
 from perfbench.harness.cells import BENCH_DIR, load_json
-from perfbench.control import VARIANTS, train_readings
+from perfbench.control import MOE_VARIANTS, VARIANTS, train_readings
 from perfbench.reference import layout
 from perfbench.run import run_cell
 from perfbench.test_perfbench_reference import tiny_cell, tiny_model
@@ -88,6 +90,49 @@ def test_clip_and_aggregate_faults(monkeypatch, fault):
     assert not _correct(cell)
 
 
+def test_route_shift(monkeypatch):
+    """The program's MoE moves each token's last expert choice to the
+    next-best expert: the run fails ``route_gap``, which reads the gap
+    between the two experts' router logits."""
+    import torch.nn.functional as F
+    from repro_torch.models import moe
+    cell = tiny_cell("fl_rounds", "moe")
+    value, limit = run_cell(cell, SEED, 0.0, False, "cpu").checks["route_gap"]
+    assert value <= limit
+    real = moe._choose
+
+    def shifted(router_w, x, cfg):
+        gates, idxs, masks, gvals, aux = real(router_w, x, cfg)
+        g = gates
+        for mask in masks:
+            g = g * (1.0 - mask)
+        idx = torch.argmax(g, dim=-1)
+        mask = F.one_hot(idx, cfg.n_experts).float()
+        return (gates, idxs[:-1] + [idx], masks[:-1] + [mask],
+                gvals[:-1] + [torch.sum(gates * mask, dim=-1)], aux)
+
+    monkeypatch.setattr(moe, "_choose", shifted)
+    checks = run_cell(cell, SEED, 0.0, False, "cpu").checks
+    value, limit = checks["route_gap"]
+    assert value > 10 * limit, checks
+
+
+def test_route_record_short(monkeypatch):
+    """The program's recorded expert choices cover only half of each
+    batch: the reference cannot follow them, and ``route_gap`` reads
+    inf."""
+    from perfbench.harness import fl
+    real = fl.ExpertChoices.keyed
+
+    def short(self, *a):
+        return {k: [c[:1] for c in v] for k, v in real(self, *a).items()}
+
+    monkeypatch.setattr(fl.ExpertChoices, "keyed", short)
+    checks = run_cell(tiny_cell("fl_rounds", "moe"), SEED, 0.0, False,
+                      "cpu").checks
+    assert checks["route_gap"][0] == float("inf"), checks
+
+
 @pytest.mark.parametrize("fault", ["token_altered", "half_batch"])
 def test_prefill_faults(monkeypatch, fault):
     from repro_torch.models.model import Model
@@ -120,6 +165,23 @@ def test_control_fails_training_limits(cell, variant):
     got = train_readings(c, SEED, "cpu", variants=wanted)[variant]
     got.pop("detail")
     assert not report.correct(check.with_limits(got, limits)), got
+
+
+@pytest.mark.parametrize("variant,number", [("control_fp8", "agg1"),
+                                            ("fault_route_shift", "route_gap")])
+def test_control_fails_on_a_moe(variant, number):
+    """On the tiny MoE in bf16, the reference in the program's place with
+    float8 products, each variant followed on its own expert choices by
+    the float32 reference, fails the silo cell's ``agg1`` limit; with each
+    token's last choice moved to the next-best expert, ``route_gap`` reads
+    the gap between the experts, far over a rounding of a logit."""
+    limits = load_json(BENCH_DIR / "limits" / "granite-3-8b-l8.silo.json")
+    # route_gap: the limit proposed for phi3.5-moe-l4e8.silo
+    limit = dict(limits["numbers"], route_gap={"limit": 0.15})[number]
+    c = tiny_cell("fl_rounds", "moe", "bfloat16", limits)
+    wanted = [v for v in VARIANTS + MOE_VARIANTS if v[0] == variant]
+    got = train_readings(c, SEED, "cpu", variants=wanted)[variant]
+    assert got[number] > limit["limit"], got
 
 
 def test_control_separates_in_prefill():

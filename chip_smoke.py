@@ -4986,12 +4986,14 @@ def phase_families(torch, fak, ref, card, ptxas) -> tuple:
 TF_FAMILIES = (FAM_MOE, FAM_VL, FAM_ED)
 TF_CUTS = {FAM_MOE: (2, 1), FAM_VL: (1,), FAM_ED: (None,)}
 # the update's flat row at the first cut (lm_param_shapes' elements, the
-# norm scales and the vocab padding included) and the reference's
-# param_count there (train() prints it; seamless's leaves out its encoder
-# norms, cross-attention's and the padding: 1,531,342,848)
+# norm scales and the vocab padding included) and ModelConfig.param_count
+# there (train() prints it): the reference's, but phi3.5-moe's adds the
+# routers, 2 x 4,096 x 16 = 131,072, which the reference leaves out;
+# seamless's leaves out its encoder norms, cross-attention's and the
+# padding: 1,531,342,848
 TF_ROW = {FAM_MOE: 2_864_861_184, FAM_VL: 3_369_109_504,
           FAM_ED: 1_632_233_472}
-TF_PARAMS = {FAM_MOE: 2_863_136_768, FAM_VL: 3_369_074_688,
+TF_PARAMS = {FAM_MOE: 2_863_267_840, FAM_VL: 3_369_074_688,
              FAM_ED: 1_531_342_848}
 # The f32 card-vs-CPU checks (checks only, in no table of configurations):
 # each family at full d_model and heads, 1 layer (seamless 1 + 1), 64 stub
@@ -5174,8 +5176,8 @@ def tf_train(torch, dpk, arch: str, card) -> dict:
     n, nbytes = tree_bytes(state.params)
     if layers == TF_CUTS[arch][0]:
         check(cfg.param_count() == TF_PARAMS[arch] and n == TF_ROW[arch],
-              f"{cfg.name}: {cfg.param_count()} params ({n} elements), the "
-              f"reference's {TF_PARAMS[arch]} ({TF_ROW[arch]})")
+              f"{cfg.name}: {cfg.param_count()} params ({n} elements), "
+              f"expected {TF_PARAMS[arch]} ({TF_ROW[arch]})")
     losses = ([res["initial_eval_loss"], res["final_eval_loss"]]
               + [r["local_loss"] for r in res["rounds"]])
     check(all(math.isfinite(v) for v in losses), f"{cfg.name} losses "
@@ -5204,7 +5206,7 @@ def tf_train(torch, dpk, arch: str, card) -> dict:
     print(f"  {cfg.name} at {cfg.n_layers} layers"
           + (f" + {cfg.enc_layers} encoder layers" if cfg.enc_layers else "")
           + f"{front}: train() printed {cfg.param_count():,} params "
-          f"(param_count, the reference's), a row of {n:,} elements "
+          f"(param_count), a row of {n:,} elements "
           f"(lm_param_shapes; {nbytes / 1e9:.2f} GB bf16); eval loss "
           f"{losses[0]:.4f} -> {losses[1]:.4f}; round walls "
           f"{', '.join(f'{w:.1f}' for w in walls)} ms (warm "

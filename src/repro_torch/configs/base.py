@@ -53,10 +53,13 @@ class ModelConfig:
     mrope_sections: Optional[Tuple[int, int, int]] = None  # VLM M-RoPE (t,h,w)
 
     # --- MoE ---
-    n_experts: int = 0
+    n_experts: int = 0  # experts a layer holds: the first of the router's
     experts_per_token: int = 0
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+    # the router's width, the experts a layer routes over (0 -> n_experts);
+    # a layer that holds fewer is one card's share under expert parallelism
+    router_experts: int = 0
 
     # --- SSM (Mamba2 / SSD) ---
     ssm_state: int = 0
@@ -87,9 +90,19 @@ class ModelConfig:
     long_context_variant: Optional[str] = None  # e.g. "swa-4096" for long_500k
     source: str = ""  # citation for the spec
 
+    def __post_init__(self):
+        if self.router_experts and not (
+                0 < self.n_experts <= self.router_experts):
+            raise ValueError(f"{self.n_experts} experts held of the "
+                             f"router's {self.router_experts}")
+
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def resolved_router_experts(self) -> int:
+        return self.router_experts or self.n_experts
 
     @property
     def attention_free(self) -> bool:
@@ -141,7 +154,8 @@ class ModelConfig:
             if kind == "attn":
                 per_layer += attn + mlp
             elif kind == "moe":
-                per_layer += attn + self.n_experts * mlp
+                per_layer += (attn + self.n_experts * mlp
+                              + d * self.resolved_router_experts)
             elif kind == "ssd":
                 din = self.ssm_expand * d
                 per_layer += d * (2 * din + 2 * self.ssm_state) + din * d
@@ -153,13 +167,18 @@ class ModelConfig:
         return per_layer + emb + enc
 
     def active_param_count(self) -> int:
-        """Parameters touched per token (MoE: only routed experts)."""
+        """Parameters touched per token (MoE: only routed experts; of a
+        layer that holds a share of them, that share of the
+        ``experts_per_token``, on average)."""
         if self.family != "moe":
             return self.param_count()
         d, dff = self.d_model, self.d_ff
         mlp_mult = 3 if self.act in ("swiglu", "geglu") else 2
         full = self.param_count()
-        unused = (self.n_experts - self.experts_per_token) * mlp_mult * d * dff
+        expert = mlp_mult * d * dff
+        unused = (self.n_experts * expert
+                  - self.experts_per_token * expert * self.n_experts
+                  // self.resolved_router_experts)
         n_moe_layers = sum(1 for k in self.pattern() if k == "moe")
         return full - n_moe_layers * unused
 

@@ -23,6 +23,23 @@ loss's means are over the whole batch, and the experts run in one
 ``local_map`` (:func:`_local_experts`): each rank dispatches its batch
 rows to the experts it holds, runs them and combines their outputs into
 a partial sum over the expert axes.
+
+A layer may hold a share of its experts, as one card of those that share
+the layer by expert parallelism holds them (``cfg.router_experts`` the
+router's width, ``cfg.n_experts`` the experts held, the first of them):
+it routes over all of the router's experts (the softmax, the top-k, the
+capacity and the aux loss at the router's width), computes only its held
+experts' part of the output, and renormalises that part by every kept
+choice, held or not.  On one card the layer runs without its exchange;
+a share on DTensors is not supported.
+
+Device phases (``obs.phase_call``, forward and ``.bwd``): ``moe.route``
+(the router product, softmax, top-k, capacity queues and the dispatch
+and combine tensors or indices) and ``moe.experts`` (the held experts'
+products and activation).  ``MOE_STATS``, the registry's ``moe``
+counters, count each layer call from shapes alone: ``calls``, ``routed``
+(b·s·k choices) and ``expert_rows`` (held experts × b × capacity, the
+rows the expert products compute, padding included).
 """
 from __future__ import annotations
 
@@ -34,13 +51,18 @@ import torch.nn.functional as F
 from repro_torch.models.layers import dtype_of, fan_in_init
 from repro_torch.models.shardctx import is_dtensor, local_box
 from repro_torch.models.sharding import pm
+from repro_torch.obs.stats import STATS
+from repro_torch.obs.trace import phase_call
+
+MOE_STATS = STATS.counters("moe", calls=0, routed=0, expert_rows=0)
 
 
 def init_moe(gen, cfg):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     dt = dtype_of(cfg)
     p = {
-        "router": pm(fan_in_init(gen, (d, e)), "embed", None),
+        "router": pm(fan_in_init(gen, (d, cfg.resolved_router_experts)),
+                     "embed", None),
         "wi": pm(fan_in_init(gen, (e, d, f), dtype=dt),
                  "experts", "embed", "mlp"),
         "wo": pm(fan_in_init(gen, (e, f, d), fan_in=f, dtype=dt),
@@ -54,15 +76,15 @@ def init_moe(gen, cfg):
 
 def _capacity(cfg, tokens_per_group: int) -> int:
     cap = int(cfg.capacity_factor * tokens_per_group * cfg.experts_per_token
-              / cfg.n_experts)
+              / cfg.resolved_router_experts)
     return max(cap, cfg.experts_per_token, 1)
 
 
 def _choose(router_w, x, cfg):
-    """The router's softmax gates ``[b, s, e]`` f32, the top-k choices in
-    order (expert index ``[b, s]``, its one-hot mask ``[b, s, e]`` and its
-    gate ``[b, s]`` each) and the Switch aux loss."""
-    e = cfg.n_experts
+    """The router's softmax gates ``[b, s, e]`` f32 over its ``e`` experts,
+    the top-k choices in order (expert index ``[b, s]``, its one-hot mask
+    ``[b, s, e]`` and its gate ``[b, s]`` each) and the Switch aux loss."""
+    e = cfg.resolved_router_experts
     gates = _gates(router_w, x)
     idxs: List[torch.Tensor] = []
     masks: List[torch.Tensor] = []
@@ -122,27 +144,64 @@ def _one_hot_slots(pos: torch.Tensor, c: int) -> torch.Tensor:
     return (pos[..., None] == torch.arange(c, device=pos.device)).float()
 
 
+def _token_slots(masks, c: int):
+    """Each choice's keep ``[b, s]`` (its expert's queue under the
+    capacity ``c``) and slot ``[b, s]`` (its queue position; a dropped
+    choice's is c − 1)."""
+    keeps, poss = [], []
+    for m, pos in zip(masks, _queue_positions(masks)):
+        pos_tok = torch.sum(pos * m, dim=-1).long()
+        keep = (pos_tok < c) & (torch.sum(m, dim=-1) > 0)
+        keeps.append(keep)
+        poss.append(torch.where(keep, pos_tok, c - 1))
+    return keeps, poss
+
+
+def _kept_weight(gvals, keeps) -> torch.Tensor:
+    """The renormalising denominator ``[b, s]``: the gates of every kept
+    choice, held here or not."""
+    return torch.clamp(sum(gv * kp for gv, kp in zip(gvals, keeps)),
+                       min=1e-9)
+
+
 def route(router_w, x, cfg) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """Top-k routing with capacity.  x: [b, s, d] -> (dispatch [b,s,e,c]
-    0/1 f32, combine [b,s,e,c] f32, aux loss)."""
+    """Top-k routing with capacity over the router's experts.  x: [b, s, d]
+    -> (dispatch [b,s,e,c] 0/1 f32, combine [b,s,e,c] f32, aux loss), e
+    the held experts, the combine renormalised over every kept choice."""
     b, s, _ = x.shape
     c = _capacity(cfg, s)
+    n = cfg.n_experts
     _, _, masks, gvals, aux = _choose(router_w, x, cfg)
-    dispatch = x.new_zeros((b, s, cfg.n_experts, c), dtype=torch.float32)
+    dispatch = x.new_zeros((b, s, n, c), dtype=torch.float32)
     combine = torch.zeros_like(dispatch)
+    keeps = []
     for m, gv, pos in zip(masks, gvals, _queue_positions(masks)):
         keep = (pos < c) * m
-        pos_oh = _one_hot_slots(pos, c)
-        dispatch = dispatch + keep[..., None] * pos_oh
-        combine = combine + (keep * gv[..., None])[..., None] * pos_oh
-    # renormalise the top-k gates over the kept experts
-    denom = torch.sum(combine, dim=(2, 3), keepdim=True)
-    return dispatch, combine / torch.clamp(denom, min=1e-9), aux
+        keeps.append(keep)
+        pos_oh = _one_hot_slots(pos[..., :n], c)
+        dispatch = dispatch + keep[..., :n, None] * pos_oh
+        combine = combine + (keep * gv[..., None])[..., :n, None] * pos_oh
+    denom = _kept_weight(gvals, [torch.sum(k, dim=-1) for k in keeps])
+    return dispatch, combine / denom[..., None, None], aux
+
+
+def _slots(router_w, x, cfg, c: int):
+    """The scatter dispatch's routing: the choices (``_choose``), each
+    one's keep and slot (``_token_slots``), their gates, the
+    renormalising denominator and the aux loss."""
+    _, idxs, masks, gvals, aux = _choose(router_w, x, cfg)
+    keeps, poss = _token_slots(masks, c)
+    return idxs, keeps, poss, gvals, _kept_weight(gvals, keeps), aux
 
 
 def _experts_forward(params, xe: torch.Tensor, cfg) -> torch.Tensor:
-    """xe: [e, b, c, d] -> [e, b, c, d] through the per-expert MLPs."""
+    """xe: [e, b, c, d] -> [e, b, c, d] through the per-expert MLPs, the
+    device phase ``moe.experts``."""
+    return phase_call("moe.experts", lambda z: _experts(params, z, cfg), xe)
+
+
+def _experts(params, xe: torch.Tensor, cfg) -> torch.Tensor:
     h = torch.einsum("ebcd,edf->ebcf", xe, params["wi"])
     if "wg" in params:
         g = torch.einsum("ebcd,edf->ebcf", xe, params["wg"])
@@ -155,14 +214,25 @@ def _experts_forward(params, xe: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def moe_mlp(params, x: torch.Tensor, cfg, impl: str = "einsum"):
-    """x: [b, s, d] -> ([b, s, d], aux_loss) on the ``impl`` dispatch."""
+    """x: [b, s, d] -> ([b, s, d], aux_loss) on the ``impl`` dispatch: the
+    held experts' part of the output."""
     if impl not in ("einsum", "scatter"):
         raise ValueError(f"MoE impl {impl!r}: 'einsum' or 'scatter'")
-    if is_dtensor(x):
+    sharded = is_dtensor(x)
+    if sharded and cfg.n_experts != cfg.resolved_router_experts:
+        raise ValueError(f"a share of {cfg.n_experts} of "
+                         f"{cfg.resolved_router_experts} experts runs on one "
+                         "device only, not in a sharded step")
+    b, s, _ = x.shape
+    MOE_STATS["calls"] += 1
+    MOE_STATS["routed"] += b * s * cfg.experts_per_token
+    MOE_STATS["expert_rows"] += cfg.n_experts * b * _capacity(cfg, s)
+    if sharded:
         return _moe_mlp_sharded(params, x, cfg, impl)
     if impl == "scatter":
         return _moe_mlp_scatter(params, x, cfg)
-    dispatch, combine, aux = route(params["router"], x, cfg)
+    dispatch, combine, aux = phase_call(
+        "moe.route", lambda y: route(params["router"], y, cfg), x)
     xe = torch.einsum("bsec,bsd->ebcd", dispatch.to(x.dtype), x)
     ye = _experts_forward(params, xe, cfg)
     return torch.einsum("bsec,ebcd->bsd", combine.to(x.dtype), ye), aux
@@ -234,75 +304,59 @@ def _moe_mlp_sharded(params, x, cfg, impl: str):
                         device_mesh=mesh)(dispatch, combine, x, *weights)
         return out, aux
 
-    b, s, d = x.shape
-    c = _capacity(cfg, s)
-    _, idxs, masks, gvals, aux = _choose(params["router"], x, cfg)
-    keeps, poss = [], []
-    for m, pos in zip(masks, _queue_positions(masks)):
-        pos_tok = torch.sum(pos * m, dim=-1).long()
-        keep = (pos_tok < c) & (torch.sum(m, dim=-1) > 0)
-        keeps.append(keep)
-        poss.append(torch.where(keep, pos_tok, c - 1))
+    c = _capacity(cfg, x.shape[1])
+    idxs, keeps, poss, gvals, weights_sum, aux = _slots(params["router"], x,
+                                                        cfg, c)
     k = len(idxs)
     tok_pl = pl(0)
 
     def local_scatter(xl, *rest):
         ws, rest = rest[:len(w_names)], rest[len(w_names):]
-        p = dict(zip(w_names, ws))
         il, kl, ql, gl = rest[:k], rest[k:2 * k], rest[2 * k:3 * k], rest[3 * k:]
-        bl = xl.shape[0]
-        bi = torch.arange(bl, device=xl.device)[:, None].expand(bl, s)
-        xe = xl.new_zeros((e_local, bl, c, d))
-        mine = []
-        for idx, keep, pos in zip(il, kl, ql):
-            rel = idx - e0
-            here = keep & (rel >= 0) & (rel < e_local)
-            mine.append((rel.clamp(0, e_local - 1), here, pos))
-            contrib = torch.where(here[..., None], xl, torch.zeros_like(xl))
-            xe = xe.index_put((mine[-1][0], bi, pos), contrib, accumulate=True)
-        ye = _experts_forward(p, xe, cfg)
-        outs = []
-        for (rel, here, pos), gv in zip(mine, gl):
-            got = ye[rel, bi, pos]
-            outs.append(got * (gv * here)[..., None].to(got.dtype))
-        return sum(outs)
+        return _scatter_experts(dict(zip(w_names, ws)), xl, il, kl, ql, gl,
+                                e0, e_local, c, cfg)
 
-    # the renormalising denominator uses every kept choice, local or not
-    weights_sum = torch.clamp(sum(gv * kp for gv, kp in zip(gvals, keeps)),
-                              min=1e-9)[..., None].to(x.dtype)
     out = local_map(local_scatter, (out_pl,),
                     in_placements=(x_pl,) + w_pls + (tok_pl,) * (4 * k),
                     in_grad_placements=(x_grad,) + w_grads
                     + (tok_pl,) * (3 * k) + (x_grad,) * k,
                     device_mesh=mesh)(x, *weights, *idxs, *keeps, *poss,
                                       *gvals)
-    return out / weights_sum, aux
+    return out / weights_sum[..., None].to(x.dtype), aux
+
+
+def _scatter_experts(p, x, idxs, keeps, poss, gvals, e0: int, n: int, c: int,
+                     cfg):
+    """The part of the output ``[b, s, d]`` that the experts ``[e0, e0 +
+    n)`` give, before the renormalisation: each kept choice of one of them
+    added into its slot of the ``[n, b, c, d]`` buffers, the experts run,
+    and each gathered back at its gate.  Any other choice adds an exact
+    zero into a slot and takes nothing back."""
+    b, s, d = x.shape
+    bi = torch.arange(b, device=x.device)[:, None].expand(b, s)
+    xe = x.new_zeros((n, b, c, d))
+    mine = []
+    for idx, keep, pos in zip(idxs, keeps, poss):
+        rel = idx - e0
+        here = keep & (rel >= 0) & (rel < n)
+        mine.append((rel.clamp(0, n - 1), here, pos))
+        contrib = torch.where(here[..., None], x, torch.zeros_like(x))
+        xe = xe.index_put((mine[-1][0], bi, pos), contrib, accumulate=True)
+    ye = _experts_forward(p, xe, cfg)
+    outs = []
+    for (rel, here, pos), gv in zip(mine, gvals):
+        got = ye[rel, bi, pos]
+        outs.append(got * (gv * here)[..., None].to(got.dtype))
+    return sum(outs)
 
 
 def _moe_mlp_scatter(params, x: torch.Tensor, cfg):
     """Scatter/gather dispatch: the routing of :func:`route`, the tokens
-    added into ``[e, b, c, d]`` buffers and gathered back by index."""
-    b, s, d = x.shape
-    c = _capacity(cfg, s)
-    _, idxs, masks, gvals, aux = _choose(params["router"], x, cfg)
-    keeps, poss = [], []
-    for m, pos in zip(masks, _queue_positions(masks)):
-        pos_tok = torch.sum(pos * m, dim=-1).long()  # [b, s]
-        keep = (pos_tok < c) & (torch.sum(m, dim=-1) > 0)
-        keeps.append(keep)
-        poss.append(torch.where(keep, pos_tok, c - 1))
-    bi = torch.arange(b, device=x.device)[:, None].expand(b, s)
-    xe = x.new_zeros((cfg.n_experts, b, c, d))
-    for idx, keep, pos in zip(idxs, keeps, poss):
-        contrib = torch.where(keep[..., None], x, torch.zeros_like(x))
-        xe = xe.index_put((idx, bi, pos), contrib, accumulate=True)
-    ye = _experts_forward(params, xe, cfg)
-    # gather back + gate-weighted combine (renormalised over kept experts)
-    outs, weights = [], []
-    for idx, keep, pos, gv in zip(idxs, keeps, poss, gvals):
-        got = ye[idx, bi, pos]  # [b, s, d]
-        w = gv * keep
-        outs.append(got * w[..., None].to(got.dtype))
-        weights.append(w)
-    denom = torch.clamp(sum(weights), min=1e-9)[..., None].to(x.dtype)
-    return sum(outs) / denom, aux
+    of the held experts added into ``[e, b, c, d]`` buffers and gathered
+    back by index."""
+    c = _capacity(cfg, x.shape[1])
+    idxs, keeps, poss, gvals, denom, aux = phase_call(
+        "moe.route", lambda y: _slots(params["router"], y, cfg, c), x)
+    out = _scatter_experts(params, x, idxs, keeps, poss, gvals, 0,
+                           cfg.n_experts, c, cfg)
+    return out / denom[..., None].to(x.dtype), aux

@@ -111,7 +111,9 @@ def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
     reference's drops it.  Device phases (``obs.phase_call``, forward and
     ``.bwd``): ``block.attention`` (``ln1`` to the output projection) of
     the ``attn`` and ``moe`` blocks in train and prefill, ``block.mlp``
-    (``ln2`` and the dense MLP); the residual adds stay outside."""
+    (``ln2`` and the dense MLP), ``block.moe`` (``ln2`` through the
+    experts' combine, with ``moe.route`` and ``moe.experts`` inside it);
+    the residual adds stay outside."""
     _check_kind(kind)
     new_cache = cache
     if kind == "ssd":
@@ -143,8 +145,9 @@ def apply_block(params, kind: str, x, positions, cfg, *, mode: str,
             window=_attn_window(cfg, window_override), impl=impl), x)
     x = _act(x + a)
     if kind == "moe":
-        h = L.rmsnorm(params["ln2"], x, cfg.norm_eps)
-        m, aux = moe_lib.moe_mlp(params["moe"], h, cfg, impl=MOE_IMPL[0])
+        m, aux = phase_call("block.moe", lambda y: moe_lib.moe_mlp(
+            params["moe"], L.rmsnorm(params["ln2"], y, cfg.norm_eps), cfg,
+            impl=MOE_IMPL[0]), x)
         return _act(x + m), new_cache, aux
     m = phase_call("block.mlp", lambda y: L.mlp(
         params["mlp"], L.rmsnorm(params["ln2"], y, cfg.norm_eps), cfg.act), x)

@@ -16,7 +16,8 @@ check it, and ``chip_smoke.py`` on the card under sync debug mode
   records.
 * ``obs/stats.py`` — the :class:`StatsRegistry`: ``fl_driver.RUNNER_STATS``
   and ``serve.engine.SERVE_STATS`` are registry views, their dict-style
-  call sites unchanged.
+  call sites unchanged; ``models/moe.py``'s ``MOE_STATS`` (``moe``) counts
+  the expert layer's calls, routed choices and expert rows from shapes.
 * ``obs/store.py`` — the indexed single-file SQLite experiment store, in
   the reference's schema.
 """

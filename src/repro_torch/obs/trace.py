@@ -9,7 +9,8 @@ events, JSONL, profiler glue — the port's copy of
   and the traced run computes the same bits as the untraced one.
 * **Device phases** — :func:`phase` and :func:`phase_call` name the
   round step's phases (``core/rounds.py``) and the model's sublayers
-  (``models/transformer.py``, ``models/attention.py``) for a
+  (``models/transformer.py``, ``models/attention.py``,
+  ``models/moe.py``) for a
   ``torch.profiler`` trace, forward and backward.  They never write host
   spans: the host wall time of work launched asynchronously on the card
   means nothing.
@@ -112,31 +113,42 @@ def phase(name: str):
 class _BackwardRange:
     """``<name>.bwd`` on the thread that runs the backward pass: opened
     by a hook on the phase's output when its gradient is ready (just
-    before the node that made the output runs backward), closed by the
-    first hook on an input whose gradient is ready.  The sublayer's
+    before the node that made the output runs backward; of several
+    outputs, the first), closed by the first hook on an input whose
+    gradient is ready, and not opened again.  The sublayer's
     nodes were all made after its inputs', so autograd, which runs the
     ready node made last first, runs every one of them in between."""
 
-    __slots__ = ("name", "rf")
+    __slots__ = ("name", "rf", "closed")
 
     def __init__(self, name: str):
-        self.name, self.rf = name, None
+        self.name, self.rf, self.closed = name, None, False
 
     def open(self, grad):
-        if self.rf is None:
+        if self.rf is None and not self.closed:
             self.rf = record_function(self.name)
             self.rf.__enter__()
 
     def close(self, grad):
         if self.rf is not None:
             self.rf.__exit__(None, None, None)
-            self.rf = None
+            self.rf, self.closed = None, True
+
+
+def _tensors(out) -> list:
+    """The tensors of a sublayer's output: one, or nested tuples and lists
+    of them."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return [out] if isinstance(out, torch.Tensor) else []
 
 
 def phase_call(name: str, fn, *inputs):
     """``fn(*inputs)``, the sublayer ``name``, with its forward under
     :func:`phase` and, while a trace records and grad is on, its backward
-    under ``<name>.bwd``.  The backward range hangs on tensor hooks, not
+    under ``<name>.bwd``, opened by the first of its output tensors'
+    hooks (a sublayer may return several, nested in tuples and lists) and
+    closed, once, by the first of its inputs'.  The backward range hangs on tensor hooks, not
     on identity ``autograd.Function`` markers: a marker node between an
     input and the sublayer would sum the sublayer's gradients of that
     input before they meet the skip path's, an f32 re-association
@@ -151,11 +163,13 @@ def phase_call(name: str, fn, *inputs):
         return fn(*inputs)
     with record_function(name):
         out = fn(*inputs)
-    if torch.is_grad_enabled() and getattr(out, "requires_grad", False):
+    outs = [t for t in _tensors(out) if t.requires_grad]
+    if torch.is_grad_enabled() and outs:
         ins = [t for t in inputs if getattr(t, "requires_grad", False)]
         if ins:
             rng = _BackwardRange(name + ".bwd")
-            out.register_hook(rng.open)
+            for t in outs:
+                t.register_hook(rng.open)
             for t in ins:
                 t.register_hook(rng.close)
     return out

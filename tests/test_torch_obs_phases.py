@@ -15,6 +15,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.granite_3_8b import smoke_config
+from repro_torch.configs.phi3p5_moe_42b import smoke_config as moe_smoke
 from repro_torch.core import rounds as t_rounds
 from repro_torch.models import attention as t_attn
 from repro_torch.models import model as t_model
@@ -145,6 +146,40 @@ def test_profiler_sees_each_phase_and_its_bwd_once_a_layer_a_step():
     one = (["lm.head.bwd"]
            + ["block.mlp.bwd", "block.attention.bwd"] * layers)
     assert bwd == one * STEPS
+
+
+MOE_PHASES = ("block.moe", "moe.route", "moe.experts")
+
+
+@pytest.mark.parametrize("impl", ["einsum", "scatter"])
+def test_moe_phases_and_their_bwd_leave_the_step_bitwise(impl, monkeypatch):
+    """A MoE step that holds 2 of its router's 4 experts, under a
+    profiler: ``block.moe`` and, inside it, ``moe.route`` and
+    ``moe.experts``, forward and ``.bwd``, once a layer; the loss and
+    every grad bitwise the untraced step's.  The route returns several
+    tensors (``phase_call`` hooks each output that needs a grad)."""
+    monkeypatch.setattr(t_tr, "MOE_IMPL", [impl])
+    cfg = dataclasses.replace(moe_smoke(), dtype="float32", n_experts=2,
+                              router_experts=4)
+    m = t_model.build(cfg)
+    params = m.init(0, device="cpu")
+    batch = _batch(cfg, 5)
+    vag = _vag(m)
+    ref_loss, ref_g = vag(params, batch)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss, g = vag(params, batch)
+    assert torch.equal(loss, ref_loss)
+    for a, b in zip(tree_leaves(g), tree_leaves(ref_g), strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    ev = _host_events(prof)
+    names = _names(ev)
+    for n in MOE_PHASES:
+        assert names.get(n) == names.get(n + ".bwd") == cfg.n_layers, (n, names)
+    assert "block.mlp" not in names
+    for inner in MOE_PHASES[1:]:
+        for sfx in ("", ".bwd"):
+            assert _inside(_intervals(ev, inner + sfx),
+                           _intervals(ev, "block.moe" + sfx)), inner + sfx
 
 
 def test_no_grad_prefill_shows_the_forward_phases_only():
